@@ -1,0 +1,275 @@
+"""POP map-step execution backends — the port of ``repro/core/backends.py``.
+
+Every backend has the reference's contract,
+
+    backend(batch, K_mv, KT_mv, solver_kw, engine=..., **opts) -> SolveResult
+
+where ``batch = (ops, warm_x, warm_y)`` is a stacked :class:`~repro_torch.
+core.pdhg.OperatorLP` plus starting iterates for every lane, all on one
+device (cold starts are materialised up front by :func:`solve_map`).
+Backends differ only in scheduling, never in math.
+
+Registered backends:
+
+``serial``
+    One k=1 ``solve_stacked`` per lane, in a Python loop — the reference.
+``vmap``
+    One batched ``solve_stacked`` over the whole ``[k]`` stack (the
+    reference vmaps; here the batch axis is written out, and a half-step
+    is one kernel call for all k lanes).
+``chunked_vmap``
+    Batched solves over fixed-size chunks of lanes (k padded to a chunk
+    multiple by repeating lane 0): peak memory is bounded by the chunk.
+``shard_map`` / ``pmap``
+    Registered so configs naming them validate; they raise
+    ``NotImplementedError`` until the multi-GPU item of the ROADMAP.
+
+``backend="auto"`` picks by k and per-sub-problem size
+(:func:`select_backend`); the port drives one device per service, so the
+multi-device rule never fires.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from . import pdhg
+from .pdhg import OperatorLP, SolveResult, StepEngine, map_arrays, zip_arrays
+
+MapBackend = Callable[..., SolveResult]
+
+MAP_BACKENDS: Dict[str, MapBackend] = {}
+
+DEFAULT_CHUNK = 16
+AUTO_VMAP_MAX_K = 64
+AUTO_VMAP_MAX_ELEMS = 64_000_000
+
+EngineSpec = Union[str, StepEngine]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the CUDA device unless the caller
+    names another.  With no CUDA device present the default raises — it
+    never falls back to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; repro_torch runs on the GPU "
+                "by default — pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def register_backend(name: str) -> Callable[[MapBackend], MapBackend]:
+    def deco(fn: MapBackend) -> MapBackend:
+        MAP_BACKENDS[name] = fn
+        return fn
+    return deco
+
+
+def get_backend(name: str) -> MapBackend:
+    if name not in MAP_BACKENDS:
+        raise ValueError(
+            f"unknown map backend {name!r}; registered: {sorted(MAP_BACKENDS)}")
+    return MAP_BACKENDS[name]
+
+
+def batch_size(tree) -> int:
+    """Leading-axis length of any stacked tree (ops or (ops, wx, wy))."""
+    leaves: list = []
+    map_arrays(leaves.append, tree)
+    return leaves[0].shape[0]
+
+
+def pad_to_multiple(tree, m: int):
+    """Pad the lane axis to a multiple of ``m`` by repeating lane 0;
+    returns ``(padded, k)`` with the ORIGINAL k."""
+    k = batch_size(tree)
+    pad = (-k) % m
+    if pad == 0:
+        return tree, k
+    padded = map_arrays(
+        lambda a: torch.cat([a, a[:1].expand((pad,) + a.shape[1:])]), tree)
+    return padded, k
+
+
+def _concat_results(outs) -> SolveResult:
+    return zip_arrays(lambda *xs: np.concatenate(xs), *outs)
+
+
+# --------------------------------------------------------------------------
+# the per-batch solver (shared by every backend)
+# --------------------------------------------------------------------------
+
+def cold_start(ops: OperatorLP) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x0 = clip(0, l, u), y0 = 0 — the solver's own cold start."""
+    x0 = torch.minimum(torch.maximum(torch.zeros_like(ops.c), ops.l), ops.u)
+    return x0, torch.zeros_like(ops.q)
+
+
+def _solve_batch(batch, K_mv, KT_mv, solver_kw, engine) -> SolveResult:
+    if engine != "matvec" and not isinstance(engine, StepEngine):
+        raise ValueError(f"unresolved engine {engine!r} reached a backend; "
+                         "go through solve_map or pass a StepEngine")
+    return pdhg.solve_stacked(batch[0], engine=engine, K_mv=K_mv,
+                              KT_mv=KT_mv, warm_x=batch[1],
+                              warm_y=batch[2], **solver_kw)
+
+
+@register_backend("serial")
+def solve_serial(batch, K_mv, KT_mv, solver_kw,
+                 engine: EngineSpec = "matvec") -> SolveResult:
+    """One k=1 solve per sub-problem, in a Python loop."""
+    outs = [_solve_batch(map_arrays(lambda a, i=i: a[i:i + 1], batch),
+                         K_mv, KT_mv, solver_kw, engine)
+            for i in range(batch_size(batch))]
+    return _concat_results(outs)
+
+
+@register_backend("vmap")
+def solve_vmap(batch, K_mv, KT_mv, solver_kw,
+               engine: EngineSpec = "matvec") -> SolveResult:
+    """One batched solve over the whole lane stack."""
+    return _solve_batch(batch, K_mv, KT_mv, solver_kw, engine)
+
+
+@register_backend("chunked_vmap")
+def solve_chunked_vmap(batch, K_mv, KT_mv, solver_kw,
+                       engine: EngineSpec = "matvec",
+                       chunk: int = DEFAULT_CHUNK) -> SolveResult:
+    """Batched solves over chunks of ``chunk`` lanes (k padded up to a
+    chunk multiple; padding lanes are sliced off the result)."""
+    k = batch_size(batch)
+    chunk = max(1, min(chunk, k))
+    padded, _ = pad_to_multiple(batch, chunk)
+    outs = [_solve_batch(map_arrays(lambda a, i=i: a[i:i + chunk], padded),
+                         K_mv, KT_mv, solver_kw, engine)
+            for i in range(0, batch_size(padded), chunk)]
+    return map_arrays(lambda a: a[:k], _concat_results(outs))
+
+
+def _multi_device(name: str) -> MapBackend:
+    def backend(batch, K_mv, KT_mv, solver_kw, engine="matvec", **opts):
+        raise NotImplementedError(
+            f"map backend {name!r} needs the multi-GPU port (ROADMAP open "
+            "items §1, item 14); use 'vmap', 'chunked_vmap' or 'serial'")
+    backend.__name__ = f"solve_{name}"
+    return backend
+
+
+register_backend("shard_map")(_multi_device("shard_map"))
+register_backend("pmap")(_multi_device("pmap"))
+
+
+# --------------------------------------------------------------------------
+# auto-selection + entry points
+# --------------------------------------------------------------------------
+
+def select_backend(k: int, n_elems_per_sub: int = 0,
+                   n_dev: int = 1) -> str:
+    """The reference's rule: several devices and enough lanes ->
+    ``shard_map``; one device -> ``vmap`` until the stack gets large, then
+    ``chunked_vmap``.  A service drives one device, so ``n_dev`` is 1."""
+    if n_dev > 1 and k >= n_dev:
+        return "shard_map"
+    if k > AUTO_VMAP_MAX_K or k * max(n_elems_per_sub, 1) > AUTO_VMAP_MAX_ELEMS:
+        return "chunked_vmap"
+    return "vmap"
+
+
+def _n_elems_per_sub(ops: OperatorLP) -> int:
+    leaves: list = []
+    map_arrays(leaves.append, ops)
+    return sum(int(np.prod(a.shape[1:])) for a in leaves)
+
+
+def _resolve_warm(ops: OperatorLP, warm):
+    """Starting iterates from ``warm``: None (cold), an object with
+    ``.x``/``.y``, an (x, y) pair, or a masked ``WarmStart`` — each
+    stacked [k, ...]; a WarmStart's per-lane mask starts False lanes cold
+    (a ``torch.where`` on data)."""
+    if warm is None:
+        return cold_start(ops)
+    mask = getattr(warm, "mask", None)
+    if hasattr(warm, "x") and hasattr(warm, "y"):
+        wx, wy = warm.x, warm.y
+    else:
+        wx, wy = warm
+    dev = ops.c.device
+    wx = torch.as_tensor(wx, dtype=ops.c.dtype, device=dev)
+    wy = torch.as_tensor(wy, dtype=ops.q.dtype, device=dev)
+    if wx.shape != ops.c.shape or wy.shape != ops.q.shape:
+        raise ValueError(
+            f"warm-start shapes {tuple(wx.shape)}/{tuple(wy.shape)} do not "
+            f"match the stacked problem {tuple(ops.c.shape)}/"
+            f"{tuple(ops.q.shape)} — for warm re-solves across partition "
+            "changes go through core.plan.remap_warm")
+    if mask is not None:
+        m = torch.as_tensor(np.asarray(mask, bool), device=dev)[:, None]
+        cx, cy = cold_start(ops)
+        wx = torch.where(m, wx, cx)
+        wy = torch.where(m, wy, cy)
+    return wx, wy
+
+
+def make_batch(ops: OperatorLP, warm=None):
+    """The ``(ops, warm_x, warm_y)`` batch a map backend consumes."""
+    return (ops, *_resolve_warm(ops, warm))
+
+
+def resolve_exec(ops: OperatorLP, K_mv, KT_mv, backend: str = "auto",
+                 engine: EngineSpec = "auto",
+                 opts: Optional[dict] = None):
+    """Resolve ``"auto"`` specs to the (backend name, engine, opts) that
+    will actually run; ``engine`` comes back as ``"matvec"`` or a resolved
+    :class:`StepEngine`.  Under ``backend="auto"`` the opts the winning
+    backend does not take are dropped."""
+    if engine == "auto" or engine is None:
+        engine = pdhg.select_engine(ops, K_mv, KT_mv)
+    if engine != "matvec":
+        engine = pdhg.resolve_engine(engine, ops, K_mv, KT_mv)
+    opts = dict(opts or {})
+    if backend == "auto":
+        backend = select_backend(batch_size(ops), _n_elems_per_sub(ops))
+        if opts:
+            import inspect
+            accepted = inspect.signature(get_backend(backend)).parameters
+            opts = {k: v for k, v in opts.items() if k in accepted}
+    else:
+        get_backend(backend)          # fail fast on unknown names
+    return backend, engine, opts
+
+
+def solve_map(ops: OperatorLP, K_mv, KT_mv, solver_kw: Optional[dict] = None,
+              backend: str = "auto", engine: EngineSpec = "auto",
+              warm=None, **opts: Any) -> SolveResult:
+    """Run the POP map step on stacked ``ops`` with the named backend and
+    step engine (both resolved through :func:`resolve_exec`)."""
+    solver_kw = dict(solver_kw or {})
+    backend, engine, opts = resolve_exec(ops, K_mv, KT_mv, backend, engine,
+                                         opts)
+    batch = make_batch(ops, warm)
+    return get_backend(backend)(batch, K_mv, KT_mv, solver_kw,
+                                engine=engine, **opts)
+
+
+def solve_one_ex(op: OperatorLP, K_mv, KT_mv,
+                 solver_kw: Optional[dict] = None,
+                 backend: str = "auto", engine: EngineSpec = "auto",
+                 warm=None, **opts: Any):
+    """Solve ONE unbatched LP as a k=1 stack and report what ran:
+    ``(result, backend_name, engine_name)``; the result is unbatched."""
+    opb = map_arrays(lambda a: a[None], op)
+    backend, engine, opts = resolve_exec(opb, K_mv, KT_mv, backend, engine,
+                                         opts)
+    if warm is not None:
+        if hasattr(warm, "x") and hasattr(warm, "y"):
+            warm = (warm.x, warm.y)
+        warm = tuple(torch.as_tensor(w)[None] for w in warm)
+    res = solve_map(opb, K_mv, KT_mv, solver_kw, backend=backend,
+                    engine=engine, warm=warm, **opts)
+    return (map_arrays(lambda a: a[0], res), backend,
+            pdhg.engine_name(engine))

@@ -13,3 +13,9 @@ except ImportError:
 if settings is not None:
     settings.register_profile("ci", derandomize=True, deadline=None)
     settings.load_profile("ci")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (runs on the GPU, skips "
+        "elsewhere with a reason)")
