@@ -161,14 +161,15 @@ make_plan = plan
 # --------------------------------------------------------------------------
 
 def build(problem: POPProblem, pop_plan: PopPlan,
-          device="cpu") -> OperatorLP:
+          device=None) -> OperatorLP:
     """Build the plan's k sub-LPs, stack them (ELL widths padded to the
     stack maximum) and move the stack to ``device``; records the stacked
     shapes on the plan."""
+    device = backends_mod.resolve_device(device)
     subs = [problem.build_sub(pop_plan.entity_of_slot[i], 1.0 / pop_plan.k,
                               scale=pop_plan.row_scale(i))
             for i in range(pop_plan.k)]
-    ops = pdhg.to_device(pdhg.stack_ops(subs), torch.device(device))
+    ops = pdhg.to_device(pdhg.stack_ops(subs), device)
     pop_plan.shapes = {"x": tuple(ops.c.shape), "y": tuple(ops.q.shape)}
     if ops.structured is not None:
         s = ops.structured

@@ -39,7 +39,7 @@ def _structured(fields: dict, device) -> StructuredOperator:
         for f in StructuredOperator._fields})
 
 
-def operator_from_numpy(fields: dict, device="cpu"):
+def operator_from_numpy(fields: dict, device):
     """The port's container from the reference's leaves as numpy arrays.
 
     ``fields`` holds either the :class:`StructuredOperator` fields
@@ -66,7 +66,7 @@ def operator_from_numpy(fields: dict, device="cpu"):
                                                                device))
 
 
-def warm_from_numpy(x, y, mask=None, device="cpu"):
+def warm_from_numpy(x, y, mask=None, *, device):
     """Warm iterates for the port's solvers: an ``(x, y)`` tensor pair, or
     a masked :class:`~repro_torch.core.plan.WarmStart` when ``mask`` ([k]
     bool) is given."""

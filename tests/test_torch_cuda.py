@@ -12,15 +12,13 @@ FMA, as the plain version's separate elementwise ops do); the
 gather-reduce products sum in another order, so they are held at the
 reference's product tolerance of 1e-4 (``tests/test_kernels.py``)."""
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import testing
 from repro_torch.core import pdhg, pop
 from repro_torch.core.config import SolveConfig
-from repro_torch.domains import GavelInstance
 from repro_torch.kernels import ops, structured_pdhg_step
 from repro_torch.problems.cluster_scheduling import (GavelProblem,
                                                      make_cluster_workload)
@@ -37,56 +35,22 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _skewed(k, M, N, density, sparse, seed=0):
-    """A stacked skewed K (one full row, one full column); ``sparse``
-    packs only its nonzeros, which sends the full row and column to the
-    wide buckets."""
-    rng = np.random.default_rng(seed)
-    G = rng.normal(size=(k, M, N)) * (rng.random((k, M, N)) < density)
-    G[:, M // 2, :] = rng.normal(size=(k, N))
-    G[:, :, N // 3] = rng.normal(size=(k, M))
-    zeros = torch.zeros
-    lanes = []
-    for g in G:
-        r, c = np.nonzero(g) if sparse else np.indices(g.shape).reshape(2, -1)
-        lanes.append(pdhg.OperatorLP(
-            c=zeros(N), q=zeros(M), l=zeros(N), u=zeros(N),
-            ineq_mask=torch.ones(M, dtype=torch.bool), data=(),
-            structured=pdhg.structured_from_coo(r, c, g[r, c], M, N)))
-    return pdhg.stack_ops(lanes).structured
-
-
 def _gavel():
     prob = GavelProblem(make_cluster_workload(40, num_workers=(6, 6, 6),
                                               seed=3))
-    return pop.build(prob, pop.plan(prob, 4, strategy="stratified")).structured
+    return pop.build(prob, pop.plan(prob, 4, strategy="stratified"),
+                     "cpu").structured
 
 
 CASES = {
-    "skewed_dense(3,45,67)": lambda: _skewed(3, 45, 67, 0.25, False),
-    "skewed_sparse(4,130,250)": lambda: _skewed(4, 130, 250, 0.05, True),
-    "skewed_sparse(2,256,129)": lambda: _skewed(2, 256, 129, 0.1, True),
+    "skewed_dense(3,45,67)":
+        lambda: testing.skewed_operator(3, 45, 67, 0.25, False),
+    "skewed_sparse(4,130,250)":
+        lambda: testing.skewed_operator(4, 130, 250, 0.05, True),
+    "skewed_sparse(2,256,129)":
+        lambda: testing.skewed_operator(2, 256, 129, 0.1, True),
     "gavel40x4": _gavel,
 }
-
-
-def _operands(s, device, seed):
-    k, _, M = s.row_idx.shape
-    N = s.col_idx.shape[-1]
-    rng = np.random.default_rng(seed)
-    f = lambda *shape: torch.as_tensor(rng.normal(size=shape),
-                                       dtype=torch.float32, device=device)
-    l = f(k, N) - 2.0
-    return dict(
-        x=f(k, N), c=f(k, N), kty=f(k, N), l=l,
-        u=l + torch.as_tensor(rng.uniform(0.5, 3.0, (k, N)),
-                              dtype=torch.float32, device=device),
-        tau=torch.as_tensor(rng.uniform(0.01, 0.2, k), dtype=torch.float32,
-                            device=device),
-        y=f(k, M), q=f(k, M), kxn=f(k, M), kxp=f(k, M),
-        sigma=torch.as_tensor(rng.uniform(0.01, 0.2, k), dtype=torch.float32,
-                              device=device),
-        mask=torch.as_tensor(rng.random((k, M)) < 0.6, device=device))
 
 
 def _steps(s, o, backend):
@@ -102,7 +66,7 @@ def _steps(s, o, backend):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_cuda_kernels_match_plain_versions(case, cuda_device):
     s = pdhg.to_device(CASES[case](), cuda_device)
-    o = _operands(s, cuda_device, seed=9)
+    o = testing.step_tensors(s, cuda_device, seed=9)
     before = dict(structured_pdhg_step.LAUNCHES)
     got = _steps(s, o, "kernel")
     torch.cuda.synchronize()
@@ -118,7 +82,7 @@ def test_cuda_kernels_match_plain_versions(case, cuda_device):
 @pytest.mark.cuda
 def test_cuda_auto_dispatch_launches_kernel(cuda_device):
     s = pdhg.to_device(_gavel(), cuda_device)
-    o = _operands(s, cuda_device, seed=1)
+    o = testing.step_tensors(s, cuda_device, seed=1)
     before = dict(structured_pdhg_step.LAUNCHES)
     _steps(s, o, None)
     for name in before:
@@ -128,7 +92,7 @@ def test_cuda_auto_dispatch_launches_kernel(cuda_device):
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_bad_operands(cuda_device):
     s = pdhg.to_device(_gavel(), cuda_device)
-    o = _operands(s, cuda_device, seed=1)
+    o = testing.step_tensors(s, cuda_device, seed=1)
     with pytest.raises(ValueError, match="shapes"):
         ops.structured_forward_step(s, o["x"][:, :-1], o["c"], o["l"],
                                     o["u"], o["tau"], o["kty"])
@@ -136,25 +100,6 @@ def test_cuda_wrapper_rejects_bad_operands(cuda_device):
         ops.structured_forward_step(s, o["x"].double(), o["c"], o["l"],
                                     o["u"], o["tau"], o["kty"],
                                     backend="kernel")
-
-
-def _instances(n=64, n_out=13):
-    wl = make_cluster_workload(n, num_workers=(16, 16, 16), seed=0)
-    ids = np.arange(n)
-    rng = np.random.default_rng(1)
-    wl2 = dataclasses.replace(wl, T=wl.T * rng.uniform(0.97, 1.03,
-                                                      wl.T.shape))
-    fresh = make_cluster_workload(n_out, num_workers=(16, 16, 16), seed=2)
-    keep = np.arange(n_out, n)
-    cat = lambda a, b: np.concatenate([a[keep], b])
-    wl3 = dataclasses.replace(
-        wl2, T=cat(wl2.T, fresh.T), w=cat(wl2.w, fresh.w),
-        z=cat(wl2.z, fresh.z),
-        interference=cat(wl2.interference, fresh.interference),
-        job_type=cat(wl2.job_type, fresh.job_type))
-    ids3 = np.concatenate([ids[keep], 1000 + np.arange(n_out)])
-    return [GavelInstance(wl, job_ids=ids), GavelInstance(wl2, job_ids=ids),
-            GavelInstance(wl3, job_ids=ids3)]
 
 
 @pytest.mark.cuda
@@ -167,7 +112,7 @@ def test_cuda_session_matches_cpu_session(cuda_device):
                                                  solve=cfg)
     cpu = PopService(device="cpu").session("t", domain="gavel", solve=cfg)
     before = structured_pdhg_step.LAUNCHES["structured_backward_step"]
-    for inst in _instances():
+    for inst in testing.session_instances(64, (16, 16, 16), churn=0.2):
         a, b = gpu.step(inst), cpu.step(inst)
         assert a.engine == b.engine == "fused_structured"
         assert a.plan_cache == b.plan_cache

@@ -75,6 +75,8 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
     prob = GavelProblem(make_cluster_workload(16, seed=0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pop.solve_instance(prob)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pop.build(prob, pop.plan(prob, 2))
     assert PopService(device="cpu").device.type == "cpu"
 
 
@@ -85,9 +87,11 @@ def test_chip_smoke_fails_without_card_or_outside_repo(tmp_path):
         pytest.skip("this host has a CUDA device")
     alone = tmp_path / "chip_smoke.py"
     shutil.copy(SMOKE, alone)
-    for script in (SMOKE, alone):
-        proc = subprocess.run([sys.executable, str(script)],
-                              capture_output=True, text=True, timeout=120,
-                              cwd=script.parent)
+    procs = [subprocess.Popen([sys.executable, str(script)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, cwd=script.parent)
+             for script in (SMOKE, alone)]
+    for proc in procs:
+        out, _ = proc.communicate(timeout=120)
         assert proc.returncode != 0
-        assert proc.stdout == ""
+        assert out == ""

@@ -14,8 +14,9 @@ wide; the ``sparse`` cases pack only the nonzeros, which sends the full
 row and column to the wide buckets.  The hand-written CUDA kernels are
 held against the same plain versions in ``tests/test_torch_cuda.py``."""
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -23,6 +24,7 @@ from repro.core import pdhg as rpdhg, pop as rpop
 from repro.kernels import ops as rops_k, ref as rref
 from repro.problems.cluster_scheduling import (GavelProblem as RefGavel,
                                                make_cluster_workload)
+from repro_torch import testing
 from repro_torch.core import pdhg as tpdhg
 from repro_torch.kernels import ops, ref, structured_pdhg_step
 
@@ -39,14 +41,7 @@ PRODUCT_TOL = dict(rtol=1e-4, atol=1e-4)
 def _skewed(k, M, N, density, sparse=False, seed=0):
     """(reference StructuredOperator, port StructuredOperator) of the
     same stacked skewed K."""
-    rng = np.random.default_rng(seed)
-    G = rng.normal(size=(k, M, N)) * (rng.random((k, M, N)) < density)
-    G[:, M // 2, :] = rng.normal(size=(k, N))     # a full row
-    G[:, :, N // 3] = rng.normal(size=(k, M))     # a full column
-    coo = []
-    for g in G:
-        r, c = np.nonzero(g) if sparse else np.indices(g.shape).reshape(2, -1)
-        coo.append((r, c, g[r, c]))
+    coo = testing.skewed_coo(k, M, N, density, sparse, seed)
     return (_stack(rpdhg, jnp.asarray, coo, M, N),
             _stack(tpdhg, torch.as_tensor, coo, M, N))
 
@@ -84,20 +79,6 @@ def _cases():
 CASES = dict(_cases())
 
 
-def _operands(k, M, N, seed=1):
-    rng = np.random.default_rng(seed)
-    f = lambda *shape: rng.normal(size=shape).astype(np.float32)
-    x, c, kty = f(k, N), f(k, N), f(k, N)
-    l = f(k, N) - 2.0
-    u = l + rng.uniform(0.5, 3.0, (k, N)).astype(np.float32)
-    tau = rng.uniform(0.01, 0.2, k).astype(np.float32)
-    y, q, kxn, kxp = f(k, M), f(k, M), f(k, M), f(k, M)
-    sigma = rng.uniform(0.01, 0.2, k).astype(np.float32)
-    mask = rng.random((k, M)) < 0.6
-    return dict(x=x, c=c, l=l, u=u, tau=tau, kty=kty, y=y, q=q, sigma=sigma,
-                mask=mask, kxn=kxn, kxp=kxp)
-
-
 def _sizes(port_s):
     k, _, M = port_s.row_idx.shape
     return k, M, port_s.col_idx.shape[-1]
@@ -119,41 +100,51 @@ def _assert_steps_close(got, want):
         np.testing.assert_allclose(g, np.asarray(w), **tol)
 
 
+@jax.jit
+def _reference_kernels_interpret(s, j):
+    """The reference's Pallas half-steps in interpret mode, traced once."""
+    return (*rops_k.structured_forward_step(
+                s, j["x"], j["c"], j["l"], j["u"], j["tau"], j["kty"],
+                backend="interpret"),
+            *rops_k.structured_backward_step(
+                s, j["y"], j["q"], j["sigma"], j["mask"], j["kxn"], j["kxp"],
+                backend="interpret"))
+
+
+@jax.jit
+def _reference_oracles(s, j):
+    """The reference's plain half-steps and ``smatvec``, traced once."""
+    return (*rref.structured_forward_step(
+                s, j["x"], j["c"], j["l"], j["u"], j["tau"][:, None],
+                j["kty"]),
+            *rref.structured_backward_step(
+                s, j["y"], j["q"], j["sigma"][:, None], j["mask"], j["kxn"],
+                j["kxp"]),
+            rref.smatvec(s, j["x"]))
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_steps_match_reference_kernels_interpret(case):
     ref_s, port_s = CASES[case]()
-    o = _operands(*_sizes(port_s))
-    j = {name: jnp.asarray(v) for name, v in o.items()}
-    want = (*rops_k.structured_forward_step(
-                ref_s, j["x"], j["c"], j["l"], j["u"], j["tau"], j["kty"],
-                backend="interpret"),
-            *rops_k.structured_backward_step(
-                ref_s, j["y"], j["q"], j["sigma"], j["mask"], j["kxn"],
-                j["kxp"], backend="interpret"))
+    o = testing.step_operands(*_sizes(port_s))
+    want = _reference_kernels_interpret(ref_s, jax.tree.map(jnp.asarray, o))
     _assert_steps_close(_port_steps(port_s, o), want)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_steps_match_reference_oracles(case):
     ref_s, port_s = CASES[case]()
-    o = _operands(*_sizes(port_s), seed=5)
-    j = {name: jnp.asarray(v) for name, v in o.items()}
-    want = (*rref.structured_forward_step(
-                ref_s, j["x"], j["c"], j["l"], j["u"], j["tau"][:, None],
-                j["kty"]),
-            *rref.structured_backward_step(
-                ref_s, j["y"], j["q"], j["sigma"][:, None], j["mask"],
-                j["kxn"], j["kxp"]))
+    o = testing.step_operands(*_sizes(port_s), seed=5)
+    *want, want_kx = _reference_oracles(ref_s, jax.tree.map(jnp.asarray, o))
     _assert_steps_close(_port_steps(port_s, o), want)
     x = torch.as_tensor(o["x"])
     np.testing.assert_allclose(ref.smatvec(port_s, x).numpy(),
-                               np.asarray(rref.smatvec(ref_s, j["x"])),
-                               **PRODUCT_TOL)
+                               np.asarray(want_kx), **PRODUCT_TOL)
 
 
 def test_dispatch_on_cpu_takes_plain_version_only():
     _, port_s = CASES["gavel40x4"]()
-    o = _operands(*_sizes(port_s))
+    o = testing.step_operands(*_sizes(port_s))
     before = dict(structured_pdhg_step.LAUNCHES)
     auto = _port_steps(port_s, o, backend=None)
     plain = _port_steps(port_s, o, backend="ref")

@@ -36,9 +36,10 @@ CONVERGED_KW = dict(max_iters=5_000, tol_primal=1e-4, tol_gap=1e-4,
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def reference_probes(iters, n_probes, n_var, n_con):
-    """The probes ``repro.core.pdhg._equilibrate`` draws, as CPU tensors."""
-    key = jax.random.PRNGKey(7)
+def reference_probes(iters, n_probes, n_var, n_con, seed=7):
+    """The probes ``repro.core.pdhg._equilibrate`` draws, as CPU tensors
+    (another ``seed`` draws the reference's probes from another key)."""
+    key = jax.random.PRNGKey(seed)
     out = []
     for i in range(iters):
         kr, kc = jax.random.split(jax.random.fold_in(key, i))
@@ -125,17 +126,18 @@ def test_standalone_kkt_matches_inloop_bitwise(cluster):
     np.testing.assert_array_equal(a.y, b.y)
 
 
-def test_masked_warm_start_converges_like_reference(cluster, ref_probes):
+def test_masked_warm_start_converges_like_reference(cluster, ref_fixed,
+                                                   ref_probes):
     """Warm from the reference's own fixed-budget iterates with lane 1
     forced cold: both packages converge to the same quality."""
     _, ops, _ = cluster
-    seed = _ref_solve(cluster, "matvec", **dict(FIXED_KW, max_iters=80))
+    seed = ref_fixed[False]
     mask = np.array([True, False, True])
     want = _ref_solve(cluster, "fused_structured", warm_x=seed.x,
                       warm_y=seed.y, warm_mask=jnp.asarray(mask),
                       **CONVERGED_KW)
     ws = interop.warm_from_numpy(np.asarray(seed.x), np.asarray(seed.y),
-                                 mask=mask)
+                                 mask=mask, device="cpu")
     got = tback.solve_map(ops, GavelProblem.K_mv, GavelProblem.KT_mv,
                           CONVERGED_KW, backend="vmap",
                           engine="fused_structured", warm=ws)

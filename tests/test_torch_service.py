@@ -9,8 +9,6 @@ when both packages draw their equilibration probes from the reference's
 ``jax.random`` bits.  With the port's own probes (a ``torch.Generator``)
 the bound is 2e-3: see ``PROBE_QUALITY_TOL``."""
 
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -21,6 +19,7 @@ from repro.domains import GavelInstance as RefGavelInstance
 from repro.problems.cluster_scheduling import GavelProblem as RefGavel
 from repro.problems.cluster_scheduling import make_cluster_workload
 from repro.service import PopService as RefPopService
+from repro_torch import testing
 from repro_torch.core import pdhg as tpdhg
 from repro_torch.core import plan as tplan, pop as tpop, reduce as treduce
 from repro_torch.core.config import ExecConfig, SolveConfig
@@ -33,23 +32,10 @@ from test_torch_pdhg import reference_probes
 QUALITY_TOL = 1e-3
 
 
-def _workloads(n=64, n_out=13):
+def _workloads():
     """(workload, job ids) for cold, drift and 20% churn."""
-    wl = make_cluster_workload(n, num_workers=(16, 16, 16), seed=0)
-    ids = np.arange(n)
-    rng = np.random.default_rng(1)
-    wl2 = dataclasses.replace(wl, T=wl.T * rng.uniform(0.97, 1.03,
-                                                      wl.T.shape))
-    fresh = make_cluster_workload(n_out, num_workers=(16, 16, 16), seed=2)
-    keep = np.arange(n_out, n)
-    cat = lambda a, b: np.concatenate([a[keep], b])
-    wl3 = dataclasses.replace(
-        wl2, T=cat(wl2.T, fresh.T), w=cat(wl2.w, fresh.w),
-        z=cat(wl2.z, fresh.z),
-        interference=cat(wl2.interference, fresh.interference),
-        job_type=cat(wl2.job_type, fresh.job_type))
-    ids3 = np.concatenate([ids[keep], 1000 + np.arange(n_out)])
-    return [(wl, ids), (wl2, ids), (wl3, ids3)]
+    return testing.session_workloads(64, (16, 16, 16), churn=0.2,
+                                     make_workload=make_cluster_workload)
 
 
 SESSION_KW = dict(k=4, strategy="stratified", min_per_sub=8)

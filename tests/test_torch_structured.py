@@ -126,10 +126,11 @@ def test_interop_roundtrip_builds_identical_payload():
     assert op.data[1].dtype == torch.int32
     s = interop.operator_from_numpy(fields["structured"], device="cpu")
     assert isinstance(s, tpdhg.StructuredOperator)
-    wx, wy = interop.warm_from_numpy(np.ones((3, 4)), np.zeros((3, 2)))
+    wx, wy = interop.warm_from_numpy(np.ones((3, 4)), np.zeros((3, 2)),
+                                     device="cpu")
     assert wx.dtype == torch.float32 and tuple(wy.shape) == (3, 2)
     ws = interop.warm_from_numpy(np.ones((3, 4)), np.zeros((3, 2)),
-                                 mask=[True, False, True])
+                                 mask=[True, False, True], device="cpu")
     assert ws.mask.tolist() == [True, False, True]
 
 
