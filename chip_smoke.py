@@ -5,27 +5,46 @@
 
 Phases, each of which must pass:
 
-1. card     the card's name and power limit (nvidia-smi); TF32 off;
-2. build    compile the hand-written CUDA kernels from the sources in
-            ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
-3. kernels  each kernel against its plain PyTorch version on the card, at
-            the main path's stacked Gavel shapes and at skewed test
-            shapes, with its time beside the plain version's, a
-            ``torch.sparse`` CSR product of the same K and the bound;
-4. main     the main path: an online Gavel POP session through
-            ``PopService(device="cuda")`` at 16,384 jobs on 12,288
-            accelerators, registry defaults (k=8, equilibrate), three steps
-            (cold, a +-3% throughput drift, 5% job churn with stable ids);
-            the kernels' launch counts are set to 0 before it and read
-            after it; every lane converges and the allocation beats the
-            Gandiva heuristic's fairness twice over, as the reference's
-            own test holds it (``tests/test_problems.py``);
-5. profile  one more warm step under ``torch.profiler``: device time by
-            kernel and the device's busy share.
+1. card      the card's name and power limit (nvidia-smi); TF32 off;
+2. build     compile the hand-written CUDA kernels from the sources in
+             ``src/repro_torch/kernels/csrc`` (one nvcc per source, all
+             started together, sm_90a);
+3. kernels   each kernel against its plain PyTorch version on the card:
+             the lane kernels at the main path's stacked Gavel shapes and
+             at skewed test shapes; the full-problem kernels at the
+             traffic-engineering shape of 20,000 demands, at the Gavel
+             full LP of 16,384 jobs and at two small ragged cases, each in
+             f32, bf16 and int8 coefficient storage; each with its time
+             beside the plain version's, a ``torch.sparse`` CSR product of
+             the same K and the bound;
+4. main      the main path: an online Gavel POP session through
+             ``PopService(device="cuda")`` at 16,384 jobs on 12,288
+             accelerators, registry defaults (k=8, equilibrate), three
+             steps (cold, a +-3% throughput drift, 5% job churn with
+             stable ids); every lane converges and the allocation beats
+             the Gandiva heuristic's fairness twice over, as the
+             reference's own test holds it (``tests/test_problems.py``);
+5. profile   one more warm step under ``torch.profiler``: device time by
+             kernel and the device's busy share;
+6. full      the unpartitioned traffic-engineering baseline at 20,000
+             demands on the KDL-like topology through ``pop.solve_full_ex``
+             (the ``fused_structured_full`` engine): the domain's
+             defaults, then int8 coefficient storage (the same trajectory:
+             TE coefficients are all 1.0), then a fixed budget against the
+             plain engine on the same card inputs; then a profiled fixed
+             budget of the same solve;
+7. traffic   a POP session on the same instance (domain defaults: k=8
+             stratified): a cold step, every demand x 1.05 (a warm hit),
+             and the CSPF heuristic beside POP and the full LP;
+8. gavel-full the unpartitioned Gavel LP of the main path's fleet (Gavel
+             defaults, equilibrate), its fairness beside POP's.
 
-Prints one JSON line of kernel results, then the card line, and as the
-last line ``{"ok": true, "device": {...}}``.  Exits nonzero, printing no
-result, without a CUDA device or outside the repository.
+The kernels' launch counts are set to 0 just before each path and read
+just after it: the lane kernels' over the main path, the full kernels'
+over the ``full`` phase.  Prints one JSON line of kernel results, then the
+card line, and as the last line ``{"ok": true, "device": {...}}``.  Exits
+nonzero, printing no result, without a CUDA device or outside the
+repository.
 """
 
 from __future__ import annotations
@@ -47,6 +66,12 @@ SRC = ROOT / "src"
 N_JOBS = 16_384
 NUM_WORKERS = (4096, 4096, 4096)
 CHURN = 0.05
+# traffic engineering: the KDL-like topology (754 nodes, 1,790 undirected
+# edges; topology seed 0, demands seed 1, paths seed 2), 4 paths of at most
+# 48 edges, the default size of benchmarks/bench_traffic_engineering.py
+TE_DEMANDS = 20_000
+FULL_FIXED_ITERS = 200
+PROFILE_FULL_ITERS = 400
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
@@ -54,11 +79,27 @@ PEAK_F32_PER_S = 67e12
 # version's separate elementwise ops); products: another summation order,
 # held at the reference's product tolerance (tests/test_kernels.py)
 PRODUCT_RTOL = PRODUCT_ATOL = 1e-4
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/structured_pdhg_step.cu"
+# fixed-budget solves, kernel engine against the plain engine on the card
+SOLVE_ATOL = SOLVE_RTOL = 1e-4
+KERNEL_SOURCE = {
+    "structured_forward_step":
+        "src/repro_torch/kernels/csrc/structured_pdhg_step.cu",
+    "structured_backward_step":
+        "src/repro_torch/kernels/csrc/structured_pdhg_step.cu",
+    "structured_full_forward_step":
+        "src/repro_torch/kernels/csrc/structured_full_pdhg_step.cu",
+    "structured_full_backward_step":
+        "src/repro_torch/kernels/csrc/structured_full_pdhg_step.cu",
+}
 REPLACES = {
     "structured_forward_step": "src/repro/kernels/structured_pdhg_step.py:110",
     "structured_backward_step": "src/repro/kernels/structured_pdhg_step.py:141",
+    "structured_full_forward_step":
+        "src/repro/kernels/structured_pdhg_step.py:312",
+    "structured_full_backward_step":
+        "src/repro/kernels/structured_pdhg_step.py:334",
 }
+COEF_DTYPES = ("float32", "bfloat16", "int8")
 
 
 class SmokeError(RuntimeError):
@@ -147,51 +188,82 @@ def phase_card():
 
 
 def phase_build():
-    from repro_torch.kernels import structured_pdhg_step as kernel_mod
+    from repro_torch.kernels import build
     t0 = time.perf_counter()
-    kernel_mod.build()
+    paths = build.build()
     secs = time.perf_counter() - t0
-    regs = [ln.strip() for ln in kernel_mod.build_info.get("log", "")
-            .splitlines() if "registers" in ln or "spill" in ln]
-    how = ("compiled by nvcc" if "seconds" in kernel_mod.build_info
-           else "loaded from an earlier build")
-    log(f"[build] {kernel_mod.library_path().name}: {how}, {secs:.2f} s")
-    for ln in regs:
-        log(f"[build]   {ln}")
+    for name, path in paths.items():
+        info = build.build_info.get(name)
+        how = (f"compiled by nvcc in {info['seconds']:.2f} s" if info
+               else "loaded from an earlier build")
+        log(f"[build] {path.name}: {how}")
+        for ln in (info or {}).get("log", "").splitlines():
+            if "registers" in ln or "spill" in ln:
+                log(f"[build]   {ln.strip()}")
+    log(f"[build] {len(paths)} libraries in {secs:.2f} s (one nvcc per "
+        "source, all started together)")
 
 
-def compare_case(s, o):
-    """Kernel vs plain version on one operator: returns the max abs error
-    of each kernel and fails the run outside the tolerance."""
+def _check_pair(name, got, want):
+    """Kernel result against the plain version's: the tail bit-equal, the
+    product within the tolerance; returns the max abs error."""
+    tail_err = float((got[0] - want[0]).abs().max())
+    prod_err = (got[1] - want[1]).abs()
+    limit = PRODUCT_ATOL + PRODUCT_RTOL * want[1].abs()
+    check(bool(torch.isfinite(got[1]).all()), f"{name}: non-finite")
+    check(tail_err == 0.0, f"{name}: tail differs by {tail_err}")
+    check(bool((prod_err <= limit).all()),
+          f"{name}: product off by {float(prod_err.max())} "
+          f"(rtol=atol={PRODUCT_RTOL})")
+    return max(tail_err, float(prod_err.max()))
+
+
+def lane_calls(s, o):
+    """{kernel name: fn(backend)} of the two lane half-steps on ``s``."""
     from repro_torch.kernels import ops
-    fwd_args = (s, o["x"], o["c"], o["l"], o["u"], o["tau"], o["kty"])
-    bwd_args = (s, o["y"], o["q"], o["sigma"], o["mask"], o["kxn"], o["kxp"])
+    return {
+        "structured_forward_step": lambda be: ops.structured_forward_step(
+            s, o["x"], o["c"], o["l"], o["u"], o["tau"], o["kty"],
+            backend=be),
+        "structured_backward_step": lambda be: ops.structured_backward_step(
+            s, o["y"], o["q"], o["sigma"], o["mask"], o["kxn"], o["kxp"],
+            backend=be)}
+
+
+def full_calls(s, o):
+    """{kernel name: fn(backend)} of the two full-problem half-steps on the
+    single-lane ``s`` with its ragged wide-block plans."""
+    from repro_torch.core import pdhg
+    from repro_torch.kernels import ops
+    rplan, cplan = pdhg._wide_block_plans(s)
+    return {
+        "structured_full_forward_step":
+            lambda be: ops.structured_full_forward_step(
+                s, o["x"], o["c"], o["l"], o["u"], o["tau"], o["kty"],
+                plan=rplan, backend=be),
+        "structured_full_backward_step":
+            lambda be: ops.structured_full_backward_step(
+                s, o["y"], o["q"], o["sigma"], o["mask"], o["kxn"],
+                o["kxp"], plan=cplan, backend=be)}
+
+
+def compare_case(calls):
+    """Each kernel against its plain version on one operator: returns the
+    max abs error of each kernel and fails the run outside the
+    tolerance."""
     errs = {}
-    for name, fn, args in (("structured_forward_step",
-                            ops.structured_forward_step, fwd_args),
-                           ("structured_backward_step",
-                            ops.structured_backward_step, bwd_args)):
-        got = fn(*args, backend="kernel")
+    for name, fn in calls.items():
+        got = fn("kernel")
         torch.cuda.synchronize()
-        want = fn(*args, backend="ref")
-        tail_err = float((got[0] - want[0]).abs().max())
-        prod_err = (got[1] - want[1]).abs()
-        limit = PRODUCT_ATOL + PRODUCT_RTOL * want[1].abs()
-        check(bool(torch.isfinite(got[1]).all()), f"{name}: non-finite")
-        check(tail_err == 0.0, f"{name}: tail differs by {tail_err}")
-        check(bool((prod_err <= limit).all()),
-              f"{name}: product off by {float(prod_err.max())} "
-              f"(rtol=atol={PRODUCT_RTOL})")
-        errs[name] = max(tail_err, float(prod_err.max()))
+        errs[name] = _check_pair(name, got, fn("ref"))
     return errs
 
 
 def phase_kernels(device):
-    """Each kernel against its plain version; times at the main path's
+    """Each lane kernel against its plain version; times at the main path's
     shapes.  Returns the per-kernel record (without launches)."""
     from repro_torch import testing
     from repro_torch.core import pdhg, pop
-    from repro_torch.kernels import ops
     from repro_torch.problems.cluster_scheduling import (
         GavelProblem, make_cluster_workload)
     prob = GavelProblem(make_cluster_workload(N_JOBS, num_workers=NUM_WORKERS,
@@ -213,7 +285,8 @@ def phase_kernels(device):
                 testing.skewed_operator(*shape, sparse), device)
     max_err = {"structured_forward_step": 0.0, "structured_backward_step": 0.0}
     for name, op_s in cases.items():
-        errs = compare_case(op_s, testing.step_tensors(op_s, device))
+        errs = compare_case(lane_calls(op_s,
+                                       testing.step_tensors(op_s, device)))
         log(f"[kernels] {name}: max abs err " + ", ".join(
             f"{kname} {err:.3g}" for kname, err in errs.items())
             + f" (tails exact, products rtol=atol={PRODUCT_RTOL})")
@@ -230,21 +303,16 @@ def phase_kernels(device):
     y_flat = o["y"].reshape(-1, 1)
     f32 = 4
     records = {}
+    calls = lane_calls(s, o)
     specs = (
-        ("structured_forward_step",
-         lambda be: ops.structured_forward_step(
-             s, o["x"], o["c"], o["l"], o["u"], o["tau"], o["kty"],
-             backend=be),
+        ("structured_forward_step", calls["structured_forward_step"],
          lambda: csr_k @ x_flat,
          # ELL nonzeros (idx + val) + wide ids, x/c/l/u/kty + tau in,
          # x_new + kx out
          nnz_k * 8 + k * s.wrow_ids.shape[1] * 4 + 5 * k * N * f32 + k * f32
          + (k * N + k * M) * f32,
          2 * nnz_k + 4 * k * N),
-        ("structured_backward_step",
-         lambda be: ops.structured_backward_step(
-             s, o["y"], o["q"], o["sigma"], o["mask"], o["kxn"], o["kxp"],
-             backend=be),
+        ("structured_backward_step", calls["structured_backward_step"],
          lambda: csr_kt @ y_flat,
          # y/q/kx_new/kx_prev (f32) + mask (u8) + sigma in, y_new + kty out
          nnz_kt * 8 + k * s.wcol_ids.shape[1] * 4 + 4 * k * M * f32 + k * M
@@ -257,7 +325,7 @@ def phase_kernels(device):
         library_ms = event_ms(library)
         bound_ms, bound_by = bound(n_bytes, n_ops)
         records[name] = dict(
-            name=name, route="cuda", source=KERNEL_SOURCE,
+            name=name, route="cuda", source=KERNEL_SOURCE[name],
             replaces=REPLACES[name], launches=0,
             max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
@@ -267,6 +335,127 @@ def phase_kernels(device):
             f"torch.sparse CSR product {library_ms:.4f} ms, bound "
             f"{bound_ms:.5f} ms ({bound_by}: {n_bytes / 1e6:.3f} MB, "
             f"{n_ops / 1e6:.3f} Mflop)")
+    return records
+
+
+def _nnz(*vals) -> int:
+    return sum(int((v != 0).sum()) for v in vals)
+
+
+def full_bytes_ops(s, n_var: int, n_con: int):
+    """{kernel: (bytes, flops)} of one full half-step pair on the
+    single-lane ``s``, counting what this operator's data needs: each
+    stored nonzero once (index + coefficient in its storage type), the fold
+    map, the input vectors and the two outputs; 2 flops per nonzero and
+    the tail's element-wise operations."""
+    f32, cb = 4, s.row_val.element_size()
+    nnz_r = _nnz(s.row_val, s.wrow_val)
+    nnz_c = _nnz(s.col_val, s.wcol_val)
+    scales = 8 if s.row_scale is not None else 0
+    return {
+        # x/c/l/u/kty + tau in, fold, x_new + kx out
+        "structured_full_forward_step": (
+            nnz_r * (4 + cb) + scales + n_con * 4 + 5 * n_var * f32 + f32
+            + (n_var + n_con) * f32, 2 * nnz_r + 4 * n_var),
+        # y/q/kx_new/kx_prev + mask (u8) + sigma in, fold, y_new + kty out
+        "structured_full_backward_step": (
+            nnz_c * (4 + cb) + scales + n_var * 4 + 4 * n_con * f32 + n_con
+            + f32 + (n_con + n_var) * f32, 2 * nnz_c + 6 * n_con)}
+
+
+def full_operators(device, te_prob):
+    """{case: single-lane f32 StructuredOperator on the card}: traffic
+    engineering at 20,000 demands, the Gavel full LP of the main path's
+    fleet, and two small ragged cases."""
+    from repro_torch import testing
+    from repro_torch.core import pdhg
+    from repro_torch.problems.cluster_scheduling import (
+        GavelProblem, make_cluster_workload)
+    gavel = GavelProblem(make_cluster_workload(N_JOBS, num_workers=NUM_WORKERS,
+                                               seed=0))
+    one = lambda st: pdhg.to_device(pdhg.map_arrays(lambda a: a[None], st),
+                                    device)
+    return {
+        f"te{TE_DEMANDS}": one(te_prob.build_full().structured),
+        f"gavel{N_JOBS}_full": one(gavel.build_full().structured),
+        # the conformance matrix's small traffic case (empty wide buckets)
+        "traffic_small": one(testing.traffic_problem(
+            14, n_nodes=24, target_edges=48, n_paths=3, max_len=12,
+            topo_seed=1, demand_seed=1, path_seed=1).build_full().structured),
+        # wide buckets over several ragged plan blocks on both sides
+        "ragged": pdhg.to_device(testing.ragged_operator(), device),
+    }
+
+
+def phase_kernels_full(device, te_prob):
+    """Each full-problem kernel against its plain version in f32, bf16 and
+    int8 storage on every case of :func:`full_operators`; times at the
+    traffic shape (each storage type) and the Gavel full shape (f32).
+    Returns the per-kernel records (without launches)."""
+    from repro_torch import testing
+    from repro_torch.core import pdhg
+    ops_f32 = full_operators(device, te_prob)
+    names = ("structured_full_forward_step", "structured_full_backward_step")
+    max_err = dict.fromkeys(names, 0.0)
+    times = {}
+    te_case = f"te{TE_DEMANDS}"
+    for case, s32 in ops_f32.items():
+        rplan, cplan = pdhg._wide_block_plans(s32)
+        log(f"[kernels] {case}: N={s32.col_idx.shape[-1]} "
+            f"M={s32.row_idx.shape[-1]} narrow rows "
+            f"{tuple(s32.row_idx.shape[1:])} wide rows "
+            f"{tuple(s32.wrow_idx.shape[1:])} narrow cols "
+            f"{tuple(s32.col_idx.shape[1:])} wide cols "
+            f"{tuple(s32.wcol_idx.shape[1:])}; row plan {len(rplan)} "
+            f"blocks covering {sum((c1 - c0) * wb for c0, c1, wb in rplan)}"
+            f" elements, col plan {len(cplan)} blocks covering "
+            f"{sum((c1 - c0) * wb for c0, c1, wb in cplan)}")
+        o = testing.step_tensors(s32, device)
+        for dt in COEF_DTYPES:
+            s = pdhg.quantize_structured(s32, dt)
+            calls = full_calls(s, o)
+            errs = compare_case(calls)
+            log(f"[kernels] {case} {dt}: max abs err " + ", ".join(
+                f"{k} {e:.3g}" for k, e in errs.items())
+                + f" (tails exact, products rtol=atol={PRODUCT_RTOL})")
+            for k, e in errs.items():
+                max_err[k] = max(max_err[k], e)
+            if case == te_case or (case.startswith("gavel")
+                                   and dt == "float32"):
+                n_var, n_con = s.col_idx.shape[-1], s.row_idx.shape[-1]
+                work = full_bytes_ops(s, n_var, n_con)
+                for k, fn in calls.items():
+                    ms = event_ms(lambda: fn("kernel"))
+                    plain_ms = event_ms(lambda: fn("ref"), reps=50)
+                    bound_ms, bound_by = bound(*work[k])
+                    times[(case, dt, k)] = (ms, plain_ms, bound_ms,
+                                            bound_by)
+                    log(f"[kernels] {k} at {case} {dt}, per call: kernel "
+                        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                        f"{bound_ms:.5f} ms ({bound_by}: "
+                        f"{work[k][0] / 1e6:.3f} MB, "
+                        f"{work[k][1] / 1e6:.3f} Mflop)")
+    # the library yardstick at the traffic shape: one CSR product of K
+    s = ops_f32[te_case]
+    n_var, n_con = s.col_idx.shape[-1], s.row_idx.shape[-1]
+    o = testing.step_tensors(s, device)
+    csr_k, _ = side_csr(s.row_idx, s.row_val, s.wrow_idx, s.wrow_val,
+                        s.wrow_ids, n_var)
+    csr_kt, _ = side_csr(s.col_idx, s.col_val, s.wcol_idx, s.wcol_val,
+                         s.wcol_ids, n_con)
+    library = {names[0]: lambda: csr_k @ o["x"].reshape(-1, 1),
+               names[1]: lambda: csr_kt @ o["y"].reshape(-1, 1)}
+    records = {}
+    for k in names:
+        ms, plain_ms, bound_ms, bound_by = times[(te_case, "float32", k)]
+        library_ms = event_ms(library[k])
+        log(f"[kernels] {k} at {te_case} float32: torch.sparse CSR product "
+            f"{library_ms:.4f} ms")
+        records[k] = dict(
+            name=k, route="cuda", source=KERNEL_SOURCE[k],
+            replaces=REPLACES[k], launches=0, max_abs_err=max_err[k], ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms, device_ms=None)
     return records
 
 
@@ -322,25 +511,39 @@ def phase_main(device, n_jobs=N_JOBS, num_workers=NUM_WORKERS):
     check(verdicts == ["miss", "hit", "repair"], f"verdicts {verdicts}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
-    return sess, insts, launches
+    return sess, insts, allocs, launches
 
 
-# the CUDA kernels' names carry the half-step's tail type
-HALF_STEP_TAIL = {"structured_forward_step": "PrimalTail>",
-                  "structured_backward_step": "DualTail>"}
+# each wrapper's CUDA kernels: the tail type in their names, the kernels,
+# and the one it launches once per call
+KERNEL_NAMES = {
+    "structured_forward_step": (
+        "PrimalTail>", ("narrow_tail_kernel", "wide_fold_kernel"),
+        "narrow_tail_kernel"),
+    "structured_backward_step": (
+        "DualTail>", ("narrow_tail_kernel", "wide_fold_kernel"),
+        "narrow_tail_kernel"),
+    "structured_full_forward_step": (
+        "PrimalTail>", ("full_tail_kernel", "wide_partial_kernel",
+                        "full_narrow_kernel"), "full_narrow_kernel"),
+    "structured_full_backward_step": (
+        "DualTail>", ("full_tail_kernel", "wide_partial_kernel",
+                      "full_narrow_kernel"), "full_narrow_kernel"),
+}
 
 
-def phase_profile(sess, inst):
-    """One more warm step under the profiler: device time by kernel, the
-    device's busy share of the step, and each half-step's device time per
-    call on the main path ({name: ms}, empty where nothing was recorded)."""
+def profiled(tag, run, iterations):
+    """Run ``run()`` under the profiler: device time by kernel, the
+    device's busy share, and each wrapper's device time per call
+    ({name: ms}, empty where nothing was recorded).  ``iterations(result)``
+    gives the PDHG iterations the run made."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        a = sess.step(inst)
+        result = run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = sorted(((ev.self_device_time_total, ev.count, ev.key)
@@ -348,27 +551,206 @@ def phase_profile(sess, inst):
                    if ev.device_type == DeviceType.CUDA), reverse=True)
     busy_us = sum(r[0] for r in rows)
     n_dev = sum(r[1] for r in rows)
-    iters = int(max(a.raw.iterations.max(), 1))
+    iters = max(int(iterations(result)), 1)
     if busy_us == 0:
-        log("[profile] the profiler recorded no device time: not measured")
-        return {}
-    log(f"[profile] warm step ({a.plan_cache}): wall {wall_us / 1e3:.2f} ms "
-        f"under the profiler, device busy {busy_us / 1e3:.2f} ms "
-        f"({100 * busy_us / wall_us:.1f}%), {n_dev} kernels, "
-        f"{n_dev / iters:.1f} per PDHG iteration ({iters} iterations, "
-        f"{busy_us / iters:.2f} us of device time per iteration)")
+        log(f"[{tag}] the profiler recorded no device time: not measured")
+        return {}, result
+    log(f"[{tag}] wall {wall_us / 1e3:.2f} ms under the profiler, device "
+        f"busy {busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), "
+        f"{n_dev} kernels, {n_dev / iters:.1f} per PDHG iteration ({iters} "
+        f"iterations, {busy_us / iters:.2f} us of device time and "
+        f"{wall_us / iters:.2f} us of wall time per iteration)")
     for dev_us, count, key in rows[:12]:
-        log(f"[profile]   {dev_us / 1e3:9.3f} ms {100 * dev_us / busy_us:5.1f}% "
+        log(f"[{tag}]   {dev_us / 1e3:9.3f} ms {100 * dev_us / busy_us:5.1f}% "
             f"x{count:<7d} {key[:90]}")
     per_call = {}
-    for name, tail in HALF_STEP_TAIL.items():
-        mine = [r for r in rows if tail in r[2]]
-        calls = sum(r[1] for r in mine if "narrow_tail_kernel" in r[2])
+    for name, (tail, kernels, counted) in KERNEL_NAMES.items():
+        mine = [r for r in rows
+                if tail in r[2] and any(k in r[2] for k in kernels)]
+        calls = sum(r[1] for r in mine if counted in r[2])
         if calls:
             per_call[name] = sum(r[0] for r in mine) / calls / 1e3
-            log(f"[profile] {name}: {per_call[name]:.4f} ms of device time "
-                f"per call ({calls} calls, both launches)")
+            log(f"[{tag}] {name}: {per_call[name]:.4f} ms of device time "
+                f"per call ({calls} calls, all {len(kernels)} launches)")
+    return per_call, result
+
+
+def phase_profile(sess, inst):
+    """One more warm main-path step under the profiler."""
+    per_call, _ = profiled("profile", lambda: sess.step(inst),
+                           lambda a: a.raw.iterations.max())
     return per_call
+
+
+def _flow_line(metrics) -> str:
+    return ", ".join(f"{k} {metrics[k]:.6g}" for k in
+                     ("total_flow", "max_edge_util", "overflow"))
+
+
+def phase_full(device, te_arrays):
+    """The unpartitioned traffic baseline through ``pop.solve_full_ex``:
+    the domain's defaults in f32 and in int8 storage (the same trajectory),
+    then a fixed budget against the plain engine on the same card inputs.
+    The full kernels' launch counts are set to 0 just before and read just
+    after.  Returns ({dtype: (FullResult, metrics)}, launches)."""
+    from repro_torch import domains
+    from repro_torch.core import pdhg, pop
+    from repro_torch.kernels import structured_full_pdhg_step as full_mod
+    from repro_torch.problems.traffic_engineering import TrafficProblem
+    exec_cfg = domains.get("traffic").default_exec
+    for name in full_mod.LAUNCHES:
+        full_mod.LAUNCHES[name] = 0
+    runs = {}
+    for dt in ("float32", "int8"):
+        prob = TrafficProblem(*te_arrays, coef_dtype=dt)
+        before = dict(full_mod.LAUNCHES)
+        t0 = time.perf_counter()
+        fr = pop.solve_full_ex(prob, exec_cfg=exec_cfg, device=device)
+        wall = time.perf_counter() - t0
+        its = int(fr.res.iterations)
+        launched = {k: full_mod.LAUNCHES[k] - before[k] for k in before}
+        metrics = prob.evaluate(fr.alloc)
+        log(f"[full] TE {TE_DEMANDS} demands, {dt} storage: engine "
+            f"{fr.engine}, backend {fr.backend}, {its} iterations, converged "
+            f"{bool(fr.res.converged)}, build_s {fr.build_time_s:.4f}, "
+            f"solve_s {fr.solve_time_s:.4f} ({fr.solve_time_s * 1e3 / max(its, 1):.4f}"
+            f" ms per iteration), wall {wall:.3f} s; {_flow_line(metrics)}; "
+            f"launches {launched}")
+        check(fr.engine == "fused_structured_full", f"engine {fr.engine}")
+        check(its > 0 and all(n == its for n in launched.values()),
+              f"launches {launched} against {its} iterations")
+        check(np.isfinite(fr.alloc).all() and not bool(fr.res.diverged),
+              "full solve not finite or diverged")
+        runs[dt] = (fr, metrics)
+    (f32, _), (i8, _) = runs["float32"], runs["int8"]
+    check(int(i8.res.iterations) == int(f32.res.iterations),
+          "int8 storage took another number of iterations")
+    check(np.array_equal(i8.res.x, f32.res.x),
+          "int8 storage gave another x than f32 storage")
+    log("[full] int8 storage: the same iterations and the same x, bit for "
+        "bit, as f32 storage")
+
+    prob = TrafficProblem(*te_arrays)
+    op = pdhg.to_device(pdhg.map_arrays(lambda a: a[None], prob.build_full()),
+                        device)
+    eng = pdhg.resolve_engine("fused_structured_full", op)
+    plain = pdhg.fused_structured_full_engine(
+        "ref", *pdhg._wide_block_plans(op.structured))
+    kw = dict(max_iters=FULL_FIXED_ITERS, tol_primal=0.0, tol_gap=0.0)
+    got = pdhg.solve_stacked(op, engine=eng, **kw)
+    want = pdhg.solve_stacked(op, engine=plain, **kw)
+    dx = float(np.abs(got.x - want.x).max())
+    dy = float(np.abs(got.y - want.y).max())
+    log(f"[full] fixed budget of {FULL_FIXED_ITERS} iterations, kernels "
+        f"against the plain engine on the card: max |dx| {dx:.3g}, max |dy| "
+        f"{dy:.3g} (rtol=atol={SOLVE_RTOL})")
+    for name, a, b in (("x", got.x, want.x), ("y", got.y, want.y)):
+        check(np.allclose(a, b, rtol=SOLVE_RTOL, atol=SOLVE_ATOL),
+              f"fixed-budget {name} differs from the plain engine's")
+    launches = dict(full_mod.LAUNCHES)
+    log(f"[full] launches over the phase: {launches}")
+    return runs, launches
+
+
+def phase_profile_full(device, te_arrays):
+    """A fixed budget of the full traffic solve under the profiler."""
+    from repro_torch.core import pop
+    from repro_torch.core.config import ExecConfig
+    from repro_torch.problems.traffic_engineering import TrafficProblem
+    prob = TrafficProblem(*te_arrays)
+    cfg = ExecConfig(solver_kw=dict(max_iters=PROFILE_FULL_ITERS,
+                                    tol_primal=0.0, tol_gap=0.0))
+    per_call, fr = profiled(
+        "profile-full",
+        lambda: pop.solve_full_ex(prob, exec_cfg=cfg, device=device),
+        lambda r: r.res.iterations)
+    log(f"[profile-full] solve_s {fr.solve_time_s:.4f} for "
+        f"{int(fr.res.iterations)} iterations (build_s "
+        f"{fr.build_time_s:.4f}, not profiled work: the host packs the ELL)")
+    return per_call
+
+
+def phase_traffic(device, te_arrays, full_metrics, full_converged):
+    """A POP session on the traffic instance with the domain's defaults:
+    cold, then every demand x 1.05; CSPF beside POP and the full LP."""
+    from repro_torch.kernels import structured_pdhg_step as lane_mod
+    from repro_torch.problems.traffic_engineering import (TrafficProblem,
+                                                          cspf_heuristic)
+    from repro_torch.service import PopService
+    topo, pairs, demand, paths = te_arrays
+    insts = [TrafficProblem(topo, pairs, demand, paths),
+             TrafficProblem(topo, pairs, demand * 1.05, paths)]
+    sess = PopService(device=device).session("wan", insts[0])
+    before = dict(lane_mod.LAUNCHES)
+    allocs = []
+    for inst in insts:
+        t0 = time.perf_counter()
+        a = sess.step(inst)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        its = np.asarray(a.raw.iterations)
+        conv = np.asarray(a.raw.converged)
+        log(f"[traffic] step {a.step} ({a.plan_cache}): k={a.k} engine "
+            f"{a.engine}, warm fraction {a.warm_fraction}, iterations sum "
+            f"{int(its.sum())} / lane max {int(its.max())}, converged "
+            f"{int(conv.sum())}/{conv.size}, build_s {a.build_time_s:.4f}, "
+            f"solve_s {a.solve_time_s:.4f}, wall {wall:.3f} s; "
+            f"{_flow_line(a.metrics)}")
+        check(a.engine == "fused_structured", f"engine {a.engine}")
+        check(not np.asarray(a.raw.diverged).any(), "a lane diverged")
+        check(np.isfinite(a.alloc).all(), "allocation not finite")
+        allocs.append(a)
+    check([a.plan_cache for a in allocs] == ["miss", "hit"],
+          f"verdicts {[a.plan_cache for a in allocs]}")
+    launched = {k: lane_mod.LAUNCHES[k] - before[k] for k in before}
+    check(all(n > 0 for n in launched.values()),
+          f"lane kernels not launched: {launched}")
+    t0 = time.perf_counter()
+    cspf = insts[0].evaluate(cspf_heuristic(insts[0]))
+    log(f"[traffic] CSPF ({time.perf_counter() - t0:.2f} s on the host): "
+        f"{_flow_line(cspf)}")
+    log(f"[traffic] full LP: {_flow_line(full_metrics)}")
+    pop_flow = allocs[0].metrics["total_flow"]
+    log(f"[traffic] POP-{allocs[0].k} / full total flow "
+        f"{pop_flow / full_metrics['total_flow']:.6f}; POP / CSPF "
+        f"{pop_flow / cspf['total_flow']:.6f}; full / CSPF "
+        f"{full_metrics['total_flow'] / cspf['total_flow']:.6f}; lane "
+        f"kernel launches {launched}")
+    if full_converged:
+        check(full_metrics["total_flow"] >= 0.99 * cspf["total_flow"],
+              "the converged full LP carries less than 99% of CSPF's flow")
+    return allocs
+
+
+def phase_gavel_full(device, pop_allocs):
+    """The unpartitioned Gavel LP of the main path's fleet (Gavel
+    defaults: equilibrate, at most 20,000 iterations)."""
+    from repro_torch import domains, testing
+    from repro_torch.core import pop
+    from repro_torch.kernels import structured_full_pdhg_step as full_mod
+    from repro_torch.problems.cluster_scheduling import GavelProblem
+    wl = testing.session_workloads(N_JOBS, NUM_WORKERS, CHURN)[0][0]
+    prob = GavelProblem(wl)
+    before = dict(full_mod.LAUNCHES)
+    fr = pop.solve_full_ex(prob, exec_cfg=domains.get("gavel").default_exec,
+                           device=device)
+    its = int(fr.res.iterations)
+    launched = {k: full_mod.LAUNCHES[k] - before[k] for k in before}
+    m = prob.evaluate(fr.alloc)
+    p = pop_allocs[0].metrics
+    log(f"[gavel-full] {N_JOBS} jobs: engine {fr.engine}, {its} iterations, "
+        f"converged {bool(fr.res.converged)}, build_s {fr.build_time_s:.4f}, "
+        f"solve_s {fr.solve_time_s:.4f} ({fr.solve_time_s * 1e3 / max(its, 1):.4f}"
+        f" ms per iteration); mean_norm_throughput "
+        f"{m['mean_norm_throughput']:.6f} (POP-8 {p['mean_norm_throughput']:.6f}),"
+        f" min_norm_throughput {m['min_norm_throughput']:.6f} (POP-8 "
+        f"{p['min_norm_throughput']:.6f}); launches {launched}")
+    check(fr.engine == "fused_structured_full", f"engine {fr.engine}")
+    check(its > 0 and all(n == its for n in launched.values()),
+          f"launches {launched} against {its} iterations")
+    check(fr.alloc.shape == (N_JOBS,) and np.isfinite(fr.alloc).all(),
+          "allocation not finite")
+    check(not bool(fr.res.diverged), "the full Gavel solve diverged")
 
 
 def main() -> int:
@@ -383,19 +765,43 @@ def main() -> int:
     device = torch.device("cuda")
     # the CSR yardstick's beta-state and invariant-check notices
     warnings.filterwarnings("ignore", message=".*[Ss]parse.*")
+    walls = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        log(f"[{name}] phase wall {walls[name]:.2f} s")
+        return out
+
     try:
-        card = phase_card()
-        phase_build()
-        records = phase_kernels(device)
-        sess, insts, launches = phase_main(device)
-        profiled_ms = phase_profile(sess, insts[2])
+        from repro_torch import testing
+        from repro_torch.problems.traffic_engineering import TrafficProblem
+        card = phase("card", phase_card)
+        phase("build", phase_build)
+        records = phase("kernels", phase_kernels, device)
+        te_arrays = phase("te-instance", testing.traffic_arrays, TE_DEMANDS)
+        records.update(phase("kernels-full", phase_kernels_full, device,
+                             TrafficProblem(*te_arrays)))
+        sess, insts, allocs, launches = phase("main", phase_main, device)
+        profiled_ms = phase("profile", phase_profile, sess, insts[2])
+        runs, full_launches = phase("full", phase_full, device, te_arrays)
+        profiled_ms.update(phase("profile-full", phase_profile_full, device,
+                                 te_arrays))
+        fr, full_metrics = runs["float32"]
+        phase("traffic", phase_traffic, device, te_arrays, full_metrics,
+              bool(fr.res.converged))
+        phase("gavel-full", phase_gavel_full, device, allocs)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    launches.update(full_launches)
     for name, n in launches.items():
         records[name]["launches"] = n
         records[name]["device_ms"] = profiled_ms.get(name)
+    log("[walls] " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f"; total {sum(walls.values()):.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,10 @@ The paper's central requirement: sub-problems must be *distributionally
 similar* to the full problem — the mean and covariance of entity attribute
 vectors inside each sub-problem should match the global ones.  Random
 assignment achieves this at scale (law of large numbers); stratified
-assignment enforces it under skew.  (The reference's clustered and skewed
-partitioners serve its benchmarks only and are not ported.)
+assignment enforces it under skew.  :func:`clustered_partition` and the
+adversarial :func:`skewed_partition` (the paper's Fig. 6 split) are called
+directly and passed as ``partition_idx=``; :func:`make_partition` does not
+name them.
 
 All partitioners return a dense assignment
     idx : int32 [k, n_per]   (entity ids per sub-problem, -1 = padding)
@@ -57,6 +59,33 @@ def stratified_partition_multidim(attrs: np.ndarray, k: int,
         v = a.T @ (a @ v)
         v /= np.linalg.norm(v) + 1e-30
     return stratified_partition(a @ v, k)
+
+
+def clustered_partition(labels: np.ndarray, k: int, seed: int = 0) -> np.ndarray:
+    """Deal each cluster/type evenly across sub-problems (paper §4.2:
+    'inputs can also be clustered by key properties such as job type')."""
+    rng = np.random.default_rng(seed)
+    order_parts = []
+    for lab in np.unique(labels):
+        members = np.flatnonzero(labels == lab)
+        order_parts.append(rng.permutation(members))
+    order = np.concatenate(order_parts)
+    return _to_dense(order, k)
+
+
+def skewed_partition(group_of: np.ndarray, k: int) -> np.ndarray:
+    """Adversarial split for Fig. 6: entities sharing a group (e.g. all
+    commodities originating at one node) land in the SAME sub-problem."""
+    groups = np.unique(group_of)
+    gk = {g: i % k for i, g in enumerate(groups)}
+    bins = [[] for _ in range(k)]
+    for e, g in enumerate(group_of):
+        bins[gk[g]].append(e)
+    n_per = max(len(b) for b in bins)
+    out = np.full((k, n_per), -1, np.int64)
+    for i, b in enumerate(bins):
+        out[i, : len(b)] = b
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -9,7 +9,7 @@ that each emit the product they materialise:
     forward(data, x, c, l, u, tau[k], kty)          -> (x_new, K x_new)
     backward(data, y, q, sigma[k], ineq, kx, kx_-)  -> (y_new, K^T y_new)
 
-Two engines are ported:
+Three engines are ported:
 
 ``matvec`` (:func:`matvec_engine`)
     The problem's own per-lane ``K_mv``/``KT_mv`` callables, applied lane
@@ -19,12 +19,15 @@ Two engines are ported:
     metadata).  Each half-step is ONE call into ``kernels/ops.py``: the
     hand-written CUDA kernel on CUDA tensors, its plain torch version on
     CPU tensors.
+``fused_structured_full`` (:func:`fused_structured_full_engine`)
+    The single-lane full (k=1) problem with fold maps: each half-step is
+    one streaming call over the narrow ELL and the ragged plan of the wide
+    bucket, with int8/bf16 coefficient storage read as stored.
 
 ``select_engine`` keeps the reference's rule word for word; where it names
-an engine this slice has not ported (``fused`` for dense operators on the
-accelerator, ``fused_structured_full`` for large single-lane structured
-operators), :func:`resolve_engine` raises ``NotImplementedError`` naming
-the ROADMAP item — it never substitutes another engine.
+an engine the port has not ported yet (``fused`` for dense operators on
+the accelerator), :func:`resolve_engine` raises ``NotImplementedError``
+naming the ROADMAP item — it never substitutes another engine.
 
 The reference's ``lax.while_loop`` becomes a Python loop over
 ``check_every``-iteration chunks with exactly one host sync per chunk (the
@@ -92,11 +95,12 @@ class StructuredOperator(NamedTuple):
     (``[..., W, M]``); padding entries carry ``idx 0, val 0.0``; wide
     bucket columns feed the segments named by ``w*_ids`` and are sorted by
     descending width; ``*_fold`` maps every segment to its bucket column
-    or to the zero slot ``D``.  Indices are int32, coefficients f32 (the
-    quantized storage of the reference waits for ROADMAP item 7)."""
+    or to the zero slot ``D``.  Indices are int32; coefficients are f32,
+    or bf16 / int8 after :func:`quantize_structured` (int8 with a
+    per-bucket f32 dequant scale in ``*_scale``, shape ``[..., 1]``)."""
 
     row_idx: torch.Tensor    # [..., Wr, M] int32 column ids feeding each row
-    row_val: torch.Tensor    # [..., Wr, M] f32 coefficients
+    row_val: torch.Tensor    # [..., Wr, M] f32 / bf16 / int8 coefficients
     wrow_idx: torch.Tensor   # [..., Ww, Dr] wide-row bucket column ids
     wrow_val: torch.Tensor   # [..., Ww, Dr]
     wrow_ids: torch.Tensor   # [..., Dr] int32 row fed by each bucket column
@@ -107,7 +111,7 @@ class StructuredOperator(NamedTuple):
     wcol_ids: torch.Tensor   # [..., Dc] int32 column fed by each bucket column
     row_fold: Optional[torch.Tensor] = None   # [..., M] int32 bucket col or Dr
     col_fold: Optional[torch.Tensor] = None   # [..., N] int32 bucket col or Dc
-    row_scale: Optional[torch.Tensor] = None  # quantized storage (not ported)
+    row_scale: Optional[torch.Tensor] = None  # [..., 1] f32 int8 dequant scales
     wrow_scale: Optional[torch.Tensor] = None
     col_scale: Optional[torch.Tensor] = None
     wcol_scale: Optional[torch.Tensor] = None
@@ -167,33 +171,82 @@ def _pack_side(seg: np.ndarray, other: np.ndarray, vals: np.ndarray,
 def structured_from_coo(rows, cols, vals, n_rows: int, n_cols: int,
                         coef_dtype: str = "float32") -> StructuredOperator:
     """Build a :class:`StructuredOperator` (CPU tensors) from COO triplets.
-    Entries may repeat (they sum) and may carry zero values (kept)."""
-    if coef_dtype != "float32":
-        raise NotImplementedError(
-            f"coef_dtype={coef_dtype!r}: quantized ELL storage is not "
-            "ported yet (ROADMAP open items §1, item 7)")
+    Entries may repeat (they sum) and may carry zero values (kept).
+    ``coef_dtype`` selects the coefficient storage
+    (:func:`quantize_structured`)."""
     rows = np.asarray(rows).ravel()
     cols = np.asarray(cols).ravel()
     vals = np.asarray(vals, np.float32).ravel()
     ri, rv, wri, wrv, wrids, rfold = _pack_side(rows, cols, vals, n_rows)
     ci, cv, wci, wcv, wcids, cfold = _pack_side(cols, rows, vals, n_cols)
     t = torch.from_numpy
-    return StructuredOperator(
+    s = StructuredOperator(
         row_idx=t(ri), row_val=t(rv),
         wrow_idx=t(wri), wrow_val=t(wrv), wrow_ids=t(wrids),
         col_idx=t(ci), col_val=t(cv),
         wcol_idx=t(wci), wcol_val=t(wcv), wcol_ids=t(wcids),
         row_fold=t(rfold), col_fold=t(cfold))
+    return quantize_structured(s, coef_dtype)
+
+
+# coefficient storage dtypes quantize_structured accepts
+COEF_DTYPES = ("float32", "bfloat16", "int8")
+
+
+def _quantize_val(val: torch.Tensor, dtype: str):
+    """(stored, scale) for one coefficient bucket: bf16 is a plain cast
+    (round to nearest even, scale None); int8 is symmetric per bucket,
+    ``scale = max(|v|, 1e-30) / 127`` in f32 and the payload
+    ``round(v / scale)`` (half to even) clipped to +-127 — the
+    reference's arithmetic, so payloads and scales come out bit-equal."""
+    v = val.to(torch.float32)
+    if dtype == "bfloat16":
+        return v.to(torch.bfloat16), None
+    m = torch.amax(torch.abs(v), dim=(-2, -1))
+    scale = torch.clamp_min(m, 1e-30) / 127.0
+    q = torch.clamp(torch.round(v / scale[..., None, None]),
+                    -127, 127).to(torch.int8)
+    return q, scale.reshape(v.shape[:-2] + (1,))
+
+
+def quantize_structured(s: StructuredOperator,
+                        coef_dtype: str = "int8") -> StructuredOperator:
+    """Re-store the four coefficient arrays as ``coef_dtype``: "bfloat16"
+    (plain cast) or "int8" (symmetric per-bucket quantization, dequant
+    scale in the ``*_scale`` fields); "float32" is the identity.  Only
+    ``fused_structured_full`` streams the quantized payload (its kernels
+    dequantize in-register, accumulating in f32); every other consumer
+    dequantizes first.  Quantize from an f32 operator (re-quantizing a
+    quantized one raises)."""
+    if coef_dtype not in COEF_DTYPES:
+        raise ValueError(f"unknown coef_dtype {coef_dtype!r}; "
+                         f"expected one of {COEF_DTYPES}")
+    if coef_dtype == "float32":
+        return s
+    if s.coef_dtype != "float32":
+        raise ValueError(f"operator already stores {s.coef_dtype} "
+                         "coefficients; dequantize_structured first")
+    rv, rs = _quantize_val(s.row_val, coef_dtype)
+    wrv, wrs = _quantize_val(s.wrow_val, coef_dtype)
+    cv, cs = _quantize_val(s.col_val, coef_dtype)
+    wcv, wcs = _quantize_val(s.wcol_val, coef_dtype)
+    return s._replace(row_val=rv, wrow_val=wrv, col_val=cv, wcol_val=wcv,
+                      row_scale=rs, wrow_scale=wrs,
+                      col_scale=cs, wcol_scale=wcs)
 
 
 def dequantize_structured(s: StructuredOperator) -> StructuredOperator:
-    """Plain f32 coefficient storage — the identity for f32 operators,
-    which is all this slice builds (quantized storage: ROADMAP item 7)."""
+    """Back to plain f32 coefficient storage (scales folded in, scale
+    fields cleared).  Identity for f32 operators."""
+    from ..kernels.ref import _deq
     if s.coef_dtype == "float32" and s.row_scale is None:
         return s
-    raise NotImplementedError(
-        f"{s.coef_dtype} ELL coefficients: quantized storage is not ported "
-        "yet (ROADMAP open items §1, item 7)")
+    return s._replace(
+        row_val=_deq(s.row_val, s.row_scale),
+        wrow_val=_deq(s.wrow_val, s.wrow_scale),
+        col_val=_deq(s.col_val, s.col_scale),
+        wcol_val=_deq(s.wcol_val, s.wcol_scale),
+        row_scale=None, wrow_scale=None, col_scale=None, wcol_scale=None)
 
 
 def structured_to_dense(s: StructuredOperator) -> torch.Tensor:
@@ -224,7 +277,9 @@ def structured_to_dense(s: StructuredOperator) -> torch.Tensor:
 def scale_structured(s: StructuredOperator, d_r: torch.Tensor,
                      d_c: torch.Tensor) -> StructuredOperator:
     """K~ = D_r K D_c applied to the ELL payload (batched: d_r [k, M],
-    d_c [k, N]).  Padded entries stay zero."""
+    d_c [k, N]).  Padded entries stay zero, so fold maps and the wide-block
+    plan stay valid.  Quantized storage is dequantized first: the scaled
+    products are not int8-representable, so the scaled operator is f32."""
     from ..kernels.ref import _bgather as bgather
     s = dequantize_structured(s)
     return s._replace(
@@ -270,13 +325,17 @@ def _pad_to(a: torch.Tensor, shape) -> torch.Tensor:
 def stack_ops(subs: Sequence[OperatorLP]) -> OperatorLP:
     """Stack identically-shaped sub-LPs on a leading [k] axis, padding the
     data-dependent ELL widths to the stack maximum first (padding entries
-    are ``idx 0, val 0.0`` no-ops; fold maps stay lane-correct)."""
+    are ``idx 0, val 0.0`` no-ops; fold maps stay lane-correct).  Lanes
+    with mixed coefficient storage cannot stack (int8 next to f32): the
+    whole stack is dequantized to f32 then."""
     subs = list(subs)
     structs = [s.structured for s in subs]
     bare = [s._replace(structured=None) for s in subs]
     ops = zip_arrays(lambda *xs: torch.stack(xs), *bare)
     if any(st is None for st in structs):
         return ops
+    if len({st.coef_dtype for st in structs}) > 1:
+        structs = [dequantize_structured(st) for st in structs]
     stacked = {}
     for f in StructuredOperator._fields:
         vals = [getattr(st, f) for st in structs]
@@ -387,9 +446,55 @@ def fused_structured_engine() -> StepEngine:
                       scale_structured, prep)
 
 
+@functools.lru_cache(maxsize=16)
+def fused_structured_full_engine(kernel_backend: Optional[str] = None,
+                                 row_plan: tuple = (),
+                                 col_plan: tuple = ()) -> StepEngine:
+    """Single-lane streaming engine for the **full** (k=1) problem: each
+    half-step is ONE ``kernels/ops.py`` call (the hand-written CUDA kernel
+    on CUDA tensors, the plain torch version on CPU tensors) that reduces
+    the narrow ELL and the ragged plan of the wide bucket and folds the
+    wide sums back through the fold map — no one-hot, no scatter.
+
+    ``row_plan`` / ``col_plan`` are the ragged wide-block plans
+    ``((c0, c1, wb), ...)`` of :func:`_wide_block_plan`, computed by
+    :func:`resolve_engine` from the concrete operator.  ``kernel_backend``
+    is the ``kernels/ops.py`` backend of the two half-steps (``None``:
+    the kernel on CUDA tensors, the plain version on CPU tensors; "ref"
+    forces the plain version, what ``chip_smoke.py`` holds a solve
+    against on the card).  ``prep`` moves
+    ``op.structured`` into ``op.data`` with quantized payloads passed
+    through (the kernels dequantize in-register); equilibration scales a
+    dequantized copy, whose zeros stay where the plan expects them."""
+    from ..kernels import ops as kops
+
+    def K(data, x):
+        return kops.smatvec_full(data, x, plan=row_plan)
+
+    def KT(data, y):
+        return kops.smatvec_t_full(data, y, plan=col_plan)
+
+    def forward(data, x, c, l, u, tau, kty):
+        return kops.structured_full_forward_step(
+            data, x, c, l, u, tau, kty, plan=row_plan, backend=kernel_backend)
+
+    def backward(data, y, q, sigma, ineq_mask, kx_new, kx_prev):
+        return kops.structured_full_backward_step(
+            data, y, q, sigma, ineq_mask, kx_new, kx_prev, plan=col_plan,
+            backend=kernel_backend)
+
+    def prep(op: OperatorLP) -> OperatorLP:
+        return op._replace(data=op.structured, structured=None)
+
+    return StepEngine("fused_structured_full", K, KT, forward, backward,
+                      scale_structured, prep)
+
+
 # auto picks fused_structured_full only above this many stored wide-bucket
-# elements (the reference's constant; that engine is ROADMAP item 7)
+# elements (the reference's constant)
 FULL_ENGINE_MIN_WIDE_ELEMS = 65_536
+# column chunk the ragged wide-block plan is cut into
+WIDE_BLOCK_COLS = 128
 
 
 def _is_single_lane(op: OperatorLP) -> bool:
@@ -399,6 +504,54 @@ def _is_single_lane(op: OperatorLP) -> bool:
 def _wide_elems(s: StructuredOperator) -> int:
     return (s.wrow_idx.shape[-2] * s.wrow_idx.shape[-1]
             + s.wcol_idx.shape[-2] * s.wcol_idx.shape[-1])
+
+
+def _block_widths(wval: torch.Tensor) -> torch.Tensor:
+    """Per plan block (:data:`WIDE_BLOCK_COLS` bucket columns) the largest
+    effective column width — the index of the column's last nonzero plus
+    one, 0 for an all-zero column — computed where ``wval`` lives, with no
+    host sync.  ``wval`` is one lane's ``[Ww, D]`` (or ``[1, Ww, D]``)."""
+    v = wval[0] if wval.ndim == 3 else wval
+    ww, d = v.shape
+    rows = torch.arange(1, ww + 1, dtype=torch.int32, device=v.device)
+    counts = torch.where(v != 0, rows[:, None], 0).amax(dim=0)     # [D]
+    n_blocks = -(-d // WIDE_BLOCK_COLS)
+    counts = torch.nn.functional.pad(counts, (0, n_blocks * WIDE_BLOCK_COLS
+                                              - d))
+    return counts.reshape(n_blocks, WIDE_BLOCK_COLS).amax(dim=1)
+
+
+def _plan_from_widths(widths: Sequence[int], ww: int, d: int) -> tuple:
+    """The ragged plan ``((c0, c1, wb), ...)``: block ``b`` covers columns
+    ``[128 b, 128 (b + 1))`` at its largest width rounded up to a multiple
+    of 8 (at least 8, at most the stored depth ``ww``)."""
+    plan = []
+    for b, wmax in enumerate(widths):
+        c0 = b * WIDE_BLOCK_COLS
+        c1 = min(c0 + WIDE_BLOCK_COLS, d)
+        plan.append((c0, c1, min(max(8, -(-int(wmax) // 8) * 8), ww)))
+    return tuple(plan) if plan else ((0, d, ww),)
+
+
+def _wide_block_plan(wval: torch.Tensor) -> tuple:
+    """The reference's ragged wide-block plan over one wide bucket's
+    descending-width columns (``repro/core/pdhg.py:_wide_block_plan``):
+    chunks of :data:`WIDE_BLOCK_COLS` columns, each sliced to its own
+    largest effective width (from ``val != 0`` — exact, since zero
+    coefficients contribute nothing) rounded up to a multiple of 8.  The
+    widths are reduced on ``wval``'s device; only the ``[n_blocks]``
+    result crosses to the host."""
+    ww, d = wval.shape[-2:]
+    return _plan_from_widths(_block_widths(wval).tolist(), ww, d)
+
+
+def _wide_block_plans(s: StructuredOperator):
+    """``(row_plan, col_plan)`` of both wide buckets with ONE host sync."""
+    rw, cw = _block_widths(s.wrow_val), _block_widths(s.wcol_val)
+    widths = torch.cat([rw, cw]).tolist()
+    (wwr, dr), (wwc, dc) = s.wrow_val.shape[-2:], s.wcol_val.shape[-2:]
+    return (_plan_from_widths(widths[:rw.shape[0]], wwr, dr),
+            _plan_from_widths(widths[rw.shape[0]:], wwc, dc))
 
 
 def _leaves(tree) -> list:
@@ -447,12 +600,10 @@ def select_engine(op: OperatorLP, K_mv: Callable = dense_K_mv,
 ENGINE_NAMES = ("auto", "matvec", "fused", "fused_structured",
                 "fused_structured_full")
 
-# engines the rule can name that this slice has not ported yet
+# engines the rule can name that the port has not ported yet
 _UNPORTED = {
     "fused": "the dense fused engine is ROADMAP open items §1, item 9 "
              "(kernels §2 rows 5-8)",
-    "fused_structured_full": "the single-lane streaming engine is ROADMAP "
-                             "open items §1, item 7 (kernels §2 rows 3-4)",
 }
 
 
@@ -464,8 +615,10 @@ def resolve_engine(engine: Union[None, str, StepEngine], op: OperatorLP,
                    K_mv: Callable = dense_K_mv,
                    KT_mv: Callable = dense_KT_mv) -> StepEngine:
     """Normalise an engine spec to a :class:`StepEngine`.  Engines the
-    rule may name but this slice has not ported raise
-    ``NotImplementedError``; no other engine is substituted."""
+    rule may name but the port has not ported raise
+    ``NotImplementedError``; no other engine is substituted.  For
+    ``fused_structured_full`` this is also where the ragged wide-block
+    plans are computed from the concrete operator (one host sync)."""
     if isinstance(engine, StepEngine):
         return engine
     if engine is None or engine == "auto":
@@ -483,6 +636,19 @@ def resolve_engine(engine: Union[None, str, StepEngine], op: OperatorLP,
                 "problem's build_sub); operators without it use "
                 "engine='matvec'")
         return fused_structured_engine()
+    if engine == "fused_structured_full":
+        s = op.structured
+        if s is None or s.row_fold is None:
+            raise ValueError(
+                "engine='fused_structured_full' needs op.structured with "
+                "fold maps (operators built by structured_from_coo); "
+                "operators without it use engine='matvec'")
+        if not _is_single_lane(op):
+            raise ValueError(
+                "engine='fused_structured_full' streams the single-lane "
+                "full problem (k=1); stacked sub-problems use "
+                "engine='fused_structured'")
+        return fused_structured_full_engine(None, *_wide_block_plans(s))
     raise ValueError(f"unknown engine {engine!r}; expected 'auto', "
                      "'matvec', 'fused', 'fused_structured', "
                      "'fused_structured_full', or a StepEngine")

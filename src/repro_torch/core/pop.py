@@ -212,8 +212,10 @@ def solve(
 
 def reduce(problem: POPProblem, pop_plan: PopPlan, ops: OperatorLP,
            res: SolveResult) -> np.ndarray:
-    """Coalesce per-lane allocations into the global one."""
-    host = map_arrays(lambda a: a.cpu(), ops)
+    """Coalesce per-lane allocations into the global one.  ``extract``
+    reads the LP fields and ``op.data``; the ELL payload stays on the
+    device."""
+    host = map_arrays(lambda a: a.cpu(), ops._replace(structured=None))
     allocs = np.stack([
         np.asarray(problem.extract(map_arrays(lambda a, i=i: a[i], host),
                                    np.asarray(res.x[i]), pop_plan.idx[i]))
@@ -452,7 +454,8 @@ def finish_full(prep: PreparedSolve, res: SolveResult,
     """Unbatch a :func:`prepare_full` launch's result and extract the
     allocation."""
     res1 = map_arrays(lambda a: a[0], res)
-    op = map_arrays(lambda a: a[0].cpu(), prep.ops)
+    # the ELL payload stays on the device (173 MB at 20,000 TE demands)
+    op = map_arrays(lambda a: a[0].cpu(), prep.ops._replace(structured=None))
     idx = np.arange(prep.problem.n_entities)
     alloc = np.asarray(prep.problem.extract(op, res1.x, idx))
     return FullResult(alloc=alloc, res=res1, solve_time_s=solve_time_s,
@@ -473,3 +476,18 @@ def solve_full_ex(problem: POPProblem, *,
         **prep.opts)
     _sync(prep.ops.c.device)
     return finish_full(prep, res, time.perf_counter() - t1)
+
+
+def solve_full(problem: POPProblem, solver_kw: Optional[dict] = None,
+               warm: Optional[SolveResult] = None, *,
+               backend: str = "auto", engine: str = "auto",
+               backend_opts: Optional[dict] = None, device=None):
+    """Tuple-returning wrapper over :func:`solve_full_ex` (the reference's
+    historical surface: ``(alloc, res, solve_time, build_time)``)."""
+    r = solve_full_ex(
+        problem, warm=warm,
+        exec_cfg=ExecConfig(backend=backend, engine=engine,
+                            solver_kw=dict(solver_kw or {}),
+                            backend_opts=dict(backend_opts or {})),
+        device=device)
+    return r.alloc, r.res, r.solve_time_s, r.build_time_s

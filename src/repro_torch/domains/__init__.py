@@ -4,6 +4,7 @@ Importing this package registers the domains ported so far:
 
 ============  ==========================================================
 ``gavel``     max-min fair cluster scheduling (§3.1)
+``traffic``   WAN traffic engineering (§3.2)
 ============  ==========================================================
 """
 
@@ -11,6 +12,7 @@ from .base import DomainSpec
 from .registry import get, names, register, spec_for
 
 from . import gavel           # noqa: F401  (registers "gavel")
+from . import traffic         # noqa: F401  (registers "traffic")
 
 from .gavel import GavelInstance
 

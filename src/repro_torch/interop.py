@@ -1,6 +1,7 @@
 """Carry state between the reference package and the port through numpy.
 
-The tests feed both packages identical ELL payloads and warm iterates:
+The tests feed both packages identical ELL payloads (f32, bf16 or int8
+coefficients with their dequant scales) and warm iterates:
 they convert the reference's leaves to numpy, and these helpers build the
 port's containers from them.  Nothing here imports the reference.
 """
@@ -20,11 +21,18 @@ _INDEX_FIELDS = ("row_idx", "wrow_idx", "wrow_ids", "col_idx", "wcol_idx",
 
 
 def _tensor(name: str, a, device) -> Optional[torch.Tensor]:
+    """One leaf: indices int32, bool and int8 (quantized coefficients) as
+    they are, bf16 coefficients (numpy's ``bfloat16`` extension dtype,
+    which ``np.floating`` does not catch) through f32 — exact — into
+    ``torch.bfloat16``, other floats (scales included) f32."""
     if a is None:
         return None
     a = np.asarray(a)
     if name in _INDEX_FIELDS:
         a = a.astype(np.int32)
+    elif a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32),
+                            device=device).to(torch.bfloat16)
     elif a.dtype == np.bool_:
         pass
     elif np.issubdtype(a.dtype, np.floating):

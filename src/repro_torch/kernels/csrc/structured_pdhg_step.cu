@@ -32,9 +32,10 @@
 //    blocks run in no order, so the narrow pass RECOMPUTES the tail at each
 //    gathered index (5 gathers instead of 1, all L2 hits) instead of reading
 //    values another block may not have written yet.  This keeps a
-//    half-step at two launches.  The tail uses round-to-nearest intrinsics
-//    (no FMA contraction), so the recomputed value is bit-equal to the one
-//    stored, and to the plain PyTorch version's.
+//    half-step at two launches.  The tails (pdhg_tails.cuh) use
+//    round-to-nearest intrinsics (no FMA contraction), so the recomputed
+//    value is bit-equal to the one stored, and to the plain PyTorch
+//    version's.
 //  * The wide bucket (segments wider than max(16, 4x median): Gavel's worker
 //    rows and epigraph column, each as wide as the lane has jobs) is reduced
 //    by one 256-thread block per bucket column in a SECOND launch, which
@@ -49,56 +50,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pdhg_tails.cuh"
+
 namespace {
+
+using pdhg::DualTail;
+using pdhg::PrimalTail;
 
 constexpr int kNarrowThreads = 256;
 constexpr int kWideThreads = 256;
-
-// min(max(v, lo), hi), with a NaN in v kept (jnp.clip / torch semantics;
-// fmaxf alone would drop it and hide a diverging lane)
-__device__ __forceinline__ float clip_keep_nan(float v, float lo, float hi) {
-  return v != v ? v : fminf(fmaxf(v, lo), hi);
-}
-
-struct PrimalTail {
-  const float* x;
-  const float* c;
-  const float* l;
-  const float* u;
-  const float* kty;
-  const float* tau;  // [k]
-  float step;
-
-  __device__ PrimalTail lane(int b, int64_t v_len) const {
-    const int64_t o = b * v_len;
-    return {x + o, c + o, l + o, u + o, kty + o, tau, tau[b]};
-  }
-  __device__ __forceinline__ float operator()(int64_t i) const {
-    const float g = __fadd_rn(c[i], kty[i]);
-    return clip_keep_nan(__fsub_rn(x[i], __fmul_rn(step, g)), l[i], u[i]);
-  }
-};
-
-struct DualTail {
-  const float* y;
-  const float* q;
-  const uint8_t* mask;
-  const float* kx_new;
-  const float* kx_prev;
-  const float* sigma;  // [k]
-  float step;
-
-  __device__ DualTail lane(int b, int64_t v_len) const {
-    const int64_t o = b * v_len;
-    return {y + o, q + o, mask + o, kx_new + o, kx_prev + o, sigma, sigma[b]};
-  }
-  __device__ __forceinline__ float operator()(int64_t i) const {
-    const float r = __fsub_rn(__fsub_rn(__fmul_rn(2.0f, kx_new[i]), kx_prev[i]),
-                              q[i]);
-    const float v = __fadd_rn(y[i], __fmul_rn(step, r));
-    return (mask[i] && v < 0.0f) ? 0.0f : v;
-  }
-};
 
 // Launch 1: the tail for every vector entry (stored to v_new) and the
 // narrow ELL reduce for every output segment (stored to out).

@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the structured PDHG kernels — the port of
-``repro/kernels/ref.py:28-102``.
+``repro/kernels/ref.py:28-172``.
 
 These are the semantic ground truth for the hand-written CUDA kernels in
-``csrc/structured_pdhg_step.cu``: the CPU path runs them, and
+``csrc/structured_pdhg_step.cu`` (the k-lane stack) and
+``csrc/structured_full_pdhg_step.cu`` (the single-lane full problem): the
+CPU path runs them, and
 ``chip_smoke.py`` holds each kernel against them on the card.  Both
 matvec directions are ``torch.gather`` + a sum over the nnz axis; the
 wide-bucket results are folded into their segments with ``index_add_``
@@ -70,3 +72,68 @@ def structured_backward_step(s, y, q, sigma, ineq_mask, kx_new, kx_prev):
     """(y_new, K^T y_new); ``sigma`` broadcasts against [k, M]."""
     y_new = dual_tail(y, q, sigma, ineq_mask, kx_new, kx_prev)
     return y_new, smatvec_t(s, y_new)
+
+
+# --------------------------------------------------------------------------
+# full-problem (single-lane) oracles — the fused_structured_full engine's
+# semantics (``repro/kernels/ref.py:112-172``): fold-map wide add-back, the
+# ragged wide-block plan over the descending-width bucket, and int8/bf16
+# coefficient storage dequantized on the fly (f32 accumulation)
+# --------------------------------------------------------------------------
+
+def _deq(val, scale):
+    """Coefficients to f32: cast, then fold in the per-bucket dequant scale
+    when the payload is int8-quantized (scale [k, 1] or None)."""
+    v = val.to(torch.float32)
+    return v if scale is None else v * scale[..., None]
+
+
+def _gather_wide_sorted(widx, wval, wscale, fold, v, plan):
+    """Wide-bucket reduce + fold-map add-back:
+
+        wide[d] = sum_w wval[:, w, d] * v[widx[:, w, d]]     per plan block
+        out     = pad(wide, 1)[fold]                          (a gather)
+
+    ``plan`` is the ragged block plan ``((c0, c1, wb), ...)`` of
+    ``pdhg._wide_block_plan``: block ``[c0, c1)`` of the descending-width
+    bucket is reduced over its first ``wb`` rows only.  The fold map sends
+    narrow segments to the zero slot one past the bucket's end."""
+    if not plan:
+        plan = ((0, wval.shape[-1], wval.shape[-2]),)
+    parts = [
+        torch.sum(_deq(wval[:, :wb, c0:c1], wscale)
+                  * _bgather(v, widx[:, :wb, c0:c1]), dim=-2)
+        for (c0, c1, wb) in plan]
+    wide = torch.nn.functional.pad(torch.cat(parts, dim=-1), (0, 1))
+    return _bgather(wide, fold)
+
+
+def smatvec_full(s, x, plan=()):
+    """kx = K x for the single-lane full problem: the narrow ELL reduce
+    plus the fold-map wide add-back (no one-hot)."""
+    narrow = torch.sum(_deq(s.row_val, s.row_scale)
+                       * _bgather(x, s.row_idx), dim=-2)
+    return narrow + _gather_wide_sorted(
+        s.wrow_idx, s.wrow_val, s.wrow_scale, s.row_fold, x, plan)
+
+
+def smatvec_t_full(s, y, plan=()):
+    """kty = K^T y through the column-side layout (see smatvec_full)."""
+    narrow = torch.sum(_deq(s.col_val, s.col_scale)
+                       * _bgather(y, s.col_idx), dim=-2)
+    return narrow + _gather_wide_sorted(
+        s.wcol_idx, s.wcol_val, s.wcol_scale, s.col_fold, y, plan)
+
+
+def structured_full_forward_step(s, x, c, l, u, tau, kty, plan=()):
+    """(x_new, K x_new) for the full problem; ``tau`` broadcasts against
+    [1, N] (pass [1, 1])."""
+    x_new = primal_tail(x, c, l, u, tau, kty)
+    return x_new, smatvec_full(s, x_new, plan)
+
+
+def structured_full_backward_step(s, y, q, sigma, ineq_mask, kx_new,
+                                  kx_prev, plan=()):
+    """(y_new, K^T y_new) for the full problem (column side)."""
+    y_new = dual_tail(y, q, sigma, ineq_mask, kx_new, kx_prev)
+    return y_new, smatvec_t_full(s, y_new, plan)

@@ -1,13 +1,11 @@
-"""Build, load and launch the hand-written CUDA structured PDHG half-steps
+"""Load and launch the hand-written CUDA structured PDHG half-steps
 (``csrc/structured_pdhg_step.cu``) — the port of the lane kernels of
 ``repro/kernels/structured_pdhg_step.py`` (``structured_forward_step``
 :110, ``structured_backward_step`` :141).
 
-The source is compiled at first use with ``nvcc -gencode
-arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`` into
-``build/repro_torch_kernels/`` at the repository root, keyed on a hash of
-the source and flags, and loaded with ``ctypes``; nothing is built when
-this module is imported.  A build failure raises.
+The library is built at first use by :mod:`.build` (``nvcc`` for
+``sm_90a``, loaded with ``ctypes``); nothing is built when this module is
+imported, and a build failure raises.
 
 Each wrapper checks device, dtype and contiguity, allocates its outputs
 with ``torch.empty``, launches on the current stream, raises on a nonzero
@@ -19,66 +17,24 @@ bucket; see the source's note).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
+
+from . import build as _build
 
 # launches of each wrapper since the counts were last set to 0
 LAUNCHES = {"structured_forward_step": 0, "structured_backward_step": 0}
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "structured_pdhg_step.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
 _lib = None
-# what the last build printed (ptxas register/spill report) and took
-build_info: dict = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = Path(cuda_home) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    raise RuntimeError("nvcc not found (looked on PATH and in "
-                       f"{cuda_home}/bin); the CUDA kernels cannot be built")
-
-
-def library_path() -> Path:
-    """Where the built library for the current source and flags lives."""
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"structured_pdhg_step-{key}.so"
-
-
-def build() -> ctypes.CDLL:
-    """Compile (if not built yet) and load the kernels' shared library."""
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built if needed, with its C
+    signatures declared."""
     global _lib
     if _lib is not None:
         return _lib
-    out = library_path()
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, out)
-        build_info.update(seconds=time.perf_counter() - t0,
-                          log=proc.stdout + proc.stderr)
-    lib = ctypes.CDLL(str(out))
+    lib = _build.load("structured_pdhg_step")
     p, i = ctypes.c_void_p, ctypes.c_int
     for name in ("structured_forward_step", "structured_backward_step"):
         fn = getattr(lib, name)
@@ -128,7 +84,7 @@ def _check_shapes(name, side, vecs, k, v_len, s_len):
 def _launch(name, side, vecs, vec_dtypes, n_out_vec, n_out_seg, dims, ref):
     k = ref.shape[0]
     _check_shapes(name, side, vecs, k, n_out_vec, n_out_seg)
-    lib = build()
+    lib = library()
     v_new = torch.empty((k, n_out_vec), dtype=_F, device=ref.device)
     out = torch.empty((k, n_out_seg), dtype=_F, device=ref.device)
     args = _ptrs(side, (_I, _F, _I, _F, _I)) + _ptrs(vecs, vec_dtypes)

@@ -8,7 +8,11 @@ and by ``chip_smoke.py``.
 * :func:`step_operands` / :func:`step_tensors`: the vectors of one PDHG
   half-step pair, numpy f32 or tensors on a device;
 * :func:`session_workloads` / :func:`session_instances`: a three-step Gavel
-  session (cold, a +-3% throughput drift, then job churn under stable ids).
+  session (cold, a +-3% throughput drift, then job churn under stable ids);
+* :func:`traffic_arrays` / :func:`traffic_problem`: a traffic-engineering
+  instance (topology, demands, k-shortest paths) from three seeds;
+* :func:`ragged_coo` / :func:`ragged_operator`: a single-lane K whose wide
+  row bucket spans several ragged wide-block plan blocks.
 """
 
 from __future__ import annotations
@@ -112,3 +116,64 @@ def session_instances(n_jobs: int, num_workers, churn: float):
     from .domains import GavelInstance
     return [GavelInstance(wl, job_ids=ids)
             for wl, ids in session_workloads(n_jobs, num_workers, churn)]
+
+
+def traffic_arrays(n_demands: int, n_nodes: int = 754,
+                   target_edges: int = 1790, n_paths: int = 4,
+                   max_len: int = 48, topo_seed: int = 0,
+                   demand_seed: int = 1, path_seed: int = 2,
+                   make=None):
+    """``(topology, pairs, demand, path_edges)`` of one traffic-engineering
+    instance: a KDL-like topology (754 nodes, 1,790 undirected edges by
+    default), ``n_demands`` demands and ``n_paths`` k-shortest paths of at
+    most ``max_len`` edges per demand.  ``make`` is a module providing
+    ``make_topology``/``make_demands``/``k_shortest_paths`` (default: the
+    port's; the parity tests pass the reference's, which draws the same
+    arrays)."""
+    if make is None:
+        from .problems import traffic_engineering as make
+    topo = make.make_topology(n_nodes, target_edges, seed=topo_seed)
+    pairs, demand = make.make_demands(topo, n_demands, seed=demand_seed)
+    paths = make.k_shortest_paths(topo, pairs, n_paths=n_paths,
+                                  max_len=max_len, seed=path_seed)
+    return topo, pairs, demand, paths
+
+
+def traffic_problem(n_demands: int, coef_dtype: str = "float32", **kw):
+    """The port's ``TrafficProblem`` over :func:`traffic_arrays`."""
+    from .problems.traffic_engineering import TrafficProblem
+    return TrafficProblem(*traffic_arrays(n_demands, **kw),
+                          coef_dtype=coef_dtype)
+
+
+def ragged_coo(n_wide: int = 300, n_narrow: int = 400, n_cols: int = 6000,
+               max_width: int = 300, seed: int = 0):
+    """``(rows, cols, vals, n_rows, n_cols)`` of a block-diagonal
+    ``K = [[A, 0], [0, B^T]]``: A and B each have ``n_wide`` wide rows
+    (widths drawn in ``[20, max_width]``) and ``n_narrow`` rows of 1-3
+    entries over ``n_cols`` columns.  Both wide buckets then span several
+    128-column plan blocks of different depths, deeper than one row chunk
+    of the CUDA kernels, while the median segment stays narrow."""
+    rng = np.random.default_rng(seed)
+
+    def block():
+        widths = np.concatenate([rng.integers(20, max_width + 1, n_wide),
+                                 rng.integers(1, 4, n_narrow)])
+        r = np.repeat(np.arange(widths.size), widths)
+        c = np.concatenate([rng.choice(n_cols, w, replace=False)
+                            for w in widths])
+        return r, c, rng.normal(size=r.size)
+
+    (ra, ca, va), (rb, cb, vb) = block(), block()
+    m_a = n_wide + n_narrow
+    rows = np.concatenate([ra, m_a + cb])
+    cols = np.concatenate([ca, n_cols + rb])
+    return rows, cols, np.concatenate([va, vb]), m_a + n_cols, n_cols + m_a
+
+
+def ragged_operator(coef_dtype: str = "float32", **kw):
+    """The port's single-lane (``[1, ...]``) :class:`StructuredOperator`
+    (CPU) of :func:`ragged_coo`."""
+    from .core import pdhg
+    s = pdhg.structured_from_coo(*ragged_coo(**kw), coef_dtype=coef_dtype)
+    return pdhg.map_arrays(lambda a: a[None], s)

@@ -12,16 +12,20 @@ FMA, as the plain version's separate elementwise ops do); the
 gather-reduce products sum in another order, so they are held at the
 reference's product tolerance of 1e-4 (``tests/test_kernels.py``)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import testing
 from repro_torch.core import pdhg, pop
-from repro_torch.core.config import SolveConfig
-from repro_torch.kernels import ops, structured_pdhg_step
+from repro_torch.core.config import ExecConfig, SolveConfig
+from repro_torch.kernels import (ops, structured_full_pdhg_step,
+                                 structured_pdhg_step)
 from repro_torch.problems.cluster_scheduling import (GavelProblem,
                                                      make_cluster_workload)
+from repro_torch.problems.traffic_engineering import TrafficProblem
 from repro_torch.service import PopService
 
 PRODUCT_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -120,3 +124,134 @@ def test_cuda_session_matches_cpu_session(cuda_device):
         assert abs(a.metrics["mean_norm_throughput"]
                    - b.metrics["mean_norm_throughput"]) < 1e-3
     assert structured_pdhg_step.LAUNCHES["structured_backward_step"] > before
+
+
+# --------------------------------------------------------------------------
+# the full-problem (single-lane) kernels
+# --------------------------------------------------------------------------
+
+def _one_lane(s):
+    return pdhg.map_arrays(lambda a: a[None], s)
+
+
+@functools.lru_cache(maxsize=None)
+def _kdl_arrays(n_demands):
+    """A traffic instance on the KDL-like topology (paths take seconds)."""
+    return testing.traffic_arrays(n_demands)
+
+
+def _kdl_problem(n_demands, coef_dtype="float32"):
+    return TrafficProblem(*_kdl_arrays(n_demands), coef_dtype=coef_dtype)
+
+
+FULL_CASES = {
+    # several ragged plan blocks, deeper than one row chunk, on both sides
+    "ragged": testing.ragged_operator,
+    # the conformance matrix's small traffic case (empty wide buckets)
+    "traffic_small": lambda dt="float32": _one_lane(testing.traffic_problem(
+        14, coef_dtype=dt, n_nodes=24, target_edges=48, n_paths=3,
+        max_len=12, topo_seed=1, demand_seed=1,
+        path_seed=1).build_full().structured),
+    # the KDL-like topology: a ragged row bucket of edge rows
+    "traffic_kdl_600": lambda dt="float32": _one_lane(
+        _kdl_problem(600, dt).build_full().structured),
+    # Gavel's full LP: a 3-column row bucket and a 1-column column bucket
+    "gavel_full_256": lambda dt="float32": _one_lane(GavelProblem(
+        make_cluster_workload(256, num_workers=(64, 64, 64), seed=0),
+        coef_dtype=dt).build_full().structured),
+}
+
+
+def _full_steps(s, o, backend):
+    rplan, cplan = pdhg._wide_block_plans(s)
+    xn, kx = ops.structured_full_forward_step(
+        s, o["x"], o["c"], o["l"], o["u"], o["tau"], o["kty"], plan=rplan,
+        backend=backend)
+    yn, kty = ops.structured_full_backward_step(
+        s, o["y"], o["q"], o["sigma"], o["mask"], o["kxn"], o["kxp"],
+        plan=cplan, backend=backend)
+    return [v.cpu().numpy() for v in (xn, kx, yn, kty)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coef_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", sorted(FULL_CASES))
+def test_cuda_full_kernels_match_plain_versions(case, coef_dtype,
+                                                cuda_device):
+    """Both full kernels against their plain versions on the same
+    (quantized) operator: tails bit-equal, products within 1e-4."""
+    s = pdhg.to_device(FULL_CASES[case](coef_dtype), cuda_device)
+    assert s.coef_dtype == coef_dtype
+    o = testing.step_tensors(s, cuda_device, seed=9)
+    before = dict(structured_full_pdhg_step.LAUNCHES)
+    got = _full_steps(s, o, "kernel")
+    torch.cuda.synchronize()
+    want = _full_steps(s, o, "ref")
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_allclose(got[1], want[1], **PRODUCT_TOL)
+    np.testing.assert_allclose(got[3], want[3], **PRODUCT_TOL)
+    for name in before:
+        assert structured_full_pdhg_step.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.cuda
+def test_cuda_full_kernels_are_deterministic(cuda_device):
+    s = pdhg.to_device(testing.ragged_operator(), cuda_device)
+    o = testing.step_tensors(s, cuda_device, seed=3)
+    a, b = _full_steps(s, o, "kernel"), _full_steps(s, o, "kernel")
+    for u, v in zip(a, b):
+        np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.cuda
+def test_cuda_full_wrapper_rejects_bad_operands(cuda_device):
+    s = pdhg.to_device(testing.ragged_operator(), cuda_device)
+    o = testing.step_tensors(s, cuda_device, seed=1)
+    rplan, _ = pdhg._wide_block_plans(s)
+    args = (o["x"], o["c"], o["l"], o["u"], o["tau"], o["kty"])
+    bad_fold = s._replace(row_fold=s.row_fold.clone())
+    bad_fold.row_fold[0, 0] = s.wrow_idx.shape[-1] + 1
+    with pytest.raises(ValueError, match="fold map"):
+        ops.structured_full_forward_step(bad_fold, *args, plan=rplan)
+    with pytest.raises(ValueError, match="plan"):
+        ops.structured_full_forward_step(s, *args, plan=rplan[1:])
+    with pytest.raises(ValueError, match="one lane"):
+        ops.structured_full_forward_step(s, o["x"][:, :-1], *args[1:],
+                                         plan=rplan)
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        ops.structured_full_forward_step(s, o["x"].double(), *args[1:],
+                                         plan=rplan, backend="kernel")
+
+
+@pytest.mark.cuda
+def test_cuda_full_solve_runs_the_kernels(cuda_device, monkeypatch):
+    """``solve_full_ex`` on the card resolves ``fused_structured_full``
+    (threshold lowered for the small instance), launches both kernels once
+    per iteration, agrees with the plain engine on the card at a fixed
+    budget, and int8 storage gives the f32 trajectory (TE coefficients are
+    all 1.0)."""
+    monkeypatch.setattr(pdhg, "FULL_ENGINE_MIN_WIDE_ELEMS", 1)
+    fixed = ExecConfig(solver_kw=dict(max_iters=200, tol_primal=0.0,
+                                      tol_gap=0.0))
+    runs = {}
+    for dt in ("float32", "int8"):
+        prob = _kdl_problem(600, dt)
+        before = dict(structured_full_pdhg_step.LAUNCHES)
+        fr = pop.solve_full_ex(prob, exec_cfg=fixed, device=cuda_device)
+        assert fr.engine == "fused_structured_full"
+        for name in before:
+            assert (structured_full_pdhg_step.LAUNCHES[name] - before[name]
+                    == int(fr.res.iterations))
+        runs[dt] = fr
+    np.testing.assert_array_equal(runs["int8"].res.x, runs["float32"].res.x)
+    prob = _kdl_problem(600)
+    op = pdhg.to_device(pdhg.map_arrays(lambda a: a[None], prob.build_full()),
+                        cuda_device)
+    eng = pdhg.resolve_engine("fused_structured_full", op)
+    plain = pdhg.fused_structured_full_engine("ref", *(
+        pdhg._wide_block_plans(op.structured)))
+    got = pdhg.solve_stacked(op, engine=eng, **fixed.solver_dict())
+    want = pdhg.solve_stacked(op, engine=plain, **fixed.solver_dict())
+    np.testing.assert_allclose(got.x, want.x, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.y, want.y, rtol=1e-4, atol=1e-4)

@@ -53,6 +53,17 @@ def _module_names():
         yield ".".join(parts)
 
 
+def test_new_modules_are_checked():
+    """The full-problem kernels, the traffic domain and the shared build
+    are among the sources the import checks walk."""
+    names = {str(p.relative_to(ROOT)) for p in _sources()}
+    for rel in ("kernels/structured_full_pdhg_step.py", "kernels/build.py",
+                "problems/traffic_engineering.py", "domains/traffic.py",
+                "testing.py", "interop.py"):
+        assert f"src/repro_torch/{rel}" in names, rel
+    assert "chip_smoke.py" in names
+
+
 def test_every_module_imports_without_jax():
     code = (
         "import sys\n"
@@ -77,6 +88,9 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         pop.solve_instance(prob)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pop.build(prob, pop.plan(prob, 2))
+    for full in (pop.solve_full_ex, pop.solve_full):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            full(prob)
     assert PopService(device="cpu").device.type == "cpu"
 
 

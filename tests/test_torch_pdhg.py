@@ -28,6 +28,7 @@ from repro.problems.cluster_scheduling import (GavelProblem as RefGavel,
                                                make_cluster_workload)
 from repro_torch import interop
 from repro_torch.core import backends as tback, pdhg as tpdhg
+from repro_torch.core.pdhg import map_arrays
 from repro_torch.problems.cluster_scheduling import GavelProblem
 
 FIXED_KW = dict(max_iters=120, check_every=40, tol_primal=0.0, tol_gap=0.0)
@@ -171,10 +172,17 @@ def test_engine_rule_and_unported_engines(cluster):
     dense = ops._replace(
         data=(tpdhg.structured_to_dense(ops.structured),), structured=None)
     assert tpdhg.select_engine(dense) == "matvec"
-    for name, item in (("fused", "item 9"), ("fused_structured_full",
-                                              "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            tpdhg.resolve_engine(name, ops, km, ktm)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tpdhg.resolve_engine("fused", ops, km, ktm)
+    # the streaming full engine runs the single-lane problem only, and
+    # resolves on one lane of the stack with its ragged wide-block plans
+    with pytest.raises(ValueError, match="single-lane"):
+        tpdhg.resolve_engine("fused_structured_full", ops, km, ktm)
+    lane = map_arrays(lambda a: a[:1], ops)
+    eng = tpdhg.resolve_engine("fused_structured_full", lane, km, ktm)
+    assert eng.name == "fused_structured_full"
+    assert eng is tpdhg.fused_structured_full_engine(
+        None, *tpdhg._wide_block_plans(lane.structured))
     for backend in ("shard_map", "pmap"):
         with pytest.raises(NotImplementedError, match="multi-GPU"):
             tback.solve_map(ops, km, ktm, FIXED_KW, backend=backend)

@@ -135,5 +135,25 @@ def test_interop_roundtrip_builds_identical_payload():
 
 
 def test_quantized_storage_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tpdhg.structured_from_coo([0], [0], [1.0], 1, 1, coef_dtype="int8")
+    """Quantized ELL storage is ported: ``structured_from_coo(coef_dtype=)``
+    stores int8 (with per-bucket scales) and bf16 payloads bit-equal to the
+    reference's, and an unknown storage type raises."""
+    coo, _ = _skewed_coo(1, 45, 67, 0.25, sparse=True)
+    for coef_dtype in ("int8", "bfloat16"):
+        ref = rpdhg.structured_from_coo(*coo[0], 45, 67, coef_dtype=coef_dtype)
+        port = tpdhg.structured_from_coo(*coo[0], 45, 67,
+                                         coef_dtype=coef_dtype)
+        assert port.coef_dtype == coef_dtype
+        for f in ("row_val", "wrow_val", "col_val", "wcol_val"):
+            a, b = np.asarray(getattr(ref, f)), getattr(port, f)
+            if coef_dtype == "bfloat16":
+                a, b = a.view(np.int16), b.view(torch.int16)
+            np.testing.assert_array_equal(b.numpy(), a, err_msg=f)
+        for f in ("row_scale", "wrow_scale", "col_scale", "wcol_scale"):
+            a, b = getattr(ref, f), getattr(port, f)
+            if coef_dtype == "bfloat16":
+                assert a is None and b is None
+            else:
+                np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    with pytest.raises(ValueError, match="coef_dtype"):
+        tpdhg.structured_from_coo([0], [0], [1.0], 1, 1, coef_dtype="fp8")
