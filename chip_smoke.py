@@ -31,8 +31,9 @@ Phases, each of which must pass:
              (the ``fused_structured_full`` engine): the domain's
              defaults, then int8 coefficient storage (the same trajectory:
              TE coefficients are all 1.0), then a fixed budget against the
-             plain engine on the same card inputs; then a profiled fixed
-             budget of the same solve;
+             plain engine on the same card inputs; then profiled fixed
+             budgets of the full solve at the traffic shape (f32, int8)
+             and at the Gavel full shape (f32, equilibrated);
 7. traffic   a POP session on the same instance (domain defaults: k=8
              stratified): a cold step, every demand x 1.05 (a warm hit),
              and the CSPF heuristic beside POP and the full LP;
@@ -40,8 +41,10 @@ Phases, each of which must pass:
              defaults, equilibrate), its fairness beside POP's.
 
 The kernels' launch counts are set to 0 just before each path and read
-just after it: the lane kernels' over the main path, the full kernels'
-over the ``full`` phase.  Prints one JSON line of kernel results, then the
+just after it: the lane kernels' over the main path; the full kernels'
+over each of the traffic f32 solve (the count the JSON line reports), the
+int8 solve, the fixed-budget kernel run and the Gavel full solve.  Prints
+one JSON line of kernel results, then the
 card line, and as the last line ``{"ok": true, "device": {...}}``.  Exits
 nonzero, printing no result, without a CUDA device or outside the
 repository.
@@ -113,6 +116,12 @@ def check(cond, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def zero_launches(mod) -> None:
+    """Set every launch count of the wrapper module ``mod`` to 0."""
+    for name in mod.LAUNCHES:
+        mod.LAUNCHES[name] = 0
 
 
 # --------------------------------------------------------------------------
@@ -470,8 +479,7 @@ def phase_main(device, n_jobs=N_JOBS, num_workers=NUM_WORKERS):
     insts = testing.session_instances(n_jobs, num_workers, CHURN)
     service = PopService(device=device)
     sess = service.session("main", insts[0])
-    for name in kernel_mod.LAUNCHES:
-        kernel_mod.LAUNCHES[name] = 0
+    zero_launches(kernel_mod)
     allocs = []
     t_run = time.perf_counter()
     for inst in insts:
@@ -591,24 +599,23 @@ def phase_full(device, te_arrays):
     """The unpartitioned traffic baseline through ``pop.solve_full_ex``:
     the domain's defaults in f32 and in int8 storage (the same trajectory),
     then a fixed budget against the plain engine on the same card inputs.
-    The full kernels' launch counts are set to 0 just before and read just
-    after.  Returns ({dtype: (FullResult, metrics)}, launches)."""
+    The full kernels' launch counts are set to 0 just before each of the
+    three runs and read just after it.  Returns ({dtype: (FullResult,
+    metrics)}, {run: launches})."""
     from repro_torch import domains
     from repro_torch.core import pdhg, pop
     from repro_torch.kernels import structured_full_pdhg_step as full_mod
     from repro_torch.problems.traffic_engineering import TrafficProblem
     exec_cfg = domains.get("traffic").default_exec
-    for name in full_mod.LAUNCHES:
-        full_mod.LAUNCHES[name] = 0
-    runs = {}
+    runs, paths = {}, {}
     for dt in ("float32", "int8"):
         prob = TrafficProblem(*te_arrays, coef_dtype=dt)
-        before = dict(full_mod.LAUNCHES)
+        zero_launches(full_mod)
         t0 = time.perf_counter()
         fr = pop.solve_full_ex(prob, exec_cfg=exec_cfg, device=device)
         wall = time.perf_counter() - t0
+        launched = paths[f"te_{dt}"] = dict(full_mod.LAUNCHES)
         its = int(fr.res.iterations)
-        launched = {k: full_mod.LAUNCHES[k] - before[k] for k in before}
         metrics = prob.evaluate(fr.alloc)
         log(f"[full] TE {TE_DEMANDS} demands, {dt} storage: engine "
             f"{fr.engine}, backend {fr.backend}, {its} iterations, converged "
@@ -637,37 +644,63 @@ def phase_full(device, te_arrays):
     plain = pdhg.fused_structured_full_engine(
         "ref", *pdhg._wide_block_plans(op.structured))
     kw = dict(max_iters=FULL_FIXED_ITERS, tol_primal=0.0, tol_gap=0.0)
+    zero_launches(full_mod)
     got = pdhg.solve_stacked(op, engine=eng, **kw)
+    launched = paths["fixed_budget"] = dict(full_mod.LAUNCHES)
+    its = int(np.asarray(got.iterations).max())
+    check(all(n == its for n in launched.values()),
+          f"fixed budget: launches {launched} against {its} iterations")
     want = pdhg.solve_stacked(op, engine=plain, **kw)
     dx = float(np.abs(got.x - want.x).max())
     dy = float(np.abs(got.y - want.y).max())
     log(f"[full] fixed budget of {FULL_FIXED_ITERS} iterations, kernels "
         f"against the plain engine on the card: max |dx| {dx:.3g}, max |dy| "
-        f"{dy:.3g} (rtol=atol={SOLVE_RTOL})")
+        f"{dy:.3g} (rtol=atol={SOLVE_RTOL}); kernel run's launches "
+        f"{launched}")
     for name, a, b in (("x", got.x, want.x), ("y", got.y, want.y)):
         check(np.allclose(a, b, rtol=SOLVE_RTOL, atol=SOLVE_ATOL),
               f"fixed-budget {name} differs from the plain engine's")
-    launches = dict(full_mod.LAUNCHES)
-    log(f"[full] launches over the phase: {launches}")
-    return runs, launches
+    return runs, paths
 
 
-def phase_profile_full(device, te_arrays):
-    """A fixed budget of the full traffic solve under the profiler."""
+def gavel_full_problem():
+    """The Gavel LP of the main path's first fleet, unpartitioned."""
+    from repro_torch import testing
+    from repro_torch.problems.cluster_scheduling import GavelProblem
+    return GavelProblem(testing.session_workloads(N_JOBS, NUM_WORKERS,
+                                                  CHURN)[0][0])
+
+
+def phase_profile_full(device, te_arrays, gavel_prob):
+    """Fixed budgets of the full solve under the profiler: traffic
+    engineering in f32 and int8 storage (the domain's exec defaults but the
+    budget) and the Gavel full LP (the Gavel defaults, equilibrated, but
+    the budget).  Returns {shape: {kernel: device ms per call}}."""
+    from repro_torch import domains
     from repro_torch.core import pop
     from repro_torch.core.config import ExecConfig
     from repro_torch.problems.traffic_engineering import TrafficProblem
-    prob = TrafficProblem(*te_arrays)
-    cfg = ExecConfig(solver_kw=dict(max_iters=PROFILE_FULL_ITERS,
-                                    tol_primal=0.0, tol_gap=0.0))
-    per_call, fr = profiled(
-        "profile-full",
-        lambda: pop.solve_full_ex(prob, exec_cfg=cfg, device=device),
-        lambda r: r.res.iterations)
-    log(f"[profile-full] solve_s {fr.solve_time_s:.4f} for "
-        f"{int(fr.res.iterations)} iterations (build_s "
-        f"{fr.build_time_s:.4f}, not profiled work: the host packs the ELL)")
-    return per_call
+    fixed = dict(max_iters=PROFILE_FULL_ITERS, tol_primal=0.0, tol_gap=0.0)
+    gavel_kw = {**dict(domains.get("gavel").default_exec.solver_kw), **fixed}
+    cases = {
+        "te_float32": (TrafficProblem(*te_arrays), fixed),
+        "te_int8": (TrafficProblem(*te_arrays, coef_dtype="int8"), fixed),
+        "gavel_full_float32": (gavel_prob, gavel_kw),
+    }
+    out = {}
+    for case, (prob, kw) in cases.items():
+        cfg = ExecConfig(solver_kw=kw)
+        per_call, fr = profiled(
+            f"profile-full {case}",
+            lambda: pop.solve_full_ex(prob, exec_cfg=cfg, device=device),
+            lambda r: r.res.iterations)
+        check(fr.engine == "fused_structured_full", f"engine {fr.engine}")
+        log(f"[profile-full {case}] solve_s {fr.solve_time_s:.4f} for "
+            f"{int(fr.res.iterations)} iterations (build_s "
+            f"{fr.build_time_s:.4f}, not profiled work: the host packs the "
+            "ELL)")
+        out[case] = per_call
+    return out
 
 
 def phase_traffic(device, te_arrays, full_metrics, full_converged):
@@ -722,20 +755,19 @@ def phase_traffic(device, te_arrays, full_metrics, full_converged):
     return allocs
 
 
-def phase_gavel_full(device, pop_allocs):
+def phase_gavel_full(device, prob, pop_allocs):
     """The unpartitioned Gavel LP of the main path's fleet (Gavel
-    defaults: equilibrate, at most 20,000 iterations)."""
-    from repro_torch import domains, testing
+    defaults: equilibrate, at most 20,000 iterations), the full kernels'
+    launch counts set to 0 just before it and read just after.  Returns
+    the launches."""
+    from repro_torch import domains
     from repro_torch.core import pop
     from repro_torch.kernels import structured_full_pdhg_step as full_mod
-    from repro_torch.problems.cluster_scheduling import GavelProblem
-    wl = testing.session_workloads(N_JOBS, NUM_WORKERS, CHURN)[0][0]
-    prob = GavelProblem(wl)
-    before = dict(full_mod.LAUNCHES)
+    zero_launches(full_mod)
     fr = pop.solve_full_ex(prob, exec_cfg=domains.get("gavel").default_exec,
                            device=device)
+    launched = dict(full_mod.LAUNCHES)
     its = int(fr.res.iterations)
-    launched = {k: full_mod.LAUNCHES[k] - before[k] for k in before}
     m = prob.evaluate(fr.alloc)
     p = pop_allocs[0].metrics
     log(f"[gavel-full] {N_JOBS} jobs: engine {fr.engine}, {its} iterations, "
@@ -751,6 +783,7 @@ def phase_gavel_full(device, pop_allocs):
     check(fr.alloc.shape == (N_JOBS,) and np.isfinite(fr.alloc).all(),
           "allocation not finite")
     check(not bool(fr.res.diverged), "the full Gavel solve diverged")
+    return launched
 
 
 def main() -> int:
@@ -785,21 +818,30 @@ def main() -> int:
                              TrafficProblem(*te_arrays)))
         sess, insts, allocs, launches = phase("main", phase_main, device)
         profiled_ms = phase("profile", phase_profile, sess, insts[2])
-        runs, full_launches = phase("full", phase_full, device, te_arrays)
-        profiled_ms.update(phase("profile-full", phase_profile_full, device,
-                                 te_arrays))
+        runs, full_paths = phase("full", phase_full, device, te_arrays)
+        gavel_prob = gavel_full_problem()
+        full_profiles = phase("profile-full", phase_profile_full, device,
+                              te_arrays, gavel_prob)
         fr, full_metrics = runs["float32"]
         phase("traffic", phase_traffic, device, te_arrays, full_metrics,
               bool(fr.res.converged))
-        phase("gavel-full", phase_gavel_full, device, allocs)
+        full_paths["gavel_full"] = phase("gavel-full", phase_gavel_full,
+                                         device, gavel_prob, allocs)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    launches.update(full_launches)
+    # the JSON line: the lane kernels' launches over the main path, the
+    # full kernels' over the traffic f32 solve; device ms at the same shapes
+    profiled_ms.update(full_profiles["te_float32"])
+    launches.update(full_paths["te_float32"])
     for name, n in launches.items():
         records[name]["launches"] = n
         records[name]["device_ms"] = profiled_ms.get(name)
+    log("[launches] full kernels, each run's own count: " + "; ".join(
+        f"{run} {counts}" for run, counts in full_paths.items()))
+    log("[device-ms] full kernels per call: " + "; ".join(
+        f"{case} {per_call}" for case, per_call in full_profiles.items()))
     log("[walls] " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {sum(walls.values()):.1f} s")
     print(json.dumps({"kernels": list(records.values())}))

@@ -129,9 +129,10 @@ class ExecConfig:
 
     ``backend`` names a map-step backend (``core/backends.py`` registry,
     ``"auto"`` selects by k/devices/size); ``engine`` a PDHG step engine
-    (``core/pdhg.py``: ``"auto"``/``"matvec"``/``"fused_structured"`` or a
-    :class:`~repro_torch.core.pdhg.StepEngine`; ``"fused"`` and
-    ``"fused_structured_full"`` validate but are not ported yet).
+    (``core/pdhg.py``: ``"auto"``/``"matvec"``/``"fused_structured"``/
+    ``"fused_structured_full"`` or a
+    :class:`~repro_torch.core.pdhg.StepEngine`; ``"fused"`` validates but
+    is not ported yet).
     ``solver_kw`` keys are validated against the solver signature
     (``pdhg.SOLVER_KW_NAMES``).  The *resolved* backend/engine that
     actually ran are reported on every :class:`~repro_torch.core.pop.POPResult`

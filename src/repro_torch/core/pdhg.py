@@ -457,7 +457,7 @@ def fused_structured_full_engine(kernel_backend: Optional[str] = None,
     wide sums back through the fold map — no one-hot, no scatter.
 
     ``row_plan`` / ``col_plan`` are the ragged wide-block plans
-    ``((c0, c1, wb), ...)`` of :func:`_wide_block_plan`, computed by
+    ``((c0, c1, wb), ...)`` of :func:`_wide_block_plans`, computed by
     :func:`resolve_engine` from the concrete operator.  ``kernel_backend``
     is the ``kernels/ops.py`` backend of the two half-steps (``None``:
     the kernel on CUDA tensors, the plain version on CPU tensors; "ref"
@@ -533,20 +533,14 @@ def _plan_from_widths(widths: Sequence[int], ww: int, d: int) -> tuple:
     return tuple(plan) if plan else ((0, d, ww),)
 
 
-def _wide_block_plan(wval: torch.Tensor) -> tuple:
-    """The reference's ragged wide-block plan over one wide bucket's
-    descending-width columns (``repro/core/pdhg.py:_wide_block_plan``):
-    chunks of :data:`WIDE_BLOCK_COLS` columns, each sliced to its own
-    largest effective width (from ``val != 0`` — exact, since zero
-    coefficients contribute nothing) rounded up to a multiple of 8.  The
-    widths are reduced on ``wval``'s device; only the ``[n_blocks]``
-    result crosses to the host."""
-    ww, d = wval.shape[-2:]
-    return _plan_from_widths(_block_widths(wval).tolist(), ww, d)
-
-
 def _wide_block_plans(s: StructuredOperator):
-    """``(row_plan, col_plan)`` of both wide buckets with ONE host sync."""
+    """``(row_plan, col_plan)``: the reference's ragged wide-block plan
+    (``repro/core/pdhg.py:_wide_block_plan``) of each wide bucket's
+    descending-width columns: chunks of :data:`WIDE_BLOCK_COLS` columns,
+    each sliced to its own largest effective width (from ``val != 0`` —
+    exact, since zero coefficients contribute nothing) rounded up to a
+    multiple of 8.  The widths are reduced on the payload's device; only
+    the two ``[n_blocks]`` results cross to the host, in ONE sync."""
     rw, cw = _block_widths(s.wrow_val), _block_widths(s.wcol_val)
     widths = torch.cat([rw, cw]).tolist()
     (wwr, dr), (wwc, dc) = s.wrow_val.shape[-2:], s.wcol_val.shape[-2:]

@@ -71,8 +71,13 @@ using pdhg::PrimalTail;
 constexpr int kThreads = 256;
 // rows each thread reduces in one wide tile: CHUNK = (256 / TC) * kWideIters
 constexpr int kWideIters = 16;
-// plan rows the reduces copy to shared memory (48 KB of static limit)
-constexpr int kMaxPlanBlocks = 4096;
+// plan rows the reduces copy to shared memory: 12 B a row, within the 48 KB
+// a launch may ask for without opting in, less wide_partial_kernel's static
+// 1 KB of row-group sums: (49,152 - 1,024) / 12
+constexpr int kMaxPlanBlocks = 4010;
+static_assert(3 * sizeof(int32_t) * kMaxPlanBlocks + sizeof(float) * kThreads
+                  <= 48 * 1024,
+              "the largest plan and the row-group sums exceed 48 KB");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {

@@ -95,7 +95,7 @@ def _gather_wide_sorted(widx, wval, wscale, fold, v, plan):
         out     = pad(wide, 1)[fold]                          (a gather)
 
     ``plan`` is the ragged block plan ``((c0, c1, wb), ...)`` of
-    ``pdhg._wide_block_plan``: block ``[c0, c1)`` of the descending-width
+    ``pdhg._wide_block_plans``: block ``[c0, c1)`` of the descending-width
     bucket is reduced over its first ``wb`` rows only.  The fold map sends
     narrow segments to the zero slot one past the bucket's end."""
     if not plan:

@@ -10,7 +10,7 @@ imported, and a build failure raises.
 Each wrapper takes one lane (``[1, ...]`` operands) of a
 :class:`~repro_torch.core.pdhg.StructuredOperator` with f32, bf16 or int8
 coefficients and the ragged wide-block ``plan`` of
-``pdhg._wide_block_plan``.  It checks device, dtype, contiguity, every
+``pdhg._wide_block_plans``.  It checks device, dtype, contiguity, every
 shape, the plan and the fold map's values (the fold check syncs once per
 fold tensor and is remembered while that tensor lives unmodified; the plan
 is turned into a small device ``int32 [n_blocks, 3]`` array once per plan
@@ -40,7 +40,7 @@ LAUNCHES = {"structured_full_forward_step": 0,
 # blocks (the source's kThreads, kWideIters and kMaxPlanBlocks)
 THREADS = 256
 WIDE_ITERS = 16
-MAX_PLAN_BLOCKS = 4096
+MAX_PLAN_BLOCKS = 4010
 
 # coefficient storage codes of the C interface
 _COEF = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

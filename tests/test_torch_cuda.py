@@ -255,3 +255,43 @@ def test_cuda_full_solve_runs_the_kernels(cuda_device, monkeypatch):
     want = pdhg.solve_stacked(op, engine=plain, **fixed.solver_dict())
     np.testing.assert_allclose(got.x, want.x, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got.y, want.y, rtol=1e-4, atol=1e-4)
+
+
+def _wide_operator(n_wide, width=40, n_narrow=20_000, n_cols=30_000, seed=5):
+    """Single-lane operator whose row bucket holds ``n_wide`` columns
+    ``width`` deep (the other rows hold one entry each)."""
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([np.repeat(np.arange(n_wide), width),
+                           n_wide + np.arange(n_narrow)])
+    cols = np.concatenate([
+        np.concatenate([rng.choice(n_cols, width, replace=False)
+                        for _ in range(n_wide)]),
+        rng.integers(0, n_cols, n_narrow)])
+    s = pdhg.structured_from_coo(rows, cols, rng.normal(size=rows.size),
+                                 n_wide + n_narrow, n_cols)
+    assert tuple(s.wrow_idx.shape) == (width, n_wide)
+    return _one_lane(s)
+
+
+@pytest.mark.cuda
+def test_cuda_full_kernels_at_the_plan_block_limit(cuda_device):
+    """A row plan of exactly ``MAX_PLAN_BLOCKS`` blocks (one bucket column
+    each, the last one the rest) fits the kernels' shared memory and
+    matches the plain version; one block more is refused before launch."""
+    limit = structured_full_pdhg_step.MAX_PLAN_BLOCKS
+    s = pdhg.to_device(_wide_operator(limit + 90), cuda_device)
+    ww, d = s.wrow_idx.shape[1:]
+    plan = tuple((c, c + 1, ww) for c in range(limit - 1)) + (
+        (limit - 1, d, ww),)
+    o = testing.step_tensors(s, cuda_device, seed=2)
+    args = (s, o["x"], o["c"], o["l"], o["u"], o["tau"], o["kty"])
+    got = ops.structured_full_forward_step(*args, plan=plan,
+                                           backend="kernel")
+    torch.cuda.synchronize()
+    want = ops.structured_full_forward_step(*args, plan=plan, backend="ref")
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                               **PRODUCT_TOL)
+    over = plan[:-1] + ((limit - 1, limit, ww), (limit, d, ww))
+    with pytest.raises(ValueError, match="at most"):
+        ops.structured_full_forward_step(*args, plan=over, backend="kernel")

@@ -8,7 +8,8 @@ Both packages are fed the same seeded inputs through numpy:
   the reference's (the int8 scale is ``max(|v|, 1e-30) / 127`` in f32 and
   the payload rounds half to even in both);
 * the full problem's ELL arrays and fold maps (cluster and traffic) are
-  exactly equal, and so are the ``_wide_block_plan`` tuples;
+  exactly equal, and ``_wide_block_plans`` gives the reference's
+  ``_wide_block_plan`` tuples;
 * the full oracles agree with the reference's Pallas kernel bodies run in
   interpret mode (``block_m=128, block_w=8, block_d=128``, as
   ``tests/test_engine_conformance.py`` runs them) for all three coefficient
@@ -22,6 +23,9 @@ Both packages are fed the same seeded inputs through numpy:
 
 The hand-written CUDA kernels are held against the same oracles on the
 card in ``tests/test_torch_cuda.py``."""
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +43,7 @@ from repro_torch import interop, testing
 from repro_torch.core import backends as tback, pdhg as tpdhg, pop as tpop
 from repro_torch.core.config import ExecConfig
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import structured_full_pdhg_step as kfull
 from repro_torch.problems.cluster_scheduling import GavelProblem
 from repro_torch.problems.traffic_engineering import TrafficProblem
 
@@ -149,11 +154,35 @@ def test_wide_block_plan_matches_reference(case, coef_dtype):
         ts = tpdhg.structured_from_coo(*coo, coef_dtype=coef_dtype)
     want = (rpdhg._wide_block_plan(rs.wrow_val),
             rpdhg._wide_block_plan(rs.wcol_val))
-    assert (tpdhg._wide_block_plan(ts.wrow_val),
-            tpdhg._wide_block_plan(ts.wcol_val)) == want
     assert tpdhg._wide_block_plans(ts) == want
     if case.startswith("ragged"):
         assert len(want[0]) >= 3 and len(want[1]) >= 3
+
+
+def test_plan_block_limit_matches_kernel_source():
+    """The wrapper's block size, rows per thread and most plan blocks are
+    the CUDA source's, and the largest plan fits the 48 KB of shared memory
+    a launch may ask for beside the wide pass's row-group sums, with no room
+    for one block more."""
+    src = (Path(kfull.__file__).parent / "csrc"
+           / "structured_full_pdhg_step.cu").read_text()
+    const = {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                 src).group(1))
+             for name in ("kThreads", "kWideIters", "kMaxPlanBlocks")}
+    assert (kfull.THREADS, kfull.WIDE_ITERS, kfull.MAX_PLAN_BLOCKS) == (
+        const["kThreads"], const["kWideIters"], const["kMaxPlanBlocks"])
+    used = lambda blocks: 12 * blocks + 4 * kfull.THREADS
+    assert used(kfull.MAX_PLAN_BLOCKS) <= 48 * 1024 < used(
+        kfull.MAX_PLAN_BLOCKS + 1)
+
+
+def test_plan_layout_refuses_plans_beyond_the_limit():
+    limit = kfull.MAX_PLAN_BLOCKS
+    plan = tuple((c, c + 1, 8) for c in range(limit))
+    tc, n_tiles, n_chunks = kfull.plan_layout(plan, limit, 8)
+    assert (tc, n_tiles, n_chunks) == (1, limit, 1)
+    with pytest.raises(ValueError, match="at most"):
+        kfull.plan_layout(plan + ((limit, limit + 1, 8),), limit + 1, 8)
 
 
 def _oracle_operands(M, N, seed=7):
