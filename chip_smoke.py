@@ -38,12 +38,36 @@ Phases, each of which must pass:
              stratified): a cold step, every demand x 1.05 (a warm hit),
              and the CSPF heuristic beside POP and the full LP;
 8. gavel-full the unpartitioned Gavel LP of the main path's fleet (Gavel
-             defaults, equilibrate), its fairness beside POP's.
+             defaults, equilibrate), its fairness beside POP's;
+9. kernels-dense the four dense kernels (``bmatvec``, ``bmatvec_t``,
+             ``fused_forward_step``, ``fused_backward_step``) against their
+             plain versions at the densified main-path stack [8, 4,099,
+             6,145], the dense engine sweep's [32, 256, 256] and the
+             reference's ragged kernel-test shapes, f32 and (for the
+             matvecs) bf16 coefficients; each with its time beside the
+             plain version's, one ``torch.bmm`` of the same product (plus
+             the tail in torch for the half-steps) and the bound;
+10. dense    the main path's k=8 Gavel stack densified
+             (``pdhg.structured_to_dense``) through ``backends.solve_map(
+             engine="auto")``, which must take the ``fused`` engine: the
+             launch counts against the count the code predicts, a fixed
+             budget against ``fused_structured`` on the same stack, a solve
+             at the Gavel defaults (every lane converges, fairness within
+             1e-3 of the structured path's solve of the same instance), and
+             a profiled fixed budget;
+11. dense-sweep ``fused`` against ``matvec`` on random dense LP stacks
+             [k, 256, 256], k = 1..32 (the reference's engine sweep,
+             ``benchmarks/bench_pop_scaling.py``), a fixed budget of 2,000
+             iterations: equal iterations, times, the engines' distance;
+12. solve-dense ``pdhg.solve_dense`` at the reference's ``pdhg_vs_scipy``
+             size against scipy's HiGHS, at the reference test's bounds.
 
 The kernels' launch counts are set to 0 just before each path and read
 just after it: the lane kernels' over the main path; the full kernels'
 over each of the traffic f32 solve (the count the JSON line reports), the
-int8 solve, the fixed-budget kernel run and the Gavel full solve.  Prints
+int8 solve, the fixed-budget kernel run and the Gavel full solve; the
+dense kernels' over the dense path's Gavel-defaults solve (the count the
+JSON line reports) and its fixed budget.  Prints
 one JSON line of kernel results, then the
 card line, and as the last line ``{"ok": true, "device": {...}}``.  Exits
 nonzero, printing no result, without a CUDA device or outside the
@@ -93,6 +117,10 @@ KERNEL_SOURCE = {
         "src/repro_torch/kernels/csrc/structured_full_pdhg_step.cu",
     "structured_full_backward_step":
         "src/repro_torch/kernels/csrc/structured_full_pdhg_step.cu",
+    "fused_forward_step": "src/repro_torch/kernels/csrc/fused_pdhg_step.cu",
+    "fused_backward_step": "src/repro_torch/kernels/csrc/fused_pdhg_step.cu",
+    "bmatvec": "src/repro_torch/kernels/csrc/pdhg_matvec.cu",
+    "bmatvec_t": "src/repro_torch/kernels/csrc/pdhg_matvec.cu",
 }
 REPLACES = {
     "structured_forward_step": "src/repro/kernels/structured_pdhg_step.py:110",
@@ -101,8 +129,31 @@ REPLACES = {
         "src/repro/kernels/structured_pdhg_step.py:312",
     "structured_full_backward_step":
         "src/repro/kernels/structured_pdhg_step.py:334",
+    "fused_forward_step": "src/repro/kernels/fused_pdhg_step.py:87",
+    "fused_backward_step": "src/repro/kernels/fused_pdhg_step.py:116",
+    "bmatvec": "src/repro/kernels/pdhg_matvec.py:67",
+    "bmatvec_t": "src/repro/kernels/pdhg_matvec.py:89",
 }
 COEF_DTYPES = ("float32", "bfloat16", "int8")
+# the dense path: the reference's ragged kernel-test shapes
+# (tests/test_kernels.py) and its engine sweep's LPs (benchmarks/
+# bench_pop_scaling.py: n=150, mi=90, padded to [256, 256], k = 1..32) at
+# its 2,000 iterations, as a fixed budget: at its tolerances of 1e-6 a
+# lane's f32 score sits near the threshold, so the two engines' sums in
+# another order can stop it one check apart, and the engines would not do
+# the same work
+DENSE_TEST_SHAPES = ((1, 128, 128), (3, 300, 180), (4, 64, 512),
+                     (2, 512, 64), (8, 129, 257))
+SWEEP_KS = (1, 2, 4, 8, 16, 32)
+SWEEP_N, SWEEP_MI = 150, 90
+SWEEP_KW = dict(max_iters=2_000, tol_primal=0.0, tol_gap=0.0)
+SWEEP_REPEATS = 3
+DENSE_FIXED_ITERS = 200
+PROFILE_DENSE_ITERS = 400
+# bf16 coefficients: the reference's kernel-test tolerance
+BF16_RTOL = BF16_ATOL = 2e-2
+# the reference's pdhg_vs_scipy size and tests/test_pdhg.py's bounds
+SCIPY_N, SCIPY_MI = 300, 200
 
 
 class SmokeError(RuntimeError):
@@ -537,6 +588,16 @@ KERNEL_NAMES = {
     "structured_full_backward_step": (
         "DualTail>", ("full_tail_kernel", "wide_partial_kernel",
                       "full_narrow_kernel"), "full_narrow_kernel"),
+    "fused_forward_step": (
+        "PrimalTail>", ("dense_tail_kernel", "dense_rows_kernel"),
+        "dense_rows_kernel"),
+    "fused_backward_step": (
+        "DualTail>", ("dense_cols_kernel", "dense_chunk_sum_kernel"),
+        "dense_cols_kernel"),
+    "bmatvec": ("PlainVec>", ("dense_rows_kernel",), "dense_rows_kernel"),
+    "bmatvec_t": (
+        "PlainVec>", ("dense_cols_kernel", "dense_chunk_sum_kernel"),
+        "dense_cols_kernel"),
 }
 
 
@@ -786,6 +847,358 @@ def phase_gavel_full(device, prob, pop_allocs):
     return launched
 
 
+# --------------------------------------------------------------------------
+# the dense path
+# --------------------------------------------------------------------------
+
+DENSE_NAMES = ("fused_forward_step", "fused_backward_step", "bmatvec",
+               "bmatvec_t")
+
+
+def dense_mods():
+    from repro_torch.kernels import fused_pdhg_step, pdhg_matvec
+    return pdhg_matvec, fused_pdhg_step
+
+
+def dense_launches() -> dict:
+    return {name: n for mod in dense_mods() for name, n in mod.LAUNCHES.items()}
+
+
+def dense_tensors(k, M, N, device, seed=1):
+    """The half-step vectors of testing.step_operands on ``device``."""
+    from repro_torch import testing
+    return {name: torch.as_tensor(v, device=device) for name, v in
+            testing.step_operands(k, M, N, seed).items()}
+
+
+def dense_calls(A, o):
+    """{kernel name: fn(backend)} of the four dense kernels on ``A``."""
+    from repro_torch.kernels import ops
+    return {
+        "fused_forward_step": lambda be: ops.fused_forward_step(
+            A, o["x"], o["c"], o["l"], o["u"], o["tau"], o["kty"],
+            backend=be),
+        "fused_backward_step": lambda be: ops.fused_backward_step(
+            A, o["y"], o["q"], o["sigma"], o["mask"], o["kxn"], o["kxp"],
+            backend=be),
+        "bmatvec": lambda be: ops.bmatvec(A, o["x"], backend=be),
+        "bmatvec_t": lambda be: ops.bmatvec_t(A, o["y"], backend=be)}
+
+
+def compare_dense(A, o, names):
+    """Each named dense kernel against its plain version: the half-steps'
+    tails bit-equal, products within the f32 (or, for bf16 A, the bf16)
+    tolerance; returns the max abs error of each."""
+    bf16 = A.dtype == torch.bfloat16
+    rtol, atol = (BF16_RTOL, BF16_ATOL) if bf16 else (PRODUCT_RTOL,
+                                                       PRODUCT_ATOL)
+    calls = dense_calls(A, o)
+    errs = {}
+    for name in names:
+        got = calls[name]("kernel")
+        torch.cuda.synchronize()
+        want = calls[name]("ref")
+        tail_err = 0.0
+        if isinstance(got, tuple):
+            tail_err = float((got[0] - want[0]).abs().max())
+            check(tail_err == 0.0, f"{name}: tail differs by {tail_err}")
+            got, want = got[1], want[1]
+        err = (got - want).abs()
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+        check(bool((err <= atol + rtol * want.abs()).all()),
+              f"{name} ({A.dtype}, {tuple(A.shape)}): product off by "
+              f"{float(err.max())} (rtol={rtol}, atol={atol})")
+        errs[name] = max(tail_err, float(err.max()))
+    return errs
+
+
+def dense_bytes_ops(k, M, N, coef_bytes=4):
+    """{kernel: (bytes, flops)} at A [k, M, N]: A once, each vector in and
+    out once; 2 flops per element of A and the tails' element-wise ops."""
+    f32, a = 4, k * M * N * coef_bytes
+    return {
+        # x/c/l/u/kty + tau in, x_new + kx out
+        "fused_forward_step": (a + 5 * k * N * f32 + k * f32
+                               + (k * N + k * M) * f32,
+                               2 * k * M * N + 4 * k * N),
+        # y/q/kx_new/kx_prev + mask (u8) + sigma in, y_new + kty out
+        "fused_backward_step": (a + 4 * k * M * f32 + k * M + k * f32
+                                + (k * M + k * N) * f32,
+                                2 * k * M * N + 6 * k * M),
+        "bmatvec": (a + k * N * f32 + k * M * f32, 2 * k * M * N),
+        "bmatvec_t": (a + k * M * f32 + k * N * f32, 2 * k * M * N)}
+
+
+def dense_library(A, o):
+    """{kernel: fn()}: one torch.bmm of each kernel's product, the tail in
+    torch before it for the half-steps (a yardstick the port never
+    calls); with bf16 A the vector is cast to bf16, as bmm needs."""
+    from repro_torch.kernels import ref
+    tau, sigma = o["tau"][:, None], o["sigma"][:, None]
+    dt = A.dtype
+    return {
+        "fused_forward_step": lambda: torch.bmm(A, ref.primal_tail(
+            o["x"], o["c"], o["l"], o["u"], tau, o["kty"]).to(dt)[:, :, None]),
+        "fused_backward_step": lambda: torch.bmm(ref.dual_tail(
+            o["y"], o["q"], sigma, o["mask"], o["kxn"],
+            o["kxp"]).to(dt)[:, None, :], A),
+        "bmatvec": lambda: torch.bmm(A, o["x"].to(dt)[:, :, None]),
+        "bmatvec_t": lambda: torch.bmm(o["y"].to(dt)[:, None, :], A)}
+
+
+def time_dense(tag, A, o, names):
+    """{kernel: (ms, plain_ms, library_ms, bound_ms, bound_by)} of the named
+    dense kernels at A's shape, each printed."""
+    k, M, N = A.shape
+    work = dense_bytes_ops(k, M, N, A.element_size())
+    calls, library = dense_calls(A, o), dense_library(A, o)
+    out = {}
+    for name in names:
+        ms = event_ms(lambda: calls[name]("kernel"), reps=100)
+        plain_ms = event_ms(lambda: calls[name]("ref"), reps=50)
+        library_ms = event_ms(library[name], reps=100)
+        bound_ms, bound_by = bound(*work[name])
+        out[name] = (ms, plain_ms, library_ms, bound_ms, bound_by)
+        log(f"[kernels-dense] {name} at {tag}, per call: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms "
+            f"({bound_by}: {work[name][0] / 1e6:.3f} MB, "
+            f"{work[name][1] / 1e6:.3f} Mflop)")
+    return out
+
+
+def dense_instance(device):
+    """(problem, prepared structured solve, its densified stack): the main
+    path's fleet through ``pop.prepare_instance`` at the Gavel defaults,
+    then ``testing.densify`` (``pdhg.structured_to_dense`` on the host,
+    moved to the card)."""
+    from repro_torch import domains, testing
+    from repro_torch.core import pop
+    from repro_torch.problems.cluster_scheduling import (
+        GavelProblem, make_cluster_workload)
+    spec = domains.get("gavel")
+    prob = GavelProblem(make_cluster_workload(N_JOBS, num_workers=NUM_WORKERS,
+                                              seed=0))
+    prep = pop.prepare_instance(prob, spec.default_solve, spec.default_exec,
+                                device=device)
+    dense = testing.densify(prep.ops)
+    log(f"[dense] densified main-path stack: K {tuple(dense.data[0].shape)} "
+        f"{dense.data[0].dtype}, {dense.data[0].numel() * 4 / 1e6:.1f} MB, "
+        f"{int((dense.data[0] != 0).sum())} nonzeros")
+    return prob, prep, dense
+
+
+def phase_kernels_dense(device, dense_ops):
+    """The four dense kernels against their plain versions at the densified
+    stack, the sweep shape and the ragged test shapes (f32; bf16 for the
+    matvecs); times at the densified stack (the JSON line's) and the sweep
+    shape.  Returns the per-kernel records (without launches)."""
+    A = dense_ops.data[0]
+    k, M, N = A.shape
+    max_err = dict.fromkeys(DENSE_NAMES, 0.0)
+    rng = np.random.default_rng(0)
+    cases = {"densified": (A, dense_tensors(k, M, N, device))}
+    for shape in ((32, 256, 256),) + DENSE_TEST_SHAPES:
+        a = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=device)
+        cases[str(shape)] = (a, dense_tensors(*shape, device))
+    for case, (a, o) in cases.items():
+        for dt in (torch.float32, torch.bfloat16):
+            names = DENSE_NAMES if dt == torch.float32 else DENSE_NAMES[2:]
+            errs = compare_dense(a.to(dt), o, names)
+            log(f"[kernels-dense] {case} {str(dt)[6:]}: max abs err " + ", ".join(
+                f"{n} {e:.3g}" for n, e in errs.items()))
+            for n, e in errs.items():
+                if dt == torch.float32:
+                    max_err[n] = max(max_err[n], e)
+    o = cases["densified"][1]
+    times = time_dense(f"the densified stack {tuple(A.shape)} f32", A, o,
+                       DENSE_NAMES)
+    time_dense(f"the densified stack {tuple(A.shape)} bf16",
+               A.to(torch.bfloat16), o, DENSE_NAMES[2:])
+    a, o_s = cases["(32, 256, 256)"]
+    time_dense("the sweep shape (32, 256, 256) f32", a, o_s, DENSE_NAMES)
+    records = {}
+    for name in DENSE_NAMES:
+        ms, plain_ms, library_ms, bound_ms, bound_by = times[name]
+        records[name] = dict(
+            name=name, route="cuda", source=KERNEL_SOURCE[name],
+            replaces=REPLACES[name], launches=0, max_abs_err=max_err[name],
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms, device_ms=None)
+    return records
+
+
+def phase_dense(device, prob, prep, dense_ops):
+    """The densified main-path stack through ``backends.solve_map(engine=
+    "auto")`` at the Gavel defaults, the dense kernels' launch counts set to
+    0 just before it and read just after, against the count the code
+    predicts; fairness against the structured path's solve of the same
+    prepared instance; a fixed budget against ``fused_structured``; a
+    profiled fixed budget.  Returns (launches, device ms per call)."""
+    from repro_torch.core import backends, pdhg, pop
+    kw = dict(prep.solver_kw)
+    backend, eng, _ = backends.resolve_exec(dense_ops, pdhg.dense_K_mv,
+                                            pdhg.dense_KT_mv)
+    log(f"[dense] engine='auto' resolves to engine {pdhg.engine_name(eng)}, "
+        f"backend {backend} (the structured stack: {prep.backend}, "
+        f"{pdhg.engine_name(prep.engine)})")
+    check(pdhg.engine_name(eng) == "fused", f"engine {eng}")
+
+    def finish(res, secs):
+        r = pop.finish_prepared(prep, res, secs)
+        its = np.asarray(r.iterations)
+        m = prob.evaluate(r.alloc)
+        return r, m, its
+
+    t0 = time.perf_counter()
+    res_s = pop.solve(prob, prep.plan, prep.ops, backend=prep.backend,
+                      engine=prep.engine, solver_kw=kw,
+                      backend_opts=prep.opts)
+    r_s, m_s, its_s = finish(res_s, time.perf_counter() - t0)
+    for mod in dense_mods():
+        zero_launches(mod)
+    t0 = time.perf_counter()
+    res = backends.solve_map(dense_ops, pdhg.dense_K_mv, pdhg.dense_KT_mv,
+                             kw, engine="auto")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = dense_launches()
+    r, m, its = finish(res, secs)
+    conv = np.asarray(r.converged)
+    # one launch of each half-step per iteration of the loop, which runs
+    # until its slowest lane stops; K and K^T: 8 each in the equilibration
+    # probes (2 sweeps of 4), 31 in the power iteration, the starting
+    # products and the final KKT report
+    probes = 8 if kw.get("equilibrate") else 0
+    predicted = {"fused_forward_step": int(its.max()),
+                 "fused_backward_step": int(its.max()),
+                 "bmatvec": probes + 33, "bmatvec_t": probes + 33}
+    for tag, rr, mm, ii in (("structured", r_s, m_s, its_s),
+                            ("dense", r, m, its)):
+        log(f"[dense] {tag}: iterations sum {int(ii.sum())} / lane max "
+            f"{int(ii.max())}, converged {int(np.asarray(rr.converged).sum())}"
+            f"/{ii.size}, solve_s {rr.solve_time_s:.4f} "
+            f"({rr.solve_time_s * 1e3 / max(int(ii.max()), 1):.4f} ms per "
+            f"iteration), mean_norm_throughput "
+            f"{mm['mean_norm_throughput']:.6f}, min_norm_throughput "
+            f"{mm['min_norm_throughput']:.6f}")
+    log(f"[dense] launches {launched}, predicted {predicted}")
+    check(launched == predicted, "dense launches differ from the prediction")
+    check(r.alloc.shape == (N_JOBS,) and np.isfinite(r.alloc).all(),
+          "dense allocation not finite")
+    check(conv.all(), f"{int((~conv).sum())} dense lane(s) did not converge")
+    d_mean = abs(m["mean_norm_throughput"] - m_s["mean_norm_throughput"])
+    check(d_mean <= 1e-3, f"dense mean_norm_throughput differs from the "
+          f"structured path's by {d_mean}")
+
+    fixed = dict(kw, max_iters=DENSE_FIXED_ITERS, tol_primal=0.0, tol_gap=0.0)
+    for mod in dense_mods():
+        zero_launches(mod)
+    got = pdhg.solve_stacked(dense_ops, engine="fused", **fixed)
+    launched_fixed = dense_launches()
+    want = pdhg.solve_stacked(prep.ops, engine="fused_structured", **fixed)
+    dx = float(np.abs(got.x - want.x).max())
+    dy = float(np.abs(got.y - want.y).max())
+    log(f"[dense] fixed budget of {DENSE_FIXED_ITERS} iterations, fused "
+        f"against fused_structured on the same stack: max |dx| {dx:.3g}, max "
+        f"|dy| {dy:.3g} (rtol=atol={SOLVE_RTOL}); launches {launched_fixed}")
+    check(launched_fixed["fused_forward_step"] == DENSE_FIXED_ITERS,
+          f"fixed budget: launches {launched_fixed}")
+    for name, a, b in (("x", got.x, want.x), ("y", got.y, want.y)):
+        check(np.allclose(a, b, rtol=SOLVE_RTOL, atol=SOLVE_ATOL),
+              f"fixed-budget {name} differs from fused_structured's")
+
+    prof = dict(kw, max_iters=PROFILE_DENSE_ITERS, tol_primal=0.0,
+                tol_gap=0.0)
+    per_call, _ = profiled(
+        "profile-dense",
+        lambda: backends.solve_map(dense_ops, pdhg.dense_K_mv,
+                                   pdhg.dense_KT_mv, prof, engine="auto"),
+        lambda res_p: np.asarray(res_p.iterations).max())
+    return launched, {n: per_call.get(n) for n in DENSE_NAMES}
+
+
+def phase_dense_sweep(device):
+    """``fused`` against ``matvec`` on the reference engine sweep's random
+    dense LP stacks: for each k the next k LPs of one seeded draw (as the
+    reference draws them), each engine warmed once, then timed in turns,
+    keeping the least of :data:`SWEEP_REPEATS`; iterations must be equal
+    and every lane finite."""
+    from repro_torch import testing
+    from repro_torch.core import backends, pdhg
+    parts = testing.random_dense_lps(sum(SWEEP_KS), SWEEP_N, SWEEP_MI, seed=0)
+    rows, at = [], 0
+    for k in SWEEP_KS:
+        ops = testing.dense_stack(parts[at:at + k], device)
+        at += k
+
+        def run(engine, ops=ops):
+            res = backends.solve_map(ops, pdhg.dense_K_mv, pdhg.dense_KT_mv,
+                                     SWEEP_KW, engine=engine)
+            torch.cuda.synchronize()
+            return res
+
+        best, results = {}, {}
+        for engine in ("matvec", "fused"):
+            run(engine)
+        for _ in range(SWEEP_REPEATS):
+            for engine in ("matvec", "fused"):
+                t0 = time.perf_counter()
+                results[engine] = run(engine)
+                best[engine] = min(best.get(engine, float("inf")),
+                                   time.perf_counter() - t0)
+        its = {e: np.asarray(r.iterations) for e, r in results.items()}
+        row = dict(k=k, shape=tuple(ops.data[0].shape),
+                   matvec_s=best["matvec"], fused_s=best["fused"],
+                   matvec_iters=int(its["matvec"].sum()),
+                   fused_iters=int(its["fused"].sum()),
+                   speedup=best["matvec"] / best["fused"],
+                   max_abs_dx=float(np.abs(results["fused"].x
+                                           - results["matvec"].x).max()))
+        log("[dense-sweep] " + json.dumps(row))
+        check(np.array_equal(its["matvec"], its["fused"]),
+              f"k={k}: iterations {its['matvec']} (matvec) against "
+              f"{its['fused']} (fused)")
+        for engine, r in results.items():
+            check(np.isfinite(r.x).all() and not np.asarray(r.diverged).any(),
+                  f"k={k}: {engine} diverged or not finite")
+        rows.append(row)
+    return rows
+
+
+def phase_solve_dense(device):
+    """``pdhg.solve_dense`` at the reference's pdhg_vs_scipy size against
+    scipy's HiGHS: objective within 1e-3 (1 + |f|), inequality violation
+    below 1e-3, box violation below 1e-5 (``tests/test_pdhg.py``)."""
+    from scipy.optimize import linprog
+    from repro_torch import testing
+    from repro_torch.core import pdhg
+    from repro_torch.core.problem import LinearProgram
+    ((c, G, h),) = testing.random_dense_lps(1, SCIPY_N, SCIPY_MI, seed=0)
+    t0 = time.perf_counter()
+    ref = linprog(c, A_ub=G, b_ub=h, bounds=(0, 1), method="highs")
+    scipy_s = time.perf_counter() - t0
+    lp = LinearProgram.build(c=c, G=G, h=h, l=np.zeros(SCIPY_N),
+                             u=np.ones(SCIPY_N), device=device)
+    pdhg.solve_dense(lp, max_iters=100)
+    t0 = time.perf_counter()
+    res = pdhg.solve_dense(lp, max_iters=60_000, tol_primal=1e-6,
+                           tol_gap=1e-6)
+    secs = time.perf_counter() - t0
+    gap = abs(float(res.primal_obj) - ref.fun) / (1 + abs(ref.fun))
+    v = {k: float(a) for k, a in lp.violations(
+        torch.as_tensor(res.x, device=device)).items()}
+    log(f"[solve-dense] n={SCIPY_N} mi={SCIPY_MI}: {int(res.iterations)} "
+        f"iterations, converged {bool(res.converged)}, {secs:.3f} s (HiGHS "
+        f"{scipy_s:.3f} s on the host); objective {float(res.primal_obj):.6f} "
+        f"against HiGHS {ref.fun:.6f} (relative gap {gap:.3g}); "
+        f"violations {v}")
+    check(gap < 1e-3, f"objective off HiGHS's by {gap}")
+    check(v["ineq_max"] < 1e-3, f"inequality violation {v['ineq_max']}")
+    check(v["box_max"] < 1e-5, f"box violation {v['box_max']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -827,14 +1240,25 @@ def main() -> int:
               bool(fr.res.converged))
         full_paths["gavel_full"] = phase("gavel-full", phase_gavel_full,
                                          device, gavel_prob, allocs)
+        prob, prep, dense_ops = phase("dense-instance", dense_instance,
+                                      device)
+        records.update(phase("kernels-dense", phase_kernels_dense, device,
+                             dense_ops))
+        dense_launched, dense_ms = phase("dense", phase_dense, device, prob,
+                                         prep, dense_ops)
+        phase("dense-sweep", phase_dense_sweep, device)
+        phase("solve-dense", phase_solve_dense, device)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     # the JSON line: the lane kernels' launches over the main path, the
-    # full kernels' over the traffic f32 solve; device ms at the same shapes
+    # full kernels' over the traffic f32 solve, the dense kernels' over the
+    # dense path's Gavel-defaults solve; device ms at the same shapes
     profiled_ms.update(full_profiles["te_float32"])
+    profiled_ms.update(dense_ms)
     launches.update(full_paths["te_float32"])
+    launches.update(dense_launched)
     for name, n in launches.items():
         records[name]["launches"] = n
         records[name]["device_ms"] = profiled_ms.get(name)

@@ -38,6 +38,7 @@ import torch
 
 from . import pdhg
 from .pdhg import OperatorLP, SolveResult, StepEngine, map_arrays, zip_arrays
+from .problem import resolve_device  # noqa: F401  (re-exported)
 
 MapBackend = Callable[..., SolveResult]
 
@@ -48,19 +49,6 @@ AUTO_VMAP_MAX_K = 64
 AUTO_VMAP_MAX_ELEMS = 64_000_000
 
 EngineSpec = Union[str, StepEngine]
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the CUDA device unless the caller
-    names another.  With no CUDA device present the default raises — it
-    never falls back to the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; repro_torch runs on the GPU "
-                "by default — pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def register_backend(name: str) -> Callable[[MapBackend], MapBackend]:

@@ -9,25 +9,27 @@ that each emit the product they materialise:
     forward(data, x, c, l, u, tau[k], kty)          -> (x_new, K x_new)
     backward(data, y, q, sigma[k], ineq, kx, kx_-)  -> (y_new, K^T y_new)
 
-Three engines are ported:
+The reference's four engines are ported:
 
 ``matvec`` (:func:`matvec_engine`)
     The problem's own per-lane ``K_mv``/``KT_mv`` callables, applied lane
     by lane, with the element-wise tails in plain torch.
+``fused`` (:func:`fused_dense_engine`)
+    Dense operators (``op.data == (K,)``, K ``[k, M, N]``): each half-step
+    and each out-of-loop product is ONE call into ``kernels/ops.py`` for
+    the whole stack — the hand-written CUDA kernel on CUDA tensors, its
+    plain torch version on CPU tensors.
 ``fused_structured`` (:func:`fused_structured_engine`)
     Operators carrying a :class:`StructuredOperator` (two-bucket ELL index
-    metadata).  Each half-step is ONE call into ``kernels/ops.py``: the
-    hand-written CUDA kernel on CUDA tensors, its plain torch version on
-    CPU tensors.
+    metadata); each half-step is one ``kernels/ops.py`` call, as above.
 ``fused_structured_full`` (:func:`fused_structured_full_engine`)
     The single-lane full (k=1) problem with fold maps: each half-step is
     one streaming call over the narrow ELL and the ragged plan of the wide
     bucket, with int8/bf16 coefficient storage read as stored.
 
-``select_engine`` keeps the reference's rule word for word; where it names
-an engine the port has not ported yet (``fused`` for dense operators on
-the accelerator), :func:`resolve_engine` raises ``NotImplementedError``
-naming the ROADMAP item — it never substitutes another engine.
+``select_engine`` keeps the reference's rule word for word, with the CUDA
+device where the reference names the TPU: ``fused`` for dense operators
+on the accelerator.
 
 The reference's ``lax.while_loop`` becomes a Python loop over
 ``check_every``-iteration chunks with exactly one host sync per chunk (the
@@ -47,7 +49,7 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .problem import BIG
+from .problem import BIG, LinearProgram
 
 
 # --------------------------------------------------------------------------
@@ -305,6 +307,13 @@ class OperatorLP(NamedTuple):
     structured: Optional[StructuredOperator] = None
 
 
+def dense_ops(lp: LinearProgram) -> OperatorLP:
+    """The operator form of a dense :class:`LinearProgram`:
+    ``data = (K,)`` with ``K = [G; A]``."""
+    K, q, ineq = lp.stacked()
+    return OperatorLP(c=lp.c, q=q, l=lp.l, u=lp.u, ineq_mask=ineq, data=(K,))
+
+
 def dense_K_mv(data, x):
     (K,) = data
     return K @ x
@@ -415,6 +424,39 @@ def matvec_engine(K_mv: Callable = dense_K_mv,
     """Generic operator engine over the problem's per-lane matvecs;
     memoized on matvec identity (one engine object per matvec pair)."""
     return _engine_from_matvecs("matvec", _lanewise(K_mv), _lanewise(KT_mv))
+
+
+@functools.lru_cache(maxsize=16)
+def fused_dense_engine(kernel_backend: Optional[str] = None) -> StepEngine:
+    """Dense engine: ``op.data == (K,)`` with K ``[k, M, N]`` (f32 or bf16).
+    ``K``/``KT`` (the power iteration, the equilibration probes, the final
+    KKT report) and the two half-steps are each ONE ``kernels/ops.py``
+    call for the whole stack.  ``kernel_backend`` is the ``kernels/ops.py``
+    backend (``None``: the CUDA kernel on CUDA tensors, the plain version
+    on CPU tensors; "ref" forces the plain version).  Memoized, so
+    repeated resolutions return the same object."""
+    from ..kernels import ops as kops
+
+    def K(data, x):
+        return kops.bmatvec(data[0], x, backend=kernel_backend)
+
+    def KT(data, y):
+        return kops.bmatvec_t(data[0], y, backend=kernel_backend)
+
+    def forward(data, x, c, l, u, tau, kty):
+        return kops.fused_forward_step(data[0], x, c, l, u, tau, kty,
+                                       backend=kernel_backend)
+
+    def backward(data, y, q, sigma, ineq_mask, kx_new, kx_prev):
+        return kops.fused_backward_step(data[0], y, q, sigma, ineq_mask,
+                                        kx_new, kx_prev,
+                                        backend=kernel_backend)
+
+    def scale_data(data, d_r, d_c):
+        (K_,) = data
+        return (K_ * d_r[..., :, None] * d_c[..., None, :],)
+
+    return StepEngine("fused", K, KT, forward, backward, scale_data)
 
 
 @functools.lru_cache(maxsize=1)
@@ -594,13 +636,6 @@ def select_engine(op: OperatorLP, K_mv: Callable = dense_K_mv,
 ENGINE_NAMES = ("auto", "matvec", "fused", "fused_structured",
                 "fused_structured_full")
 
-# engines the rule can name that the port has not ported yet
-_UNPORTED = {
-    "fused": "the dense fused engine is ROADMAP open items §1, item 9 "
-             "(kernels §2 rows 5-8)",
-}
-
-
 def engine_name(engine: Union[str, "StepEngine"]) -> str:
     return engine if isinstance(engine, str) else engine.name
 
@@ -608,20 +643,24 @@ def engine_name(engine: Union[str, "StepEngine"]) -> str:
 def resolve_engine(engine: Union[None, str, StepEngine], op: OperatorLP,
                    K_mv: Callable = dense_K_mv,
                    KT_mv: Callable = dense_KT_mv) -> StepEngine:
-    """Normalise an engine spec to a :class:`StepEngine`.  Engines the
-    rule may name but the port has not ported raise
-    ``NotImplementedError``; no other engine is substituted.  For
-    ``fused_structured_full`` this is also where the ragged wide-block
-    plans are computed from the concrete operator (one host sync)."""
+    """Normalise an engine spec to a :class:`StepEngine`; an engine whose
+    operator layout does not fit raises ``ValueError`` (no other engine is
+    substituted).  For ``fused_structured_full`` this is also where the
+    ragged wide-block plans are computed from the concrete operator (one
+    host sync)."""
     if isinstance(engine, StepEngine):
         return engine
     if engine is None or engine == "auto":
         engine = select_engine(op, K_mv, KT_mv)
     if engine == "matvec":
         return matvec_engine(K_mv, KT_mv)
-    if engine in _UNPORTED:
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported yet: {_UNPORTED[engine]}")
+    if engine == "fused":
+        if not is_dense_ops(op):
+            raise ValueError(
+                "engine='fused' needs dense operator data (op.data == (K,) "
+                "with K [..., M, N]); structured operators use "
+                "engine='matvec' or 'fused_structured'")
+        return fused_dense_engine()
     if engine == "fused_structured":
         if op.structured is None:
             raise ValueError(
@@ -1040,3 +1079,60 @@ def solve(
         equilibrate=equilibrate, warm_x=wx, warm_y=wy, warm_mask=wm, kkt=kkt,
         divergence_ratio=divergence_ratio)
     return map_arrays(lambda a: a[0], res)
+
+
+# --------------------------------------------------------------------------
+# Ruiz equilibration (dense path) and the dense convenience wrappers
+# --------------------------------------------------------------------------
+
+def ruiz_equilibrate(op: OperatorLP, iters: int = 8):
+    """``(scaled_op, d_row, d_col)`` with K~ = D_r K D_c equilibrated by
+    ``iters`` Ruiz sweeps (inf-norm, square roots) over the dense K of ONE
+    LP (``op.data == (K,)``, K ``[M, N]``).  Recover original-space
+    solutions as ``x = d_col * x~``, ``y = d_row * y~``
+    (:func:`unscale_solution`)."""
+    (K,) = op.data
+    d_r = torch.ones(K.shape[0], dtype=torch.float32, device=K.device)
+    d_c = torch.ones(K.shape[1], dtype=torch.float32, device=K.device)
+    one = torch.ones((), dtype=torch.float32, device=K.device)
+    for _ in range(iters):
+        Ks = K * d_r[:, None] * d_c[None, :]
+        rn = torch.sqrt(torch.amax(torch.abs(Ks), dim=1))
+        cn = torch.sqrt(torch.amax(torch.abs(Ks), dim=0))
+        d_r = d_r / torch.where(rn > 1e-12, rn, one)
+        d_c = d_c / torch.where(cn > 1e-12, cn, one)
+    Ks = K * d_r[:, None] * d_c[None, :]
+    return scale_operator(op, d_r, d_c, data=(Ks,)), d_r, d_c
+
+
+def solve_dense(lp: LinearProgram, max_iters: int = 20_000,
+                tol_primal: float = 1e-4, tol_gap: float = 1e-4
+                ) -> SolveResult:
+    """Solve one dense :class:`LinearProgram` (on its device): Ruiz
+    equilibration, then :func:`solve` with the matvec engine; objective and
+    residuals are reported in the ORIGINAL space."""
+    op = dense_ops(lp)
+    sop, d_r, d_c = ruiz_equilibrate(op)
+    res = solve(sop, dense_K_mv, dense_KT_mv, max_iters=max_iters,
+                tol_primal=tol_primal, tol_gap=tol_gap)
+    dev = lp.c.device
+    x, y = unscale_solution(_as_f32(res.x, dev), _as_f32(res.y, dev), d_r,
+                            d_c)
+    pr, gap, p_obj, d_obj = _kkt(map_arrays(lambda a: a[None], op),
+                                 matvec_engine(), x[None], y[None])
+    return SolveResult(x=_np(x), y=_np(y), primal_obj=_np(p_obj[0]),
+                       dual_obj=_np(d_obj[0]), primal_res=_np(pr[0]),
+                       gap=_np(gap[0]), iterations=res.iterations,
+                       converged=res.converged, n_restarts=res.n_restarts,
+                       diverged=res.diverged)
+
+
+def solve_batched(op_batched: OperatorLP, K_mv: Callable = dense_K_mv,
+                  KT_mv: Callable = dense_KT_mv, **kw) -> SolveResult:
+    """Independent solves of a stack of LPs — POP's map step on one device.
+    The reference vmaps :func:`solve`; here the stack is ONE
+    :func:`solve_stacked` with :func:`solve`'s default engine (``matvec``,
+    unless ``kw`` names another), where every lane keeps its own step
+    sizes, restarts and termination."""
+    kw.setdefault("engine", "matvec")
+    return solve_stacked(op_batched, K_mv=K_mv, KT_mv=KT_mv, **kw)

@@ -1,7 +1,7 @@
 """Carry state between the reference package and the port through numpy.
 
-The tests feed both packages identical ELL payloads (f32, bf16 or int8
-coefficients with their dequant scales) and warm iterates:
+The tests feed both packages identical LPs, ELL payloads (f32, bf16 or
+int8 coefficients with their dequant scales) and warm iterates:
 they convert the reference's leaves to numpy, and these helpers build the
 port's containers from them.  Nothing here imports the reference.
 """
@@ -15,6 +15,7 @@ import torch
 
 from .core.pdhg import OperatorLP, StructuredOperator
 from .core.plan import WarmStart
+from .core.problem import LinearProgram
 
 _INDEX_FIELDS = ("row_idx", "wrow_idx", "wrow_ids", "col_idx", "wcol_idx",
                  "wcol_ids", "row_fold", "col_fold")
@@ -72,6 +73,18 @@ def operator_from_numpy(fields: dict, device):
         data=data,
         structured=None if structured is None else _structured(structured,
                                                                device))
+
+
+def linear_program_from_numpy(fields: dict, device) -> LinearProgram:
+    """The port's :class:`LinearProgram` from the reference's leaves as
+    numpy arrays (``c``, ``G``, ``h``, ``A``, ``b``, ``l``, ``u``; floats
+    to f32) and its static sizes (``n_var``, ``n_ineq``, ``n_eq``)."""
+    device = torch.device(device)
+    return LinearProgram(
+        *(_tensor(f, fields[f], device) for f in ("c", "G", "h", "A", "b",
+                                                  "l", "u")),
+        n_var=int(fields["n_var"]), n_ineq=int(fields["n_ineq"]),
+        n_eq=int(fields["n_eq"]))
 
 
 def warm_from_numpy(x, y, mask=None, *, device):

@@ -1,10 +1,12 @@
-"""Dispatch for the structured PDHG half-steps — the port of the
-structured and full-problem subsets of ``repro/kernels/ops.py``.
+"""Dispatch for the PDHG kernels — the port of ``repro/kernels/ops.py``.
 
-``structured_forward_step`` / ``structured_backward_step`` (the k-lane
-stack) and ``structured_full_forward_step`` /
-``structured_full_backward_step`` (the single-lane full problem, with its
-ragged wide-block ``plan``) take a ``backend`` keyword:
+The dense family (``bmatvec`` / ``bmatvec_t`` / ``fused_forward_step`` /
+``fused_backward_step`` over an explicit ``A [k, M, N]``), the structured
+half-steps (``structured_forward_step`` / ``structured_backward_step``,
+the k-lane stack) and the full-problem half-steps
+(``structured_full_forward_step`` / ``structured_full_backward_step``, the
+single-lane full problem with its ragged wide-block ``plan``) take a
+``backend`` keyword:
 
 ``None`` / ``"auto"``
     The hand-written CUDA kernel for CUDA tensors, the plain torch version
@@ -20,13 +22,16 @@ The out-of-loop products ``smatvec``/``smatvec_t`` and
 the final KKT report) stay plain torch, as the reference keeps them on XLA
 (``repro/kernels/ops.py:154-164,226-235``).
 
-The reference pads lane axes to ``STRUCT_ALIGN=128`` and the full
-problem's sides to sublane and ``FULL_BLOCK_*`` multiples for its VMEM
-blocks; those are TPU layout rules and are not carried over — the CUDA
-kernels mask their ragged edges themselves.
+The reference pads dense operands to ``BLOCK_M/N=256`` multiples, lane
+axes to ``STRUCT_ALIGN=128`` and the full problem's sides to sublane and
+``FULL_BLOCK_*`` multiples for its VMEM blocks; those are TPU layout rules
+and are not carried over — the CUDA kernels mask their ragged edges
+themselves.
 """
 
 from __future__ import annotations
+
+import torch
 
 from . import ref as _ref
 
@@ -47,6 +52,56 @@ def _resolve_mode(backend, tensor) -> str:
                          f"on {tensor.device}")
     return backend
 
+
+# --------------------------------------------------------------------------
+# dense family: A [k, M, N] f32 or bf16, f32 vectors (bf16 vectors are
+# widened, exactly, before a kernel call, as the reference's einsum widens)
+# --------------------------------------------------------------------------
+
+def _f32(v):
+    return v.to(torch.float32)
+
+
+def bmatvec(A, x, *, backend=None):
+    """y = A @ x batched over the leading axis; any [k, M, N] shape."""
+    if _resolve_mode(backend, A) == "ref":
+        return _ref.bmatvec(A, x)
+    from . import pdhg_matvec as _kernel
+    return _kernel.bmatvec(A, _f32(x))
+
+
+def bmatvec_t(A, y, *, backend=None):
+    """x = A^T @ y batched over the leading axis (A read untransposed)."""
+    if _resolve_mode(backend, A) == "ref":
+        return _ref.bmatvec_t(A, y)
+    from . import pdhg_matvec as _kernel
+    return _kernel.bmatvec_t(A, _f32(y))
+
+
+def fused_forward_step(A, x, c, l, u, tau, kty, *, backend=None):
+    """(x_new, kx) — clip(x - tau (c + kty), l, u), then A x_new; ``tau``
+    is [k]."""
+    if _resolve_mode(backend, x) == "ref":
+        return _ref.fused_forward_step(A, x, c, l, u, tau[:, None], kty)
+    from . import fused_pdhg_step as _kernel
+    return _kernel.fused_forward_step(A, x, c, l, u, tau, kty)
+
+
+def fused_backward_step(A, y, q, sigma, ineq_mask, kx_new, kx_prev, *,
+                        backend=None):
+    """(y_new, kty) — y + sigma (2 kx_new - kx_prev - q), >= 0 on
+    ``ineq_mask``, then A^T y_new; ``sigma`` is [k]."""
+    if _resolve_mode(backend, y) == "ref":
+        return _ref.fused_backward_step(A, y, q, sigma[:, None], ineq_mask,
+                                        kx_new, kx_prev)
+    from . import fused_pdhg_step as _kernel
+    return _kernel.fused_backward_step(A, y, q, sigma, ineq_mask, kx_new,
+                                       kx_prev)
+
+
+# --------------------------------------------------------------------------
+# structured family
+# --------------------------------------------------------------------------
 
 def smatvec(s, x):
     """kx = K x through the row-side gather layout (plain torch)."""

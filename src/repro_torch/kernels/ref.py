@@ -1,11 +1,13 @@
-"""Plain PyTorch versions of the structured PDHG kernels — the port of
-``repro/kernels/ref.py:28-172``.
+"""Plain PyTorch versions of the PDHG kernels — the port of
+``repro/kernels/ref.py``.
 
 These are the semantic ground truth for the hand-written CUDA kernels in
-``csrc/structured_pdhg_step.cu`` (the k-lane stack) and
-``csrc/structured_full_pdhg_step.cu`` (the single-lane full problem): the
-CPU path runs them, and
-``chip_smoke.py`` holds each kernel against them on the card.  Both
+``csrc/pdhg_matvec.cu`` and ``csrc/fused_pdhg_step.cu`` (the dense
+``[k, M, N]`` family), ``csrc/structured_pdhg_step.cu`` (the structured
+k-lane stack) and ``csrc/structured_full_pdhg_step.cu`` (the single-lane
+full problem): the CPU path runs them, and ``chip_smoke.py`` holds each
+kernel against them on the card.  The dense products are ``einsum`` in
+f32 (bf16 coefficients are widened first, exactly).  The structured
 matvec directions are ``torch.gather`` + a sum over the nnz axis; the
 wide-bucket results are folded into their segments with ``index_add_``
 (the reference's one-hot accumulation: bucket ids are distinct, padded
@@ -15,6 +17,18 @@ bucket columns add an exact 0.0 to segment 0).
 from __future__ import annotations
 
 import torch
+
+
+def bmatvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y[k, m] = sum_n A[k, m, n] * x[k, n]   (f32 accumulation)."""
+    return torch.einsum("kmn,kn->km", A.to(torch.float32),
+                        x.to(torch.float32))
+
+
+def bmatvec_t(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x[k, n] = sum_m A[k, m, n] * y[k, m]   (A read transposed)."""
+    return torch.einsum("kmn,km->kn", A.to(torch.float32),
+                        y.to(torch.float32))
 
 
 def _bgather(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -60,6 +74,20 @@ def dual_tail(y, q, sigma, ineq_mask, kx_new, kx_prev):
     ``ineq_mask``."""
     y_new = y + sigma * (2.0 * kx_new - kx_prev - q)
     return torch.where(ineq_mask, torch.clamp_min(y_new, 0.0), y_new)
+
+
+def fused_forward_step(A, x, c, l, u, tau, kty):
+    """Dense primal half-step + forward product: (x_new, A x_new);
+    ``tau`` broadcasts against [k, N] (pass [k, 1])."""
+    x_new = primal_tail(x, c, l, u, tau, kty)
+    return x_new, bmatvec(A, x_new)
+
+
+def fused_backward_step(A, y, q, sigma, ineq_mask, kx_new, kx_prev):
+    """Dense dual half-step + adjoint product: (y_new, A^T y_new);
+    ``sigma`` broadcasts against [k, M]."""
+    y_new = dual_tail(y, q, sigma, ineq_mask, kx_new, kx_prev)
+    return y_new, bmatvec_t(A, y_new)
 
 
 def structured_forward_step(s, x, c, l, u, tau, kty):

@@ -12,7 +12,10 @@ and by ``chip_smoke.py``.
 * :func:`traffic_arrays` / :func:`traffic_problem`: a traffic-engineering
   instance (topology, demands, k-shortest paths) from three seeds;
 * :func:`ragged_coo` / :func:`ragged_operator`: a single-lane K whose wide
-  row bucket spans several ragged wide-block plan blocks.
+  row bucket spans several ragged wide-block plan blocks;
+* :func:`random_dense_lps` / :func:`dense_stack`: random bounded-feasible
+  dense LPs and their stacked operator (the dense engine sweep's inputs);
+* :func:`densify`: a prepared structured stack as its dense ``(K,)`` twin.
 """
 
 from __future__ import annotations
@@ -177,3 +180,39 @@ def ragged_operator(coef_dtype: str = "float32", **kw):
     from .core import pdhg
     s = pdhg.structured_from_coo(*ragged_coo(**kw), coef_dtype=coef_dtype)
     return pdhg.map_arrays(lambda a: a[None], s)
+
+
+def random_dense_lps(k: int, n: int, mi: int, seed: int = 0) -> list:
+    """``[(c, G, h)]``, float64 numpy, of ``k`` random bounded-feasible LPs
+    ``min c x, G x <= h, 0 <= x <= 1`` (``h`` leaves slack at an interior
+    point), drawn in turn from one ``default_rng(seed)`` as the reference's
+    engine sweep draws them (``benchmarks/bench_pop_scaling.py``)."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for _ in range(k):
+        c = rng.normal(size=n)
+        G = rng.normal(size=(mi, n))
+        h = G @ rng.uniform(0.2, 0.8, n) + rng.uniform(0.1, 1.0, mi)
+        parts.append((c, G, h))
+    return parts
+
+
+def dense_stack(parts, device):
+    """The stacked dense :class:`~repro_torch.core.pdhg.OperatorLP` of
+    :func:`random_dense_lps`' parts on ``device``: each LP built (and
+    128-padded) by ``LinearProgram.build`` with the box [0, 1]."""
+    from .core import pdhg
+    from .core.problem import LinearProgram
+    lps = [LinearProgram.build(c=c, G=G, h=h, l=np.zeros(c.shape[0]),
+                               u=np.ones(c.shape[0]), device=device)
+           for c, G, h in parts]
+    return pdhg.stack_ops([pdhg.dense_ops(lp) for lp in lps])
+
+
+def densify(ops):
+    """A stacked structured operator's dense twin: ``data = (K,)`` with K
+    ``[k, M, N]`` materialised by ``pdhg.structured_to_dense`` (on the
+    host) and moved to the device of ``ops``; ``structured`` dropped."""
+    from .core import pdhg
+    K = pdhg.structured_to_dense(ops.structured).to(ops.c.device)
+    return ops._replace(data=(K,), structured=None)

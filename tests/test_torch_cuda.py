@@ -9,8 +9,9 @@ Each kernel is held against its plain PyTorch version (``kernels/ref.py``)
 on the same CUDA inputs.  The element-wise tails are bit-equal (the
 kernels round every operation to nearest and contract nothing into an
 FMA, as the plain version's separate elementwise ops do); the
-gather-reduce products sum in another order, so they are held at the
-reference's product tolerance of 1e-4 (``tests/test_kernels.py``)."""
+gather-reduce and dense products sum in another order, so they are held at
+the reference's product tolerance of 1e-4 (``tests/test_kernels.py``), and
+at its 2e-2 for bf16 coefficients."""
 
 import functools
 
@@ -21,7 +22,9 @@ import torch
 from repro_torch import testing
 from repro_torch.core import pdhg, pop
 from repro_torch.core.config import ExecConfig, SolveConfig
-from repro_torch.kernels import (ops, structured_full_pdhg_step,
+from repro_torch.core import backends
+from repro_torch.kernels import (fused_pdhg_step, ops, pdhg_matvec,
+                                 structured_full_pdhg_step,
                                  structured_pdhg_step)
 from repro_torch.problems.cluster_scheduling import (GavelProblem,
                                                      make_cluster_workload)
@@ -295,3 +298,119 @@ def test_cuda_full_kernels_at_the_plan_block_limit(cuda_device):
     over = plan[:-1] + ((limit - 1, limit, ww), (limit, d, ww))
     with pytest.raises(ValueError, match="at most"):
         ops.structured_full_forward_step(*args, plan=over, backend="kernel")
+
+
+# --------------------------------------------------------------------------
+# the dense kernels (bmatvec, bmatvec_t, fused_forward_step,
+# fused_backward_step)
+# --------------------------------------------------------------------------
+
+# the reference's kernel-test shapes (tests/test_kernels.py) and the dense
+# engine sweep's [32, 256, 256]
+DENSE_SHAPES = [(1, 128, 128), (3, 300, 180), (4, 64, 512), (2, 512, 64),
+                (8, 129, 257), (32, 256, 256), (2, 3, 1), (1, 1, 5)]
+DENSE_LAUNCHES = (pdhg_matvec.LAUNCHES, fused_pdhg_step.LAUNCHES)
+
+
+def _dense_operands(shape, dtype, device, seed=0, offset=0):
+    """A [k, M, N] in ``dtype`` (starting ``offset`` elements into its
+    storage, so its rows sit at other 16-byte alignments) and the
+    half-step vectors, on ``device``."""
+    k, M, N = shape
+    rng = np.random.default_rng(seed)
+    a = torch.tensor(rng.normal(size=k * M * N + offset), dtype=torch.float32)
+    A = a.to(getattr(torch, dtype)).to(device)[offset:].view(k, M, N)
+    o = {key: torch.as_tensor(v, device=device)
+         for key, v in testing.step_operands(k, M, N, seed + 1).items()}
+    return A, o
+
+
+def _dense_steps(A, o, backend):
+    xn, kx = ops.fused_forward_step(A, o["x"], o["c"], o["l"], o["u"],
+                                    o["tau"], o["kty"], backend=backend)
+    yn, kty = ops.fused_backward_step(A, o["y"], o["q"], o["sigma"],
+                                      o["mask"], o["kxn"], o["kxp"],
+                                      backend=backend)
+    y = ops.bmatvec(A, o["x"], backend=backend)
+    x = ops.bmatvec_t(A, o["y"], backend=backend)
+    return [v.cpu().numpy() for v in (xn, kx, yn, kty, y, x)]
+
+
+def _dense_counts():
+    return {k: v for launches in DENSE_LAUNCHES for k, v in launches.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", DENSE_SHAPES, ids=str)
+def test_cuda_dense_kernels_match_plain_versions(shape, dtype, offset,
+                                                 cuda_device):
+    """The four dense kernels against their plain versions on the same
+    inputs: tails bit-equal, products within 1e-4 (bf16 A: 2e-2); each
+    wrapper counts its one call."""
+    A, o = _dense_operands(shape, dtype, cuda_device, offset=offset)
+    before = _dense_counts()
+    got = _dense_steps(A, o, "kernel")
+    torch.cuda.synchronize()
+    want = _dense_steps(A, o, "ref")
+    tol = PRODUCT_TOL if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[2], want[2])
+    for i in (1, 3, 4, 5):
+        np.testing.assert_allclose(got[i], want[i], **tol)
+    after = _dense_counts()
+    assert all(after[name] == before[name] + 1 for name in before), after
+
+
+@pytest.mark.cuda
+def test_cuda_dense_kernels_are_deterministic(cuda_device):
+    """The column pass adds its M chunks in a fixed order (no atomics)."""
+    A, o = _dense_operands((3, 2_000, 700), "float32", cuda_device, seed=4)
+    assert pdhg_matvec.col_chunks(3, 2_000, 700)[1] > 1
+    a, b = _dense_steps(A, o, "kernel"), _dense_steps(A, o, "kernel")
+    for u, v in zip(a, b):
+        np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_auto_dispatch_and_bad_operands(cuda_device):
+    A, o = _dense_operands((2, 64, 96), "float32", cuda_device)
+    before = _dense_counts()
+    _dense_steps(A, o, None)
+    after = _dense_counts()
+    assert all(after[name] == before[name] + 1 for name in before)
+    with pytest.raises(ValueError, match="shape"):
+        ops.bmatvec(A, o["x"][:, :-1])
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        ops.bmatvec_t(A.transpose(1, 2), o["x"])
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        ops.fused_forward_step(A.double(), o["x"], o["c"], o["l"], o["u"],
+                               o["tau"], o["kty"])
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.bmatvec(A.cpu(), o["x"].cpu(), backend="kernel")
+
+
+@pytest.mark.cuda
+def test_cuda_dense_stack_resolves_fused(cuda_device):
+    """``solve_map(engine="auto")`` on a dense stack on the card resolves
+    the ``fused`` engine, launches each half-step kernel once per iteration
+    and each product kernel 33 times (31 in the power iteration, the
+    starting products, the final KKT report), and agrees with the plain
+    engine on the card at a fixed budget."""
+    ops_ = testing.dense_stack(testing.random_dense_lps(4, 150, 90, seed=0),
+                               cuda_device)
+    kw = dict(max_iters=200, tol_primal=0.0, tol_gap=0.0)
+    backend, eng, _ = backends.resolve_exec(ops_, pdhg.dense_K_mv,
+                                            pdhg.dense_KT_mv)
+    assert eng is pdhg.fused_dense_engine() and backend == "vmap"
+    before = _dense_counts()
+    got = backends.solve_map(ops_, pdhg.dense_K_mv, pdhg.dense_KT_mv, kw)
+    counts = {k: v - before[k] for k, v in _dense_counts().items()}
+    assert counts == {"bmatvec": 33, "bmatvec_t": 33,
+                      "fused_forward_step": 200,
+                      "fused_backward_step": 200}, counts
+    want = pdhg.solve_stacked(ops_, engine=pdhg.fused_dense_engine("ref"),
+                              **kw)
+    np.testing.assert_allclose(got.x, want.x, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.y, want.y, rtol=1e-4, atol=1e-4)

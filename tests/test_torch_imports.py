@@ -11,11 +11,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import repro_torch
 from repro_torch.core import pop
+from repro_torch.core.problem import LinearProgram
 from repro_torch.problems.cluster_scheduling import (GavelProblem,
                                                      make_cluster_workload)
 from repro_torch.service import PopService
@@ -54,14 +56,29 @@ def _module_names():
 
 
 def test_new_modules_are_checked():
-    """The full-problem kernels, the traffic domain and the shared build
-    are among the sources the import checks walk."""
+    """The dense and full-problem kernels, the LP containers, the traffic
+    domain and the shared build are among the sources the import checks
+    walk."""
     names = {str(p.relative_to(ROOT)) for p in _sources()}
     for rel in ("kernels/structured_full_pdhg_step.py", "kernels/build.py",
-                "problems/traffic_engineering.py", "domains/traffic.py",
-                "testing.py", "interop.py"):
+                "kernels/pdhg_matvec.py", "kernels/fused_pdhg_step.py",
+                "core/problem.py", "problems/traffic_engineering.py",
+                "domains/traffic.py", "testing.py", "interop.py"):
         assert f"src/repro_torch/{rel}" in names, rel
     assert "chip_smoke.py" in names
+
+
+def test_problem_module_imports_nothing_of_the_package():
+    """``core/problem.py`` resolves the default device itself: it imports
+    no module of the package (``core/backends.py`` imports it), so the LP
+    containers carry no import cycle."""
+    tree = ast.parse((PKG / "core" / "problem.py").read_text())
+    relative = [node.module for node in ast.walk(tree)
+                if isinstance(node, ast.ImportFrom) and node.level > 0]
+    absolute = [alias.name for node in ast.walk(tree)
+                if isinstance(node, ast.Import) for alias in node.names]
+    assert not relative, relative
+    assert not any(name.startswith("repro_torch") for name in absolute)
 
 
 def test_every_module_imports_without_jax():
@@ -91,6 +108,8 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
     for full in (pop.solve_full_ex, pop.solve_full):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             full(prob)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LinearProgram.build(c=np.ones(3))
     assert PopService(device="cpu").device.type == "cpu"
 
 

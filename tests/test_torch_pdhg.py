@@ -172,7 +172,10 @@ def test_engine_rule_and_unported_engines(cluster):
     dense = ops._replace(
         data=(tpdhg.structured_to_dense(ops.structured),), structured=None)
     assert tpdhg.select_engine(dense) == "matvec"
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # the dense fused engine resolves on dense operators, and refuses
+    # structured ones with the reference's ValueError
+    assert tpdhg.resolve_engine("fused", dense) is tpdhg.fused_dense_engine()
+    with pytest.raises(ValueError, match="needs dense operator data"):
         tpdhg.resolve_engine("fused", ops, km, ktm)
     # the streaming full engine runs the single-lane problem only, and
     # resolves on one lane of the stack with its ragged wide-block plans
