@@ -16,7 +16,10 @@ Phases, each of which must pass:
              full LP of 16,384 jobs and at two small ragged cases, each in
              f32, bf16 and int8 coefficient storage; each with its time
              beside the plain version's, a ``torch.sparse`` CSR product of
-             the same K and the bound;
+             the same K (timed in turns with the kernel) and the bound, and
+             the earlier design's times beside; where each structured
+             wrapper's host time goes (``[host]``: ops dispatch, checks,
+             allocations, the ctypes call, 1,000 calls each);
 4. main      the main path: an online Gavel POP session through
              ``PopService(device="cuda")`` at 16,384 jobs on 12,288
              accelerators, registry defaults (k=8, equilibrate), three
@@ -39,7 +42,13 @@ Phases, each of which must pass:
              and the CSPF heuristic beside POP and the full LP;
 8. gavel-full the unpartitioned Gavel LP of the main path's fleet (Gavel
              defaults, equilibrate), its fairness beside POP's;
-9. kernels-dense the four dense kernels (``bmatvec``, ``bmatvec_t``,
+9. redesign  the two redesigned kernels' device times under the profiler:
+             ``structured_backward_step`` at 4, 8 and 16 blocks a lane
+             (main-path shape), ``structured_full_forward_step`` in one
+             launch and after a tail launch, in turns (traffic shape); run
+             after the paths, since a profiler session slows every later
+             host call;
+10. kernels-dense the four dense kernels (``bmatvec``, ``bmatvec_t``,
              ``fused_forward_step``, ``fused_backward_step``) against their
              plain versions at the densified main-path stack [8, 4,099,
              6,145], the dense engine sweep's [32, 256, 256] and the
@@ -47,7 +56,7 @@ Phases, each of which must pass:
              matvecs) bf16 coefficients; each with its time beside the
              plain version's, one ``torch.bmm`` of the same product (plus
              the tail in torch for the half-steps) and the bound;
-10. dense    the main path's k=8 Gavel stack densified
+11. dense    the main path's k=8 Gavel stack densified
              (``pdhg.structured_to_dense``) through ``backends.solve_map(
              engine="auto")``, which must take the ``fused`` engine: the
              launch counts against the count the code predicts, a fixed
@@ -55,16 +64,18 @@ Phases, each of which must pass:
              at the Gavel defaults (every lane converges, fairness within
              1e-3 of the structured path's solve of the same instance), and
              a profiled fixed budget;
-11. dense-sweep ``fused`` against ``matvec`` on random dense LP stacks
+12. dense-sweep ``fused`` against ``matvec`` on random dense LP stacks
              [k, 256, 256], k = 1..32 (the reference's engine sweep,
              ``benchmarks/bench_pop_scaling.py``), a fixed budget of 2,000
              iterations: equal iterations, times, the engines' distance;
-12. solve-dense ``pdhg.solve_dense`` at the reference's ``pdhg_vs_scipy``
+13. solve-dense ``pdhg.solve_dense`` at the reference's ``pdhg_vs_scipy``
              size against scipy's HiGHS, at the reference test's bounds.
 
-The kernels' launch counts are set to 0 just before each path and read
-just after it: the lane kernels' over the main path; the full kernels'
-over each of the traffic f32 solve (the count the JSON line reports), the
+The kernels' launch counts (calls and, for the structured kernels, the
+CUDA launches the calls made, printed per half-step on the ``[launches]``
+lines) are set to 0 just before each path and read just after it: the
+lane kernels' over the main path; the full kernels' over each of the
+traffic f32 solve (the count the JSON line reports), the
 int8 solve, the fixed-budget kernel run and the Gavel full solve; the
 dense kernels' over the dense path's Gavel-defaults solve (the count the
 JSON line reports) and its fixed budget.  Prints
@@ -154,6 +165,23 @@ PROFILE_DENSE_ITERS = 400
 BF16_RTOL = BF16_ATOL = 2e-2
 # the reference's pdhg_vs_scipy size and tests/test_pdhg.py's bounds
 SCIPY_N, SCIPY_MI = 300, 200
+# PERF.md section 6: the structured kernels' times before their redesign
+# to one launch a half-step (NVIDIA H100 80GB HBM3, 700 W): per call, ms
+# with the host, device ms and the torch.sparse CSR product's ms, printed
+# beside this run's
+EARLIER_MS = {
+    "structured_forward_step": (0.0458, 0.0058, 0.0262),
+    "structured_backward_step": (0.0450, 0.0056, 0.0252),
+    "structured_full_forward_step": (0.0831, 0.0316, 0.0399),
+    "structured_full_backward_step": (0.0481, 0.0257, 0.0397),
+}
+# the redesigned kernels: the backward cluster sizes and the forward full
+# kernel's single and two-launch variants measured, calls per profiled
+# window, calls per piece of the host breakdown
+CLUSTERS = (4, 8, 16)
+FULL_VARIANTS = (1, 2)
+PROFILE_CALLS = 200
+HOST_CALLS = 1_000
 
 
 class SmokeError(RuntimeError):
@@ -170,9 +198,18 @@ def log(msg: str) -> None:
 
 
 def zero_launches(mod) -> None:
-    """Set every launch count of the wrapper module ``mod`` to 0."""
-    for name in mod.LAUNCHES:
-        mod.LAUNCHES[name] = 0
+    """Set every launch count of the wrapper module ``mod`` to 0: calls and,
+    where the module counts them, CUDA launches."""
+    for counts in (mod.LAUNCHES, getattr(mod, "CUDA_LAUNCHES", {})):
+        for name in counts:
+            counts[name] = 0
+
+
+def per_half_step(mod) -> dict:
+    """{wrapper: CUDA launches per call} since the counts were last set to
+    0 (None for a wrapper not called)."""
+    return {name: (mod.CUDA_LAUNCHES[name] / n if n else None)
+            for name, n in mod.LAUNCHES.items()}
 
 
 # --------------------------------------------------------------------------
@@ -196,6 +233,77 @@ def event_ms(fn, reps: int = 200, warmup: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def turns_ms(fns: dict) -> dict:
+    """{name: ms} of each function of ``fns`` by :func:`event_ms`, run in
+    turns (a, b, b, a) and the least of the two kept: the kernel and its
+    library call meet the same state of the host."""
+    order = list(fns) + list(fns)[::-1]
+    out: dict = {}
+    for name in order:
+        ms = event_ms(fns[name])
+        out[name] = min(out.get(name, ms), ms)
+    return out
+
+
+def device_ms(fn, calls: int = PROFILE_CALLS):
+    """Device milliseconds per call of ``fn`` from the profiler: the kernel
+    time of ``calls`` back-to-back calls over ``calls`` (None where the
+    profiler recorded no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA)
+    return us / calls / 1e3 if us else None
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host microseconds per call of ``fn`` (time.perf_counter_ns over
+    ``calls`` calls, the card synchronised before and after; where a piece
+    launches work and the card is slower, the queue's back-pressure counts
+    too)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls / 1e3
+
+
+def host_breakdown(name, total, direct, checks, alloc, call, stream):
+    """Print where the host time of a call goes: the ops dispatch (the
+    ops.py call less the wrapper's), the checks, the allocations, the
+    ctypes call (with the CUDA launch API inside it) and the stream lookup
+    it makes."""
+    t = {k: host_us(fn) for k, fn in (("total", total), ("direct", direct),
+                                      ("checks", checks), ("alloc", alloc),
+                                      ("call", call), ("stream", stream))}
+    rest = t["direct"] - t["checks"] - t["alloc"] - t["call"]
+    log(f"[host] {name}, per call over {HOST_CALLS} calls: total "
+        f"{t['total']:.2f} us = ops dispatch {t['total'] - t['direct']:.2f} "
+        f"+ checks {t['checks']:.2f} + allocations {t['alloc']:.2f} + ctypes"
+        f" call {t['call']:.2f} (of which the stream lookup "
+        f"{t['stream']:.2f}) + the rest {rest:.2f}")
+    return t
+
+
+def old_new(name: str, ms: float, dev, library_ms: float) -> str:
+    """This run's numbers of a structured kernel beside the earlier
+    design's."""
+    old = EARLIER_MS[name]
+    dev_s = "not measured" if dev is None else f"{dev:.4f}"
+    return (f"ms with host {ms:.4f} (earlier: {old[0]:.4f}), device ms "
+            f"{dev_s} (earlier: {old[1]:.4f}), torch.sparse CSR "
+            f"{library_ms:.4f} (earlier: {old[2]:.4f})")
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -380,9 +488,10 @@ def phase_kernels(device):
          2 * nnz_kt + 6 * k * M),
     )
     for name, step, library, n_bytes, n_ops in specs:
-        ms = event_ms(lambda: step("kernel"))
+        paired = turns_ms({"kernel": lambda: step("kernel"),
+                           "library": library})
+        ms, library_ms = paired["kernel"], paired["library"]
         plain_ms = event_ms(lambda: step("ref"))
-        library_ms = event_ms(library)
         bound_ms, bound_by = bound(n_bytes, n_ops)
         records[name] = dict(
             name=name, route="cuda", source=KERNEL_SOURCE[name],
@@ -395,7 +504,88 @@ def phase_kernels(device):
             f"torch.sparse CSR product {library_ms:.4f} ms, bound "
             f"{bound_ms:.5f} ms ({bound_by}: {n_bytes / 1e6:.3f} MB, "
             f"{n_ops / 1e6:.3f} Mflop)")
-    return records
+    lane_host(s, o)
+    return records, (s, o)
+
+
+def phase_redesign(lane_case, te_case, records):
+    """The two redesigned kernels' device times under the profiler: the
+    backward cluster kernel at each cluster size at the main-path shape and
+    the cooperative forward kernel's two variants at the traffic shape.
+    It runs after the paths: a profiler session slows every later host
+    call (PERF.md), and the with-host times and the host breakdown are
+    taken before it."""
+    s, o = lane_case
+    cluster_sweep(s, o, lane_calls(s, o), records)
+    s, o = te_case
+    variant_sweep(full_calls(s, o), records)
+
+
+def cluster_sweep(s, o, calls, records):
+    """The backward cluster kernel at each cluster size of
+    :data:`CLUSTERS` at the main-path shape: held against the plain
+    version, its time with the host and its device time per call; the
+    wrapper's own cluster size is restored after."""
+    from repro_torch.kernels import structured_pdhg_step as km
+    name = "structured_backward_step"
+    step = calls[name]
+    pack, _ = km.backward_checks(s, o["y"], o["q"], o["sigma"], o["mask"],
+                                 o["kxn"], o["kxp"])
+    log(f"[redesign] {name}: the shape rule takes the "
+        + ("shared-memory" if km.lane_local(pack) else "cluster")
+        + f" instance for lanes of {pack.v_len} rows")
+    want = step("ref")
+    default, sweep = km.CLUSTER, {}
+    try:
+        for c in CLUSTERS:
+            km.CLUSTER = c
+            got = step("kernel")
+            torch.cuda.synchronize()
+            err = _check_pair(f"{name} (cluster {c})", got, want)
+            again = step("kernel")
+            check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                  f"{name} (cluster {c}) is not deterministic")
+            sweep[c] = (event_ms(lambda: step("kernel")),
+                        device_ms(lambda: step("kernel")))
+            log(f"[redesign] {name} {c} blocks a lane: max abs err "
+                f"{err:.3g}, ms with host {sweep[c][0]:.4f}, device ms "
+                f"{sweep[c][1]}")
+    finally:
+        km.CLUSTER = default
+    fastest = min(sweep, key=lambda c: sweep[c][1] or float("inf"))
+    log(f"[redesign] {name}: fastest on the device with {fastest} blocks a "
+        f"lane; the wrapper's CLUSTER is {default}; the earlier two "
+        f"launches: "
+        f"device ms "
+        f"{EARLIER_MS[name][1]:.4f}, bound {records[name]['bound_ms']:.5f}")
+    records[name]["device_ms_sweep"] = {str(c): v[1] for c, v in sweep.items()}
+
+
+def lane_host(s, o):
+    """The host breakdown of the two lane wrappers at the main-path
+    shape."""
+    from repro_torch.kernels import ops, structured_pdhg_step as km
+    fw = (s, o["x"], o["c"], o["l"], o["u"], o["tau"], o["kty"])
+    bw = (s, o["y"], o["q"], o["sigma"], o["mask"], o["kxn"], o["kxp"])
+    p, ptrs = km.forward_checks(*fw)
+    outs = km.forward_alloc(p, o["x"])
+    host_breakdown("structured_forward_step",
+                   lambda: ops.structured_forward_step(*fw),
+                   lambda: km.structured_forward_step(*fw),
+                   lambda: km.forward_checks(*fw),
+                   lambda: km.forward_alloc(p, o["x"]),
+                   lambda: km.forward_call(p, ptrs, *outs),
+                   lambda: km._stream(p))
+    p, ptrs = km.backward_checks(*bw)
+    c = km.CLUSTER
+    outs = km.backward_alloc(p, o["y"])
+    host_breakdown("structured_backward_step",
+                   lambda: ops.structured_backward_step(*bw),
+                   lambda: km.structured_backward_step(*bw),
+                   lambda: km.backward_checks(*bw),
+                   lambda: km.backward_alloc(p, o["y"]),
+                   lambda: km.backward_call(p, ptrs, *outs, c),
+                   lambda: km._stream(p))
 
 
 def _nnz(*vals) -> int:
@@ -507,16 +697,85 @@ def phase_kernels_full(device, te_prob):
                names[1]: lambda: csr_kt @ o["y"].reshape(-1, 1)}
     records = {}
     for k in names:
-        ms, plain_ms, bound_ms, bound_by = times[(te_case, "float32", k)]
-        library_ms = event_ms(library[k])
-        log(f"[kernels] {k} at {te_case} float32: torch.sparse CSR product "
+        _, plain_ms, bound_ms, bound_by = times[(te_case, "float32", k)]
+        fn = full_calls(s, o)[k]
+        paired = turns_ms({"kernel": lambda: fn("kernel"),
+                           "library": library[k]})
+        ms, library_ms = paired["kernel"], paired["library"]
+        log(f"[kernels] {k} at {te_case} float32, in turns with its "
+            f"torch.sparse CSR product: kernel {ms:.4f} ms, CSR "
             f"{library_ms:.4f} ms")
         records[k] = dict(
             name=k, route="cuda", source=KERNEL_SOURCE[k],
             replaces=REPLACES[k], launches=0, max_abs_err=max_err[k], ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms, device_ms=None)
-    return records
+    full_host(s, o)
+    return records, (s, o)
+
+
+def variant_sweep(calls, records):
+    """The cooperative forward kernel at the traffic shape (f32) in one
+    launch and after the tail launch, in turns (1, 2, 2, 1): held against
+    the plain version, its time with the host and its device time per
+    call; the wrapper's own variant is restored after."""
+    from repro_torch.kernels import structured_full_pdhg_step as kf
+    name = "structured_full_forward_step"
+    step = calls[name]
+    want = step("ref")
+    default, runs = kf.VARIANT, {v: [] for v in FULL_VARIANTS}
+    try:
+        for v in FULL_VARIANTS + FULL_VARIANTS[::-1]:
+            kf.VARIANT = v
+            zero_launches(kf)
+            got = step("kernel")
+            torch.cuda.synchronize()
+            err = _check_pair(f"{name} (variant {v})", got, want)
+            per = per_half_step(kf)[name]
+            check(per == v, f"{name} variant {v}: {per} CUDA launches")
+            runs[v].append((event_ms(lambda: step("kernel")),
+                            device_ms(lambda: step("kernel"))))
+            log(f"[redesign] {name} variant {v} ({v} CUDA launch(es) per "
+                f"call): max abs err {err:.3g}, ms with host "
+                f"{runs[v][-1][0]:.4f}, device ms {runs[v][-1][1]}")
+    finally:
+        kf.VARIANT = default
+    best = {v: min(d for _, d in r if d is not None) if any(
+        d is not None for _, d in r) else None for v, r in runs.items()}
+    log(f"[redesign] {name}: least device ms per variant {best}; the "
+        f"wrapper's VARIANT is {default}; the earlier three launches: device "
+        f"ms "
+        f"{EARLIER_MS[name][1]:.4f}, bound {records[name]['bound_ms']:.5f}")
+    records[name]["device_ms_variants"] = {str(v): d for v, d in best.items()}
+
+
+def full_host(s, o):
+    """The host breakdown of the two full wrappers at the traffic shape
+    (f32)."""
+    from repro_torch.core import pdhg
+    from repro_torch.kernels import ops, structured_full_pdhg_step as kf
+    rplan, cplan = pdhg._wide_block_plans(s)
+    fw = (s, o["x"], o["c"], o["l"], o["u"], o["tau"], o["kty"])
+    bw = (s, o["y"], o["q"], o["sigma"], o["mask"], o["kxn"], o["kxp"])
+    v = kf.VARIANT
+    p, ptrs = kf.forward_checks(*fw, rplan)
+    outs = kf.alloc(p, o["x"])
+    host_breakdown("structured_full_forward_step",
+                   lambda: ops.structured_full_forward_step(*fw, plan=rplan),
+                   lambda: kf.structured_full_forward_step(*fw, rplan),
+                   lambda: kf.forward_checks(*fw, rplan),
+                   lambda: kf.alloc(p, o["x"]),
+                   lambda: kf.forward_call(p, ptrs, *outs, v),
+                   lambda: kf._stream(p))
+    p, ptrs = kf.backward_checks(*bw, cplan)
+    outs = kf.alloc(p, o["y"])
+    host_breakdown("structured_full_backward_step",
+                   lambda: ops.structured_full_backward_step(*bw, plan=cplan),
+                   lambda: kf.structured_full_backward_step(*bw, cplan),
+                   lambda: kf.backward_checks(*bw, cplan),
+                   lambda: kf.alloc(p, o["y"]),
+                   lambda: kf.backward_call(p, ptrs, *outs),
+                   lambda: kf._stream(p))
 
 
 def phase_main(device, n_jobs=N_JOBS, num_workers=NUM_WORKERS):
@@ -539,6 +798,7 @@ def phase_main(device, n_jobs=N_JOBS, num_workers=NUM_WORKERS):
             torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
     launches = dict(kernel_mod.LAUNCHES)
+    per_call = per_half_step(kernel_mod)
     for inst, a in zip(insts, allocs):
         its = np.asarray(a.raw.iterations)
         conv = np.asarray(a.raw.converged)
@@ -567,9 +827,14 @@ def phase_main(device, n_jobs=N_JOBS, num_workers=NUM_WORKERS):
               "twice over")
     verdicts = [a.plan_cache for a in allocs]
     log(f"[main] verdicts {verdicts}; wall {wall:.3f} s; launches {launches}")
+    log(f"[launches] main path: calls {launches}, CUDA launches "
+        f"{dict(kernel_mod.CUDA_LAUNCHES)}, per half-step {per_call}")
     check(verdicts == ["miss", "hit", "repair"], f"verdicts {verdicts}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
+    check(per_call["structured_backward_step"] == 1,
+          "the backward half-step made another number of CUDA launches "
+          "than one")
     return sess, insts, allocs, launches
 
 
@@ -580,11 +845,10 @@ KERNEL_NAMES = {
         "PrimalTail>", ("narrow_tail_kernel", "wide_fold_kernel"),
         "narrow_tail_kernel"),
     "structured_backward_step": (
-        "DualTail>", ("narrow_tail_kernel", "wide_fold_kernel"),
-        "narrow_tail_kernel"),
+        "DualTail>", ("dual_lane_kernel",), "dual_lane_kernel"),
     "structured_full_forward_step": (
-        "PrimalTail>", ("full_tail_kernel", "wide_partial_kernel",
-                        "full_narrow_kernel"), "full_narrow_kernel"),
+        "PrimalTail>", ("full_forward_coop_kernel", "full_tail_kernel"),
+        "full_forward_coop_kernel"),
     "structured_full_backward_step": (
         "DualTail>", ("full_tail_kernel", "wide_partial_kernel",
                       "full_narrow_kernel"), "full_narrow_kernel"),
@@ -609,8 +873,7 @@ def profiled(tag, run, iterations):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         result = run()
         torch.cuda.synchronize()
@@ -676,6 +939,7 @@ def phase_full(device, te_arrays):
         fr = pop.solve_full_ex(prob, exec_cfg=exec_cfg, device=device)
         wall = time.perf_counter() - t0
         launched = paths[f"te_{dt}"] = dict(full_mod.LAUNCHES)
+        per_call = per_half_step(full_mod)
         its = int(fr.res.iterations)
         metrics = prob.evaluate(fr.alloc)
         log(f"[full] TE {TE_DEMANDS} demands, {dt} storage: engine "
@@ -684,6 +948,10 @@ def phase_full(device, te_arrays):
             f"solve_s {fr.solve_time_s:.4f} ({fr.solve_time_s * 1e3 / max(its, 1):.4f}"
             f" ms per iteration), wall {wall:.3f} s; {_flow_line(metrics)}; "
             f"launches {launched}")
+        log(f"[launches] TE {dt} full solve: calls {launched}, CUDA launches"
+            f" {dict(full_mod.CUDA_LAUNCHES)}, per half-step {per_call}")
+        check(per_call["structured_full_forward_step"] == full_mod.VARIANT,
+              f"forward half-step: {per_call} CUDA launches per call")
         check(fr.engine == "fused_structured_full", f"engine {fr.engine}")
         check(its > 0 and all(n == its for n in launched.values()),
               f"launches {launched} against {its} iterations")
@@ -775,7 +1043,7 @@ def phase_traffic(device, te_arrays, full_metrics, full_converged):
     insts = [TrafficProblem(topo, pairs, demand, paths),
              TrafficProblem(topo, pairs, demand * 1.05, paths)]
     sess = PopService(device=device).session("wan", insts[0])
-    before = dict(lane_mod.LAUNCHES)
+    zero_launches(lane_mod)
     allocs = []
     for inst in insts:
         t0 = time.perf_counter()
@@ -796,7 +1064,10 @@ def phase_traffic(device, te_arrays, full_metrics, full_converged):
         allocs.append(a)
     check([a.plan_cache for a in allocs] == ["miss", "hit"],
           f"verdicts {[a.plan_cache for a in allocs]}")
-    launched = {k: lane_mod.LAUNCHES[k] - before[k] for k in before}
+    launched = dict(lane_mod.LAUNCHES)
+    log(f"[launches] TE POP session: calls {launched}, CUDA launches "
+        f"{dict(lane_mod.CUDA_LAUNCHES)}, per half-step "
+        f"{per_half_step(lane_mod)}")
     check(all(n > 0 for n in launched.values()),
           f"lane kernels not launched: {launched}")
     t0 = time.perf_counter()
@@ -828,6 +1099,9 @@ def phase_gavel_full(device, prob, pop_allocs):
     fr = pop.solve_full_ex(prob, exec_cfg=domains.get("gavel").default_exec,
                            device=device)
     launched = dict(full_mod.LAUNCHES)
+    log(f"[launches] Gavel full solve: calls {launched}, CUDA launches "
+        f"{dict(full_mod.CUDA_LAUNCHES)}, per half-step "
+        f"{per_half_step(full_mod)}")
     its = int(fr.res.iterations)
     m = prob.evaluate(fr.alloc)
     p = pop_allocs[0].metrics
@@ -1225,10 +1499,11 @@ def main() -> int:
         from repro_torch.problems.traffic_engineering import TrafficProblem
         card = phase("card", phase_card)
         phase("build", phase_build)
-        records = phase("kernels", phase_kernels, device)
+        records, lane_case = phase("kernels", phase_kernels, device)
         te_arrays = phase("te-instance", testing.traffic_arrays, TE_DEMANDS)
-        records.update(phase("kernels-full", phase_kernels_full, device,
-                             TrafficProblem(*te_arrays)))
+        full_records, te_case = phase("kernels-full", phase_kernels_full,
+                                      device, TrafficProblem(*te_arrays))
+        records.update(full_records)
         sess, insts, allocs, launches = phase("main", phase_main, device)
         profiled_ms = phase("profile", phase_profile, sess, insts[2])
         runs, full_paths = phase("full", phase_full, device, te_arrays)
@@ -1240,6 +1515,7 @@ def main() -> int:
               bool(fr.res.converged))
         full_paths["gavel_full"] = phase("gavel-full", phase_gavel_full,
                                          device, gavel_prob, allocs)
+        phase("redesign", phase_redesign, lane_case, te_case, records)
         prob, prep, dense_ops = phase("dense-instance", dense_instance,
                                       device)
         records.update(phase("kernels-dense", phase_kernels_dense, device,
@@ -1262,6 +1538,11 @@ def main() -> int:
     for name, n in launches.items():
         records[name]["launches"] = n
         records[name]["device_ms"] = profiled_ms.get(name)
+    for name in EARLIER_MS:
+        r = records[name]
+        log(f"[redesign] {name}: " + old_new(name, r["ms"], r["device_ms"],
+                                              r["library_ms"])
+            + f", bound {r['bound_ms']:.5f}, launches {r['launches']}")
     log("[launches] full kernels, each run's own count: " + "; ".join(
         f"{run} {counts}" for run, counts in full_paths.items()))
     log("[device-ms] full kernels per call: " + "; ".join(

@@ -73,7 +73,9 @@ class POPProblem:
 
     def extract(self, op: OperatorLP, x: np.ndarray,
                 idx_row: np.ndarray) -> np.ndarray:
-        """Per-slot allocation rows [n_per, ...] from an LP solution."""
+        """Per-slot allocation rows [n_per, ...] from an LP solution.
+        ``op`` is one lane's fields as views of the solve device's tensors:
+        copy to the host only what is read."""
         raise NotImplementedError
 
     def evaluate(self, alloc: np.ndarray) -> dict:
@@ -213,11 +215,12 @@ def solve(
 def reduce(problem: POPProblem, pop_plan: PopPlan, ops: OperatorLP,
            res: SolveResult) -> np.ndarray:
     """Coalesce per-lane allocations into the global one.  ``extract``
-    reads the LP fields and ``op.data``; the ELL payload stays on the
-    device."""
-    host = map_arrays(lambda a: a.cpu(), ops._replace(structured=None))
+    gets each lane's LP fields and ``op.data`` as views of the device
+    tensors and copies to the host only what it reads (a dense K stays on
+    the device, so does the ELL payload)."""
+    fields = ops._replace(structured=None)
     allocs = np.stack([
-        np.asarray(problem.extract(map_arrays(lambda a, i=i: a[i], host),
+        np.asarray(problem.extract(map_arrays(lambda a, i=i: a[i], fields),
                                    np.asarray(res.x[i]), pop_plan.idx[i]))
         for i in range(pop_plan.k)
     ])
@@ -454,8 +457,9 @@ def finish_full(prep: PreparedSolve, res: SolveResult,
     """Unbatch a :func:`prepare_full` launch's result and extract the
     allocation."""
     res1 = map_arrays(lambda a: a[0], res)
-    # the ELL payload stays on the device (173 MB at 20,000 TE demands)
-    op = map_arrays(lambda a: a[0].cpu(), prep.ops._replace(structured=None))
+    # views of the device tensors: extract copies only what it reads (the
+    # ELL payload, 173 MB at 20,000 TE demands, stays on the device)
+    op = map_arrays(lambda a: a[0], prep.ops._replace(structured=None))
     idx = np.arange(prep.problem.n_entities)
     alloc = np.asarray(prep.problem.extract(op, res1.x, idx))
     return FullResult(alloc=alloc, res=res1, solve_time_s=solve_time_s,

@@ -18,39 +18,81 @@
 // H100's ~20 flop/byte f32 balance point.  At the main path's shape (k=8,
 // 2,048 jobs per lane) a half-step's nonzeros and vectors come to 2-3 MB,
 // under a microsecond at 3.35 TB/s: less than the fixed cost of one launch,
-// so launch latency, not bandwidth, sets the pace (chip_smoke.py prints the
-// bound beside the measured times).
+// so launches and their latency, not bandwidth, set the pace (chip_smoke.py
+// prints the bound beside the measured times).
 //
-// Design:
-//  * The TPU kernel runs grid=(k,) with a whole lane resident in VMEM.  Here
-//    each lane's S outputs are tiled across 256-thread blocks (grid
-//    (ceil(max(S, V)/256), k)), one thread per output segment, so k=8 lanes
-//    still fill the SMs.  Consecutive threads read consecutive addresses of
-//    each nnz-major row of the payload (coalesced); the gathered vector
-//    entries come from L2 (a lane's vectors are ~25 KB).
-//  * x_new (resp. y_new) is gathered at arbitrary indices of its lane while
-//    blocks run in no order, so the narrow pass RECOMPUTES the tail at each
-//    gathered index (5 gathers instead of 1, all L2 hits) instead of reading
-//    values another block may not have written yet.  This keeps a
-//    half-step at two launches.  The tails (pdhg_tails.cuh) use
-//    round-to-nearest intrinsics (no FMA contraction), so the recomputed
-//    value is bit-equal to the one stored, and to the plain PyTorch
-//    version's.
-//  * The wide bucket (segments wider than max(16, 4x median): Gavel's worker
-//    rows and epigraph column, each as wide as the lane has jobs) is reduced
-//    by one 256-thread block per bucket column in a SECOND launch, which
-//    reads the x_new (y_new) the first launch stored, and adds its sum onto
-//    its segment with one atomicAdd.  Bucket ids are distinct except padded
-//    columns (id 0, value 0.0), and a wide segment's narrow entries are all
-//    padding, so the add is exact and the result deterministic; running it
-//    after the narrow pass orders it behind the narrow store to the same
-//    segment.  Launches per half-step: 2.
-//  * No shared-memory staging, no wgmma, no TMA: right and simple first.
+// The wrapper checks an operator side once and hands its pointers and
+// sizes over as one LaneSide struct; the C functions write the number of
+// CUDA launches they made into it.
+//
+// Forward (two launches, the first design):
+//  * narrow_tail_kernel: one thread per output segment over 256-thread
+//    blocks (grid (ceil(max(S, V)/256), k)).  x_new is gathered at
+//    arbitrary indices of its lane while blocks run in no order, so the
+//    narrow pass RECOMPUTES the tail at each gathered index (5 L2 gathers
+//    instead of 1); the tails (pdhg_tails.cuh) round every operation to
+//    nearest, so the recomputed value is bit-equal to the stored one.
+//  * wide_fold_kernel: one 256-thread block per wide-bucket column reduces
+//    it against the stored x_new and adds its sum onto its segment with one
+//    exact atomicAdd (bucket ids are distinct except padded columns, id 0,
+//    value 0.0).
+//
+// Backward (one launch, dual_lane_kernel): C blocks per lane, grid (C, k).
+//  0. Each thread first loads what needs no tail: the first batch of its
+//     first segment's narrow entries and the first rows of its block's
+//     first wide column, so their latency hides behind the tail.
+//  1. The tail.  A lane whose M rows fit a block's shared memory (every
+//     lane of the main path and the traffic sessions; kLocal): each block
+//     computes the dual tail of all M rows into its shared memory (16 KB at
+//     the main path; the five vectors are read from L2, once per block) and
+//     stores its 1/C share to y_new; the blocks never wait for each other.
+//     A larger lane: the C blocks form a thread-block cluster (cluster
+//     (C, 1, 1), launched with cudaLaunchKernelEx), each computes the tail
+//     of its share once and stores it to y_new, and one cluster.sync (its
+//     release/acquire) makes the stores visible to the cluster's blocks.
+//  2. Each block reduces its 1/C of the lane's N segments over the narrow
+//     ELL, gathering y_new[idx] from its shared memory (or, in a cluster,
+//     the stored y_new: one read per stored entry in place of the five a
+//     recomputed tail costs), a batch of entries loaded ahead of its
+//     gathers, summed over w in order; the sum goes to kty.
+//  3. The same block reduces every wide bucket column whose segment it
+//     owns, over all the column's rows (the wrapper sorts each lane's real
+//     bucket columns by segment once per operator, so a block's columns
+//     are one range, found by binary search), and adds the sum onto the
+//     segment's narrow sum.  Padded bucket columns (id 0, value 0) are
+//     left out.
+//  No atomics, sums in a fixed order: the result is deterministic.
+//  Measured with chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W at the
+//  main-path shape (PERF.md): one cluster per lane took 6.6 us a call
+//  whether it gathered the tail from its owners' shared memory through
+//  distributed shared memory (three cluster barriers) or gathered the
+//  stored y_new (one barrier), above the two-launch design's 5.6; the
+//  shared-memory instance, with no barrier between blocks, took less.
+//  Hence that instance for the lanes that fit, the cluster for those that
+//  do not.
+//  * No wgmma, no TMA: the work is a few MB of gathers.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "pdhg_tails.cuh"
+
+namespace cg = cooperative_groups;
+
+// one ELL side of the stacked operator, packed by the wrapper once per
+// operator (kernels/structured_pdhg_step.py: LaneSide, the same layout)
+struct LaneSide {
+  const int32_t* idx;   // [k, w, s_len]
+  const float* val;     // [k, w, s_len]
+  const int32_t* widx;  // [k, ww, d]
+  const float* wval;    // [k, ww, d]
+  const int32_t* wids;   // [k, d]
+  const int32_t* wsort;  // [k, d]: bucket columns by segment, padding last
+  const int32_t* nreal;  // [k]: bucket columns that are not padding
+  int32_t k, v_len, s_len, w, ww, d;
+  int32_t launches;  // written by the C functions: CUDA launches made
+};
 
 namespace {
 
@@ -59,6 +101,15 @@ using pdhg::PrimalTail;
 
 constexpr int kNarrowThreads = 256;
 constexpr int kWideThreads = 256;
+constexpr int kClusterThreads = 512;
+// narrow entries of a segment loaded ahead of their gathers
+constexpr int kGatherBatch = 8;
+// rows of a block's first wide column a thread loads ahead of the tail
+constexpr int kWideAhead = 4;
+// dynamic shared memory a block may hold: a lane's whole tail, beside the
+// static row-group sums, within the 227 KB of an SM
+constexpr int kLaneSmemBytes = 227 * 1024 - 4 * kClusterThreads;
+constexpr int kMaxCluster = 16;
 
 // Launch 1: the tail for every vector entry (stored to v_new) and the
 // narrow ELL reduce for every output segment (stored to out).
@@ -116,53 +167,273 @@ wide_fold_kernel(const int32_t* __restrict__ widx,
 }
 
 template <class Tail>
-int half_step(const int32_t* idx, const float* val, const int32_t* widx,
-              const float* wval, const int32_t* wids, Tail tail,
-              float* v_new, float* out, int k, int v_len, int s_len, int w_len,
-              int ww_len, int d_len, cudaStream_t stream) {
-  if (k <= 0 || (v_len <= 0 && s_len <= 0)) return cudaSuccess;
-  const int span = v_len > s_len ? v_len : s_len;
-  const dim3 grid((span + kNarrowThreads - 1) / kNarrowThreads, k);
+int half_step(LaneSide* s, Tail tail, float* v_new, float* out,
+              cudaStream_t stream) {
+  s->launches = 0;
+  if (s->k <= 0 || (s->v_len <= 0 && s->s_len <= 0)) return cudaSuccess;
+  const int span = s->v_len > s->s_len ? s->v_len : s->s_len;
+  const dim3 grid((span + kNarrowThreads - 1) / kNarrowThreads, s->k);
   narrow_tail_kernel<Tail><<<grid, kNarrowThreads, 0, stream>>>(
-      idx, val, w_len, s_len, v_len, tail, v_new, out);
+      s->idx, s->val, s->w, s->s_len, s->v_len, tail, v_new, out);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || d_len <= 0 || s_len <= 0) return err;
-  wide_fold_kernel<Tail><<<dim3(d_len, k), kWideThreads, 0, stream>>>(
-      widx, wval, wids, ww_len, d_len, v_new, v_len, out, s_len);
-  return cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  s->launches = 1;
+  if (s->d <= 0 || s->s_len <= 0) return cudaSuccess;
+  wide_fold_kernel<Tail><<<dim3(s->d, s->k), kWideThreads, 0, stream>>>(
+      s->widx, s->wval, s->wids, s->ww, s->d, v_new, s->v_len, out,
+      s->s_len);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) s->launches = 2;
+  return err;
+}
+
+// The backward half-step in one launch: see the note at the top.  v_new
+// is read after other blocks of the cluster wrote it, so it is a plain
+// (never read-only-cache) pointer.  (Tail names the instance.)
+template <bool kLocal, class Tail>
+__global__ void __launch_bounds__(kClusterThreads)
+dual_lane_kernel(LaneSide s, Tail tail, float* v_new,
+                 float* __restrict__ out) {
+  const int C = gridDim.x;  // the blocks of a lane (a cluster if !kLocal)
+  const int r = blockIdx.x;
+  const int b = blockIdx.y;
+  const int M = s.v_len, S = s.s_len, D = s.d;
+  extern __shared__ float sy[];  // [M] (kLocal)
+  __shared__ float sred[kClusterThreads];
+  const int SC = (S + C - 1) / C;
+  const int s0 = r * SC;
+  const int s1 = min(S, s0 + SC);
+  const int64_t nbase = (int64_t)b * s.w * S;
+
+  // the wide bucket columns whose segment lies in [s0, s1): the range
+  // [first, last) of the lane's columns sorted by segment
+  const int32_t* ws = s.wsort + (int64_t)b * D;
+  const int32_t* wid = s.wids + (int64_t)b * D;
+  int first = 0, last = 0;
+  if (D > 0) {
+    const int nreal = s.nreal[b];
+    int lo = 0, hi = nreal;  // the first column whose segment is >= s0
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (wid[ws[mid]] < s0) lo = mid + 1; else hi = mid;
+    }
+    first = lo;
+    hi = nreal;  // the first column whose segment is >= s1
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (wid[ws[mid]] < s1) lo = mid + 1; else hi = mid;
+    }
+    last = lo;
+  }
+  int tc = 1;  // columns a wide tile: the block's count up to a power of 2
+  while (tc < last - first && tc < 32) tc <<= 1;
+  const int groups = kClusterThreads / tc;
+  const int tx = threadIdx.x % tc;
+  const int ty = threadIdx.x / tc;
+  const int64_t wbase = (int64_t)b * s.ww * D;
+
+  // 0. the loads that need no tail, issued ahead of it: the first batch of
+  // this thread's first segment and the first rows of its first column
+  auto load_batch = [&](int i, int w0, int32_t* j, float* v) {
+#pragma unroll
+    for (int u = 0; u < kGatherBatch; ++u) {
+      const bool in = i < s1 && w0 + u < s.w;
+      const int64_t e = nbase + (int64_t)(w0 + u) * S + i;
+      j[u] = in ? __ldg(s.idx + e) : 0;
+      v[u] = in ? __ldg(s.val + e) : 0.0f;
+    }
+  };
+  int32_t pj[kGatherBatch];
+  float pv[kGatherBatch];
+  load_batch(s0 + threadIdx.x, 0, pj, pv);
+  const bool wlive = first + tx < last;
+  const int d_first = wlive ? ws[first + tx] : 0;
+  int32_t qj[kWideAhead];
+  float qv[kWideAhead];
+#pragma unroll
+  for (int u = 0; u < kWideAhead; ++u) {
+    const int w = ty + u * groups;
+    const bool in = wlive && w < s.ww;
+    const int64_t e = wbase + (int64_t)w * D + d_first;
+    qj[u] = in ? __ldg(s.widx + e) : 0;
+    qv[u] = in ? __ldg(s.wval + e) : 0.0f;
+  }
+
+  // 1. the tail: this block's share of the rows stored to v_new; with
+  // kLocal every row into shared memory too, else a cluster barrier
+  const Tail t = tail.lane(b, M);
+  float* vl = v_new + (int64_t)b * M;
+  const int R = (M + C - 1) / C;
+  const int r0 = r * R;
+  const int r1 = min(M, r0 + R);
+  if (kLocal) {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < M; i += kClusterThreads) {
+      const float v = t(i);
+      sy[i] = v;
+      if (i >= r0 && i < r1) vl[i] = v;
+    }
+    __syncthreads();
+  } else {
+    for (int i = r0 + threadIdx.x; i < r1; i += kClusterThreads)
+      vl[i] = t(i);
+    cg::this_cluster().sync();
+  }
+  auto y = [&](int j) -> float { return kLocal ? sy[j] : vl[j]; };
+
+  // 2. the narrow reduce of segments [s0, s1), summed over w in order,
+  // each batch of entries loaded ahead of its gathers
+  float* ol = out + (int64_t)b * S;
+  for (int i = s0 + threadIdx.x; i < s1; i += kClusterThreads) {
+    float acc = 0.0f;
+    for (int w0 = 0; w0 < s.w; w0 += kGatherBatch) {
+      int32_t j[kGatherBatch];
+      float v[kGatherBatch], g[kGatherBatch];
+      if (i == s0 + threadIdx.x && w0 == 0) {
+#pragma unroll
+        for (int u = 0; u < kGatherBatch; ++u) {
+          j[u] = pj[u];
+          v[u] = pv[u];
+        }
+      } else {
+        load_batch(i, w0, j, v);
+      }
+#pragma unroll
+      for (int u = 0; u < kGatherBatch; ++u) g[u] = y(j[u]);
+#pragma unroll
+      for (int u = 0; u < kGatherBatch; ++u)
+        if (w0 + u < s.w) acc = fmaf(v[u], g[u], acc);
+    }
+    ol[i] = acc;
+  }
+  if (first == last) return;
+  __syncthreads();  // the narrow sums before the wide adds onto them
+
+  // 3. the block's wide columns in tiles of tc columns, the rows split
+  // over kClusterThreads / tc groups (the first tile's first rows loaded
+  // in 0.); a warp's groups are summed with a fixed butterfly, the warps
+  // in order, and the column's sum is added onto its segment's narrow sum
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int m0 = first; m0 < last; m0 += tc) {
+    const int m = m0 + tx;
+    float acc = 0.0f;
+    if (m < last) {
+      const int d = ws[m];
+      int w = ty;
+      if (m0 == first) {
+#pragma unroll
+        for (int u = 0; u < kWideAhead; ++u)
+          if (ty + u * groups < s.ww) acc = fmaf(qv[u], y(qj[u]), acc);
+        w += kWideAhead * groups;
+      }
+#pragma unroll 4
+      for (; w < s.ww; w += groups) {
+        const int64_t e = wbase + (int64_t)w * D + d;
+        acc = fmaf(__ldg(s.wval + e), y(__ldg(s.widx + e)), acc);
+      }
+    }
+    for (int o = 16; o >= tc; o >>= 1)
+      acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, o));
+    if (lane < tc) sred[warp * tc + lane] = acc;
+    __syncthreads();
+    if (threadIdx.x < tc && m0 + threadIdx.x < last) {
+      float sum = 0.0f;
+#pragma unroll 8
+      for (int g = 0; g < kClusterThreads / 32; ++g)
+        sum = __fadd_rn(sum, sred[g * tc + threadIdx.x]);
+      const int i = wid[ws[m0 + threadIdx.x]];
+      ol[i] = __fadd_rn(ol[i], sum);
+    }
+    __syncthreads();
+  }
+}
+
+// once per device: a kernel's opt-in (cudaFuncSetAttribute) of ``attr``
+template <class Kernel>
+cudaError_t opt_in(Kernel kernel, uint64_t* done, cudaFuncAttribute attr,
+                   int value) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
+  if (*done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, attr, value);
+  if (err == cudaSuccess) *done |= bit;
+  return err;
+}
+
+int launch_dual_lane(LaneSide* s, DualTail tail, float* v_new, float* out,
+                     int C, bool local, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, s->k, 1);
+  cfg.blockDim = dim3(kClusterThreads, 1, 1);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = cudaSuccess;
+  if (local) {
+    static uint64_t opted = 0;
+    auto kernel = dual_lane_kernel<true, DualTail>;
+    cfg.dynamicSmemBytes = sizeof(float) * (size_t)s->v_len;
+    if (cfg.dynamicSmemBytes > (size_t)kLaneSmemBytes)
+      return cudaErrorInvalidValue;
+    err = opt_in(kernel, &opted, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                 kLaneSmemBytes);
+    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, *s, tail,
+                                                     v_new, out);
+  } else {
+    static uint64_t opted = 0;
+    auto kernel = dual_lane_kernel<false, DualTail>;
+    if (C > 8)  // a non-portable cluster size
+      err = opt_in(kernel, &opted,
+                   cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, *s, tail,
+                                                     v_new, out);
+  }
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch
+  if (err != cudaSuccess) return err;
+  if (last == cudaSuccess) s->launches = 1;
+  return last;
 }
 
 }  // namespace
 
 extern "C" {
 
-// (x_new [k, n], kx [k, m]); row side [k, wr, m] / [k, ww, dr] / [k, dr].
-int structured_forward_step(const int32_t* row_idx, const float* row_val,
-                            const int32_t* wrow_idx, const float* wrow_val,
-                            const int32_t* wrow_ids, const float* x,
-                            const float* c, const float* l, const float* u,
-                            const float* kty, const float* tau, float* x_new,
-                            float* kx, int k, int n, int m, int wr, int ww,
-                            int dr, void* stream) {
+// (x_new [k, n], kx [k, m]) for the row side ``side`` (v_len n, s_len m);
+// two launches.
+int structured_forward_step(LaneSide* side, const float* x, const float* c,
+                            const float* l, const float* u, const float* kty,
+                            const float* tau, float* x_new, float* kx,
+                            void* stream) {
   const PrimalTail tail{x, c, l, u, kty, tau, 0.0f};
-  return half_step(row_idx, row_val, wrow_idx, wrow_val, wrow_ids, tail,
-                   x_new, kx, k, n, m, wr, ww, dr,
-                   static_cast<cudaStream_t>(stream));
+  return half_step(side, tail, x_new, kx, static_cast<cudaStream_t>(stream));
 }
 
-// (y_new [k, m], kty [k, n]); column side [k, wc, n] / [k, wv, dc] / [k, dc].
-int structured_backward_step(const int32_t* col_idx, const float* col_val,
-                             const int32_t* wcol_idx, const float* wcol_val,
-                             const int32_t* wcol_ids, const float* y,
-                             const float* q, const uint8_t* ineq_mask,
-                             const float* kx_new, const float* kx_prev,
-                             const float* sigma, float* y_new, float* kty,
-                             int k, int m, int n, int wc, int wv, int dc,
+// (y_new [k, m], kty [k, n]) for the column side ``side`` (v_len m, s_len
+// n, its sorted bucket columns set) in one launch of a cluster of
+// ``blocks`` blocks per lane: with ``local`` each block holds the lane's
+// whole tail in shared memory, else the blocks of a lane form a cluster.
+int structured_backward_step(LaneSide* side, const float* y, const float* q,
+                             const uint8_t* ineq_mask, const float* kx_new,
+                             const float* kx_prev, const float* sigma,
+                             float* y_new, float* kty, int blocks, int local,
                              void* stream) {
+  side->launches = 0;
+  if (blocks < 1 || blocks > kMaxCluster ||
+      (side->d > 0 && (side->wsort == nullptr || side->nreal == nullptr)))
+    return cudaErrorInvalidValue;
+  if (side->k <= 0 || (side->v_len <= 0 && side->s_len <= 0))
+    return cudaSuccess;
   const DualTail tail{y, q, ineq_mask, kx_new, kx_prev, sigma, 0.0f};
-  return half_step(col_idx, col_val, wcol_idx, wcol_val, wcol_ids, tail,
-                   y_new, kty, k, m, n, wc, wv, dc,
-                   static_cast<cudaStream_t>(stream));
+  return launch_dual_lane(side, tail, y_new, kty, blocks, local != 0,
+                          static_cast<cudaStream_t>(stream));
 }
 
 const char* structured_pdhg_error_string(int err) {

@@ -41,10 +41,12 @@ _MODES = (None, "auto", "kernel", "ref")
 def _resolve_mode(backend, tensor) -> str:
     """'kernel' | 'ref' from a user-facing backend name and the device of
     the tensors the call was given."""
+    if backend is None:  # the solver's every call: decide first
+        return "kernel" if tensor.is_cuda else "ref"
     if backend not in _MODES:
         raise ValueError(f"unknown kernel backend {backend!r}; "
                          f"expected one of {_MODES}")
-    on_cuda = tensor.device.type == "cuda"
+    on_cuda = tensor.is_cuda
     if backend in (None, "auto"):
         return "kernel" if on_cuda else "ref"
     if backend == "kernel" and not on_cuda:

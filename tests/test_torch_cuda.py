@@ -301,6 +301,230 @@ def test_cuda_full_kernels_at_the_plan_block_limit(cuda_device):
 
 
 # --------------------------------------------------------------------------
+# the redesigned kernels: structured_backward_step (one launch) and
+# structured_full_forward_step (one cooperative launch)
+# --------------------------------------------------------------------------
+
+def _backward(s, o, backend):
+    return ops.structured_backward_step(s, o["y"], o["q"], o["sigma"],
+                                        o["mask"], o["kxn"], o["kxp"],
+                                        backend=backend)
+
+
+def _full_forward(s, o, plan, backend):
+    return ops.structured_full_forward_step(
+        s, o["x"], o["c"], o["l"], o["u"], o["tau"], o["kty"], plan=plan,
+        backend=backend)
+
+
+def _main_path_lanes():
+    """The main path's k=8 stack at a quarter of its fleet."""
+    prob = GavelProblem(make_cluster_workload(4096, num_workers=(1024,) * 3,
+                                              seed=0))
+    return pop.build(prob, pop.plan(prob, 8, strategy="stratified"),
+                     "cpu").structured
+
+
+LANE_CASES = dict(CASES, main_path_quarter=_main_path_lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", ["shared", "cluster"])
+@pytest.mark.parametrize("cluster", [4, 8, 16])
+@pytest.mark.parametrize("case", sorted(LANE_CASES))
+def test_cuda_backward_kernel(case, cluster, instance, cuda_device,
+                              monkeypatch):
+    """Both instances of the backward kernel (the lane's tail in each
+    block's shared memory; a cluster over the stored tail) at every block
+    count: the tail bit-equal, the product within 1e-4, one CUDA launch
+    per call, bit-for-bit the same over repeated calls."""
+    monkeypatch.setattr(structured_pdhg_step, "CLUSTER", cluster)
+    monkeypatch.setattr(structured_pdhg_step, "lane_local",
+                        lambda p: instance == "shared")
+    s = pdhg.to_device(LANE_CASES[case](), cuda_device)
+    o = testing.step_tensors(s, cuda_device, seed=5)
+    name = "structured_backward_step"
+    before = structured_pdhg_step.CUDA_LAUNCHES[name]
+    got = [v.cpu().numpy() for v in _backward(s, o, "kernel")]
+    assert structured_pdhg_step.CUDA_LAUNCHES[name] == before + 1
+    want = [v.cpu().numpy() for v in _backward(s, o, "ref")]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], **PRODUCT_TOL)
+    for _ in range(3):
+        again = [v.cpu().numpy() for v in _backward(s, o, "kernel")]
+        for u, v in zip(got, again):
+            np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_lane_beyond_shared_memory(cuda_device):
+    """A lane whose tail does not fit a block's shared memory takes the
+    cluster instance (the shape rule says so) and is still right, in one
+    launch, and deterministic: the cluster barrier orders the stored tail
+    before its gathers."""
+    rng = np.random.default_rng(11)
+    M, N = 250_000, 3_000
+    rows = np.concatenate([rng.integers(0, M, 600_000), np.arange(M)])
+    cols = np.concatenate([rng.integers(0, N, 600_000),
+                           np.full(M, 7)])          # a column in every row
+    s = pdhg.structured_from_coo(rows, cols, rng.normal(size=rows.size),
+                                 M, N)
+    s = pdhg.to_device(pdhg.map_arrays(lambda a: a[None], s), cuda_device)
+    assert s.wcol_idx.shape[-1] >= 1
+    name = "structured_backward_step"
+    pack = structured_pdhg_step.side_pack(
+        name, (s.col_idx, s.col_val, s.wcol_idx, s.wcol_val, s.wcol_ids),
+        M, True)
+    assert not structured_pdhg_step.lane_local(pack)
+    o = testing.step_tensors(s, cuda_device, seed=3)
+    before = structured_pdhg_step.CUDA_LAUNCHES[name]
+    got = [v.cpu().numpy() for v in _backward(s, o, "kernel")]
+    assert structured_pdhg_step.CUDA_LAUNCHES[name] == before + 1
+    want = [v.cpu().numpy() for v in _backward(s, o, "ref")]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], **PRODUCT_TOL)
+    again = [v.cpu().numpy() for v in _backward(s, o, "kernel")]
+    for u, v in zip(got, again):
+        np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_cuda_backward_lane_of_many_bucket_columns(cluster, cuda_device,
+                                                   monkeypatch):
+    """A lane of 12,500 wide bucket columns (each block reduces the columns
+    of its own segments, many tiles of them): right, in one launch, and
+    deterministic."""
+    monkeypatch.setattr(structured_pdhg_step, "CLUSTER", cluster)
+    rng = np.random.default_rng(11)
+    n_wide, depth, n_narrow, M = 12_500, 40, 40_000, 30_000
+    cols = np.concatenate([np.repeat(np.arange(n_wide), depth),
+                           n_wide + np.arange(n_narrow)])
+    rows = rng.integers(0, M, cols.size)
+    s = pdhg.structured_from_coo(rows, cols, rng.normal(size=rows.size), M,
+                                 n_wide + n_narrow)
+    s = pdhg.to_device(pdhg.map_arrays(lambda a: a[None], s), cuda_device)
+    assert s.wcol_idx.shape[-1] >= n_wide
+    o = testing.step_tensors(s, cuda_device, seed=3)
+    name = "structured_backward_step"
+    before = structured_pdhg_step.CUDA_LAUNCHES[name]
+    got = [v.cpu().numpy() for v in _backward(s, o, "kernel")]
+    assert structured_pdhg_step.CUDA_LAUNCHES[name] == before + 1
+    want = [v.cpu().numpy() for v in _backward(s, o, "ref")]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], **PRODUCT_TOL)
+    again = [v.cpu().numpy() for v in _backward(s, o, "kernel")]
+    for u, v in zip(got, again):
+        np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [1, 2])
+@pytest.mark.parametrize("coef_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", sorted(FULL_CASES))
+def test_cuda_full_forward_cooperative_kernel(case, coef_dtype, variant,
+                                              cuda_device, monkeypatch):
+    """The cooperative forward kernel, in one launch (variant 1) or after
+    the tail launch (variant 2): the tail bit-equal, the product within
+    1e-4, the launches it reports, bit-for-bit the same over repeated
+    calls."""
+    monkeypatch.setattr(structured_full_pdhg_step, "VARIANT", variant)
+    s = pdhg.to_device(FULL_CASES[case](coef_dtype), cuda_device)
+    o = testing.step_tensors(s, cuda_device, seed=4)
+    rplan, _ = pdhg._wide_block_plans(s)
+    name = "structured_full_forward_step"
+    before = structured_full_pdhg_step.CUDA_LAUNCHES[name]
+    got = [v.cpu().numpy() for v in _full_forward(s, o, rplan, "kernel")]
+    assert structured_full_pdhg_step.CUDA_LAUNCHES[name] == before + variant
+    want = [v.cpu().numpy() for v in _full_forward(s, o, rplan, "ref")]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], **PRODUCT_TOL)
+    for _ in range(3):
+        again = [v.cpu().numpy()
+                 for v in _full_forward(s, o, rplan, "kernel")]
+        for u, v in zip(got, again):
+            np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.cuda
+def test_cuda_full_scratch_is_kept_per_stream(cuda_device):
+    """The full wrappers keep one scratch of wide partial sums per pack and
+    CUDA stream: two calls on one stream share it, a call on another
+    stream gets its own, and every call is right."""
+    s = pdhg.to_device(testing.ragged_operator(), cuda_device)
+    o = testing.step_tensors(s, cuda_device, seed=6)
+    rplan, _ = pdhg._wide_block_plans(s)
+    want = [v.cpu().numpy() for v in _full_forward(s, o, rplan, "ref")]
+    side = (s.row_idx, s.row_val, s.row_scale, s.wrow_idx, s.wrow_val,
+            s.wrow_scale, s.row_fold)
+    pack = structured_full_pdhg_step.side_pack(
+        "t", side, s.col_idx.shape[-1], rplan, 4)
+    got = []
+    for _ in range(2):
+        got.append(_full_forward(s, o, rplan, "kernel"))
+    assert len(pack.scratch) == 1
+    other = torch.cuda.Stream()
+    other.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(other):
+        got.append(_full_forward(s, o, rplan, "kernel"))
+    torch.cuda.synchronize()
+    assert len(pack.scratch) == 2
+    first, second = pack.scratch.values()
+    assert first.data_ptr() != second.data_ptr()
+    for xn, kx in got:
+        np.testing.assert_array_equal(xn.cpu().numpy(), want[0])
+        np.testing.assert_allclose(kx.cpu().numpy(), want[1], **PRODUCT_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_redesigned_wrappers_reject_bad_operands(cuda_device):
+    """A non-contiguous, wrong-dtype or wrong-device operand raises before
+    launch, in the per-call vectors and in the operator."""
+    s = pdhg.to_device(_gavel(), cuda_device)
+    o = testing.step_tensors(s, cuda_device, seed=1)
+    k, m = o["y"].shape
+    args = dict(o)
+    strided = torch.empty((m, k), device=cuda_device).t()
+    strided.copy_(o["y"])
+    bad = {"contiguous CUDA": [("y", strided), ("y", o["y"].double()),
+                               ("y", o["y"].cpu()),
+                               ("mask", o["mask"].to(torch.uint8))]}
+    for key, val in bad["contiguous CUDA"]:
+        a = dict(args, **{key: val})
+        match = "bool" if key == "mask" else "contiguous CUDA"
+        with pytest.raises(ValueError, match=match):
+            structured_pdhg_step.structured_backward_step(
+                s, a["y"], a["q"], a["sigma"], a["mask"], a["kxn"],
+                a["kxp"])
+    with pytest.raises(ValueError, match="shapes"):
+        ops.structured_backward_step(s, o["y"][:, :-1], o["q"], o["sigma"],
+                                     o["mask"], o["kxn"], o["kxp"])
+    wide = s.col_val.shape
+    bad_op = s._replace(col_val=torch.empty(
+        (wide[2], wide[1], wide[0]), device=cuda_device).permute(2, 1, 0))
+    with pytest.raises(ValueError, match="contiguous"):
+        _backward(bad_op, o, "kernel")
+    bad_op = s._replace(col_val=s.col_val.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        _backward(bad_op, o, "kernel")
+
+    f = pdhg.to_device(testing.ragged_operator(), cuda_device)
+    fo = testing.step_tensors(f, cuda_device, seed=1)
+    rplan, _ = pdhg._wide_block_plans(f)
+    n = fo["x"].shape[1]
+    strided = torch.empty((1, 2 * n), device=cuda_device)[:, ::2]
+    strided.copy_(fo["x"])
+    for bad_x in (strided, fo["x"].double(), fo["x"].cpu()):
+        with pytest.raises(ValueError, match="contiguous CUDA"):
+            structured_full_pdhg_step.structured_full_forward_step(
+                f, bad_x, fo["c"], fo["l"], fo["u"], fo["tau"], fo["kty"],
+                rplan)
+    bad_op = f._replace(row_idx=f.row_idx.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        _full_forward(bad_op, fo, rplan, "kernel")
+
+
+# --------------------------------------------------------------------------
 # the dense kernels (bmatvec, bmatvec_t, fused_forward_step,
 # fused_backward_step)
 # --------------------------------------------------------------------------
