@@ -42,12 +42,14 @@ Phases, each of which must pass:
              and the CSPF heuristic beside POP and the full LP;
 8. gavel-full the unpartitioned Gavel LP of the main path's fleet (Gavel
              defaults, equilibrate), its fairness beside POP's;
-9. redesign  the two redesigned kernels' device times under the profiler:
-             ``structured_backward_step`` at 4, 8 and 16 blocks a lane
-             (main-path shape), ``structured_full_forward_step`` in one
-             launch and after a tail launch, in turns (traffic shape); run
-             after the paths, since a profiler session slows every later
-             host call;
+9. redesign  the redesigned kernels' device times under the profiler:
+             ``structured_forward_step`` and ``structured_backward_step``
+             at 4, 8 and 16 blocks a lane (main-path shape),
+             ``structured_full_forward_step`` in one launch and after a
+             tail launch, in turns (traffic shape), and
+             ``structured_full_backward_step`` at the traffic shape (f32,
+             int8) and the Gavel full shape; run after the paths, since a
+             profiler session slows every later host call;
 10. kernels-dense the four dense kernels (``bmatvec``, ``bmatvec_t``,
              ``fused_forward_step``, ``fused_backward_step``) against their
              plain versions at the densified main-path stack [8, 4,099,
@@ -168,16 +170,16 @@ SCIPY_N, SCIPY_MI = 300, 200
 # PERF.md section 6: the structured kernels' times before their redesign
 # to one launch a half-step (NVIDIA H100 80GB HBM3, 700 W): per call, ms
 # with the host, device ms and the torch.sparse CSR product's ms, printed
-# beside this run's
+# beside this run's; each from the last whole run of its earlier design
 EARLIER_MS = {
-    "structured_forward_step": (0.0458, 0.0058, 0.0262),
+    "structured_forward_step": (0.0264, 0.0058, 0.0314),
     "structured_backward_step": (0.0450, 0.0056, 0.0252),
     "structured_full_forward_step": (0.0831, 0.0316, 0.0399),
-    "structured_full_backward_step": (0.0481, 0.0257, 0.0397),
+    "structured_full_backward_step": (0.0604, 0.0258, 0.0477),
 }
-# the redesigned kernels: the backward cluster sizes and the forward full
-# kernel's single and two-launch variants measured, calls per profiled
-# window, calls per piece of the host breakdown
+# the redesigned kernels: the lane kernels' block counts and the forward
+# full kernel's single and two-launch variants measured, calls per
+# profiled window, calls per piece of the host breakdown
 CLUSTERS = (4, 8, 16)
 FULL_VARIANTS = (1, 2)
 PROFILE_CALLS = 200
@@ -248,9 +250,12 @@ def turns_ms(fns: dict) -> dict:
 
 
 def device_ms(fn, calls: int = PROFILE_CALLS):
-    """Device milliseconds per call of ``fn`` from the profiler: the kernel
-    time of ``calls`` back-to-back calls over ``calls`` (None where the
-    profiler recorded no device time)."""
+    """Device milliseconds per call of ``fn``, whose every kernel launches
+    once a call, from the profiler over ``calls`` back-to-back calls: the
+    sum over its kernels of each one's mean time per recorded launch (the
+    profiler drops a few launches: 195 of 200 on the card).  None, not
+    measured, where it recorded no device time or under 90% of the
+    launches of a kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -259,9 +264,14 @@ def device_ms(fn, calls: int = PROFILE_CALLS):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA)
-    return us / calls / 1e3 if us else None
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA and ev.count]
+    counts = [ev.count for ev in evs]
+    if not evs or min(counts) < 0.9 * calls:
+        log(f"[device-ms] kernels recorded {counts} over {calls} calls: "
+            "not measured")
+        return None
+    return sum(ev.self_device_time_total / ev.count for ev in evs) / 1e3
 
 
 def host_us(fn, calls: int = HOST_CALLS) -> float:
@@ -508,57 +518,100 @@ def phase_kernels(device):
     return records, (s, o)
 
 
-def phase_redesign(lane_case, te_case, records):
-    """The two redesigned kernels' device times under the profiler: the
-    backward cluster kernel at each cluster size at the main-path shape and
-    the cooperative forward kernel's two variants at the traffic shape.
-    It runs after the paths: a profiler session slows every later host
-    call (PERF.md), and the with-host times and the host breakdown are
+def phase_redesign(lane_case, full_cases, records):
+    """The redesigned kernels' device times under the profiler: each lane
+    kernel at each block count at the main-path shape, the cooperative
+    forward kernel's two variants at the traffic shape and the cooperative
+    backward kernel at the traffic shape (f32, int8) and the Gavel full
+    shape.  It runs after the paths: a profiler session slows every later
+    host call (PERF.md), and the with-host times and the host breakdown are
     taken before it."""
+    from repro_torch.core import pdhg
     s, o = lane_case
-    cluster_sweep(s, o, lane_calls(s, o), records)
-    s, o = te_case
+    calls = lane_calls(s, o)
+    for name in calls:
+        lane_sweep(calls, records, name,
+                   {f"{c} blocks": {"CLUSTER": c} for c in CLUSTERS})
+    s, o = full_cases[f"te{TE_DEMANDS}"]
     variant_sweep(full_calls(s, o), records)
+    alone = {}
+    for case, (s32, o) in full_cases.items():
+        dts = ("float32", "int8") if case.startswith("te") else ("float32",)
+        for dt in dts:
+            s = pdhg.quantize_structured(s32, dt)
+            alone[f"{case} {dt}"] = backward_alone(
+                full_calls(s, o), f"{case} {dt}")
+    name = "structured_full_backward_step"
+    log(f"[redesign] {name}: device ms alone {alone}; the earlier three "
+        f"launches: device ms {EARLIER_MS[name][1]:.4f} (te{TE_DEMANDS} "
+        f"float32), bound {records[name]['bound_ms']:.5f}")
+    records[name]["device_ms_alone"] = alone
 
 
-def cluster_sweep(s, o, calls, records):
-    """The backward cluster kernel at each cluster size of
-    :data:`CLUSTERS` at the main-path shape: held against the plain
-    version, its time with the host and its device time per call; the
-    wrapper's own cluster size is restored after."""
-    from repro_torch.kernels import structured_pdhg_step as km
-    name = "structured_backward_step"
+def backward_alone(calls, tag):
+    """The cooperative backward kernel on one operator: held against the
+    plain version, one CUDA launch a call, bit-for-bit the same twice, and
+    its time with the host and on the device per call."""
+    from repro_torch.kernels import structured_full_pdhg_step as kf
+    name = "structured_full_backward_step"
     step = calls[name]
-    pack, _ = km.backward_checks(s, o["y"], o["q"], o["sigma"], o["mask"],
-                                 o["kxn"], o["kxp"])
-    log(f"[redesign] {name}: the shape rule takes the "
-        + ("shared-memory" if km.lane_local(pack) else "cluster")
-        + f" instance for lanes of {pack.v_len} rows")
+    zero_launches(kf)
+    got = step("kernel")
+    torch.cuda.synchronize()
+    check(per_half_step(kf)[name] == 1,
+          f"{name} at {tag}: {per_half_step(kf)[name]} CUDA launches a call")
+    err = _check_pair(f"{name} at {tag}", got, step("ref"))
+    again = step("kernel")
+    check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+          f"{name} at {tag} is not deterministic")
+    ms = event_ms(lambda: step("kernel"))
+    dev = device_ms(lambda: step("kernel"))
+    log(f"[redesign] {name} at {tag}: max abs err {err:.3g}, 1 CUDA launch "
+        f"a call, ms with host {ms:.4f}, device ms {dev}")
+    return dev
+
+
+def lane_sweep(calls, records, name, settings):
+    """The lane kernel ``name`` under each of ``settings`` ({label: {wrapper
+    attribute: value}}, in turns: forward and back) at the main-path shape:
+    held against the plain version, one CUDA launch a call, bit-for-bit
+    the same twice, its time with the host and its device time per call;
+    the wrapper's own attributes are restored after."""
+    from repro_torch.kernels import structured_pdhg_step as km
+    step = calls[name]
     want = step("ref")
-    default, sweep = km.CLUSTER, {}
+    default = {a: getattr(km, a) for kv in settings.values() for a in kv}
+    runs = {label: [] for label in settings}
     try:
-        for c in CLUSTERS:
-            km.CLUSTER = c
+        for label in list(settings) + list(settings)[::-1]:
+            for a, v in {**default, **settings[label]}.items():
+                setattr(km, a, v)
+            zero_launches(km)
             got = step("kernel")
             torch.cuda.synchronize()
-            err = _check_pair(f"{name} (cluster {c})", got, want)
+            check(per_half_step(km)[name] == 1,
+                  f"{name} ({label}): {per_half_step(km)[name]} CUDA "
+                  "launches a call")
+            err = _check_pair(f"{name} ({label})", got, want)
             again = step("kernel")
             check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
-                  f"{name} (cluster {c}) is not deterministic")
-            sweep[c] = (event_ms(lambda: step("kernel")),
-                        device_ms(lambda: step("kernel")))
-            log(f"[redesign] {name} {c} blocks a lane: max abs err "
-                f"{err:.3g}, ms with host {sweep[c][0]:.4f}, device ms "
-                f"{sweep[c][1]}")
+                  f"{name} ({label}) is not deterministic")
+            runs[label].append((event_ms(lambda: step("kernel")),
+                                device_ms(lambda: step("kernel"))))
+            log(f"[redesign] {name} {label}: max abs err {err:.3g}, ms with "
+                f"host {runs[label][-1][0]:.4f}, device ms "
+                f"{runs[label][-1][1]}")
     finally:
-        km.CLUSTER = default
-    fastest = min(sweep, key=lambda c: sweep[c][1] or float("inf"))
-    log(f"[redesign] {name}: fastest on the device with {fastest} blocks a "
-        f"lane; the wrapper's CLUSTER is {default}; the earlier two "
-        f"launches: "
-        f"device ms "
-        f"{EARLIER_MS[name][1]:.4f}, bound {records[name]['bound_ms']:.5f}")
-    records[name]["device_ms_sweep"] = {str(c): v[1] for c, v in sweep.items()}
+        for a, v in default.items():
+            setattr(km, a, v)
+    best = {label: min((d for _, d in r if d is not None), default=None)
+            for label, r in runs.items()}
+    fastest = min(best, key=lambda label: best[label] or float("inf"))
+    log(f"[redesign] {name}: least device ms per setting {best}, fastest "
+        f"{fastest}; the wrapper's {default}; the earlier two launches: "
+        f"device ms {EARLIER_MS[name][1]:.4f}, bound "
+        f"{records[name]['bound_ms']:.5f}")
+    records[name]["device_ms_sweep"] = best
 
 
 def lane_host(s, o):
@@ -568,13 +621,14 @@ def lane_host(s, o):
     fw = (s, o["x"], o["c"], o["l"], o["u"], o["tau"], o["kty"])
     bw = (s, o["y"], o["q"], o["sigma"], o["mask"], o["kxn"], o["kxp"])
     p, ptrs = km.forward_checks(*fw)
+    c = km.CLUSTER
     outs = km.forward_alloc(p, o["x"])
     host_breakdown("structured_forward_step",
                    lambda: ops.structured_forward_step(*fw),
                    lambda: km.structured_forward_step(*fw),
                    lambda: km.forward_checks(*fw),
                    lambda: km.forward_alloc(p, o["x"]),
-                   lambda: km.forward_call(p, ptrs, *outs),
+                   lambda: km.forward_call(p, ptrs, *outs, c),
                    lambda: km._stream(p))
     p, ptrs = km.backward_checks(*bw)
     c = km.CLUSTER
@@ -641,7 +695,8 @@ def phase_kernels_full(device, te_prob):
     """Each full-problem kernel against its plain version in f32, bf16 and
     int8 storage on every case of :func:`full_operators`; times at the
     traffic shape (each storage type) and the Gavel full shape (f32).
-    Returns the per-kernel records (without launches)."""
+    Returns the per-kernel records (without launches) and the traffic and
+    Gavel full cases' f32 operators with their step tensors."""
     from repro_torch import testing
     from repro_torch.core import pdhg
     ops_f32 = full_operators(device, te_prob)
@@ -660,6 +715,7 @@ def phase_kernels_full(device, te_prob):
             f"blocks covering {sum((c1 - c0) * wb for c0, c1, wb in rplan)}"
             f" elements, col plan {len(cplan)} blocks covering "
             f"{sum((c1 - c0) * wb for c0, c1, wb in cplan)}")
+        ell_fill(case, s32)
         o = testing.step_tensors(s32, device)
         for dt in COEF_DTYPES:
             s = pdhg.quantize_structured(s32, dt)
@@ -711,7 +767,26 @@ def phase_kernels_full(device, te_prob):
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms, device_ms=None)
     full_host(s, o)
-    return records, (s, o)
+    gavel = f"gavel{N_JOBS}_full"
+    return records, {te_case: (s, o), gavel: (
+        ops_f32[gavel], testing.step_tensors(ops_f32[gavel], device))}
+
+
+def ell_fill(case, s):
+    """Print how full each narrow ELL side of the single-lane ``s`` is:
+    stored entries (nonzero coefficients) against its [W, S] slots, and the
+    slots the 4-segment group widths cover (what the full backward kernel
+    reads of the column side)."""
+    from repro_torch.kernels import structured_full_pdhg_step as kf
+    for side, val in (("rows", s.row_val), ("cols", s.col_val)):
+        w, n = val.shape[1:]
+        stored = int((val != 0).sum())
+        gw = kf.group_widths(val)
+        covered = int(gw.repeat_interleave(kf.ROWS_PER_LANE)[:n].sum())
+        log(f"[kernels] {case} narrow {side} [{w}, {n}]: {stored} stored "
+            f"entries in {w * n} slots ({100 * stored / (w * n):.1f}%); the "
+            f"group widths cover {covered} slots "
+            f"({100 * covered / (w * n):.1f}%)")
 
 
 def variant_sweep(calls, records):
@@ -832,9 +907,8 @@ def phase_main(device, n_jobs=N_JOBS, num_workers=NUM_WORKERS):
     check(verdicts == ["miss", "hit", "repair"], f"verdicts {verdicts}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
-    check(per_call["structured_backward_step"] == 1,
-          "the backward half-step made another number of CUDA launches "
-          "than one")
+    for name, per in per_call.items():
+        check(per == 1, f"{name}: {per} CUDA launches per call, not one")
     return sess, insts, allocs, launches
 
 
@@ -842,16 +916,15 @@ def phase_main(device, n_jobs=N_JOBS, num_workers=NUM_WORKERS):
 # and the one it launches once per call
 KERNEL_NAMES = {
     "structured_forward_step": (
-        "PrimalTail>", ("narrow_tail_kernel", "wide_fold_kernel"),
-        "narrow_tail_kernel"),
+        "PrimalTail>", ("primal_lane_kernel",), "primal_lane_kernel"),
     "structured_backward_step": (
         "DualTail>", ("dual_lane_kernel",), "dual_lane_kernel"),
     "structured_full_forward_step": (
         "PrimalTail>", ("full_forward_coop_kernel", "full_tail_kernel"),
         "full_forward_coop_kernel"),
     "structured_full_backward_step": (
-        "DualTail>", ("full_tail_kernel", "wide_partial_kernel",
-                      "full_narrow_kernel"), "full_narrow_kernel"),
+        "DualTail>", ("full_backward_coop_kernel",),
+        "full_backward_coop_kernel"),
     "fused_forward_step": (
         "PrimalTail>", ("dense_tail_kernel", "dense_rows_kernel"),
         "dense_rows_kernel"),
@@ -950,8 +1023,9 @@ def phase_full(device, te_arrays):
             f"launches {launched}")
         log(f"[launches] TE {dt} full solve: calls {launched}, CUDA launches"
             f" {dict(full_mod.CUDA_LAUNCHES)}, per half-step {per_call}")
-        check(per_call["structured_full_forward_step"] == full_mod.VARIANT,
-              f"forward half-step: {per_call} CUDA launches per call")
+        check(per_call["structured_full_forward_step"] == full_mod.VARIANT
+              and per_call["structured_full_backward_step"] == 1,
+              f"full half-steps: {per_call} CUDA launches per call")
         check(fr.engine == "fused_structured_full", f"engine {fr.engine}")
         check(its > 0 and all(n == its for n in launched.values()),
               f"launches {launched} against {its} iterations")
@@ -1099,9 +1173,12 @@ def phase_gavel_full(device, prob, pop_allocs):
     fr = pop.solve_full_ex(prob, exec_cfg=domains.get("gavel").default_exec,
                            device=device)
     launched = dict(full_mod.LAUNCHES)
+    per_call = per_half_step(full_mod)
     log(f"[launches] Gavel full solve: calls {launched}, CUDA launches "
-        f"{dict(full_mod.CUDA_LAUNCHES)}, per half-step "
-        f"{per_half_step(full_mod)}")
+        f"{dict(full_mod.CUDA_LAUNCHES)}, per half-step {per_call}")
+    check(per_call["structured_full_forward_step"] == full_mod.VARIANT
+          and per_call["structured_full_backward_step"] == 1,
+          f"full half-steps: {per_call} CUDA launches per call")
     its = int(fr.res.iterations)
     m = prob.evaluate(fr.alloc)
     p = pop_allocs[0].metrics
@@ -1501,8 +1578,8 @@ def main() -> int:
         phase("build", phase_build)
         records, lane_case = phase("kernels", phase_kernels, device)
         te_arrays = phase("te-instance", testing.traffic_arrays, TE_DEMANDS)
-        full_records, te_case = phase("kernels-full", phase_kernels_full,
-                                      device, TrafficProblem(*te_arrays))
+        full_records, full_cases = phase("kernels-full", phase_kernels_full,
+                                         device, TrafficProblem(*te_arrays))
         records.update(full_records)
         sess, insts, allocs, launches = phase("main", phase_main, device)
         profiled_ms = phase("profile", phase_profile, sess, insts[2])
@@ -1515,7 +1592,7 @@ def main() -> int:
               bool(fr.res.converged))
         full_paths["gavel_full"] = phase("gavel-full", phase_gavel_full,
                                          device, gavel_prob, allocs)
-        phase("redesign", phase_redesign, lane_case, te_case, records)
+        phase("redesign", phase_redesign, lane_case, full_cases, records)
         prob, prep, dense_ops = phase("dense-instance", dense_instance,
                                       device)
         records.update(phase("kernels-dense", phase_kernels_dense, device,

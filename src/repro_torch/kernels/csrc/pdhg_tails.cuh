@@ -33,8 +33,36 @@ struct PrimalTail {
     return {x + o, c + o, l + o, u + o, kty + o, tau, tau[b]};
   }
   __device__ __forceinline__ float operator()(int64_t i) const {
-    const float g = __fadd_rn(c[i], kty[i]);
-    return clip_keep_nan(__fsub_rn(x[i], __fmul_rn(step, g)), l[i], u[i]);
+    return at(x[i], c[i], l[i], u[i], kty[i]);
+  }
+  __device__ __forceinline__ float at(float xi, float ci, float li, float ui,
+                                      float ki) const {
+    const float g = __fadd_rn(ci, ki);
+    return clip_keep_nan(__fsub_rn(xi, __fmul_rn(step, g)), li, ui);
+  }
+  // The first entry from which the five vectors are all 16-byte aligned
+  // (0..3), or -1 where they are not aligned alike.
+  __device__ int quad_start() const {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(x);
+    const uintptr_t apart = (a ^ reinterpret_cast<uintptr_t>(c)) |
+                            (a ^ reinterpret_cast<uintptr_t>(l)) |
+                            (a ^ reinterpret_cast<uintptr_t>(u)) |
+                            (a ^ reinterpret_cast<uintptr_t>(kty));
+    if ((apart & 15) || (a & 3)) return -1;
+    return (int)(((16 - (a & 15)) & 15) >> 2);
+  }
+  // entries [i, i + 4) from one 16-byte load of each vector (i from
+  // quad_start() on, in steps of 4)
+  __device__ __forceinline__ void quad(int64_t i, float* v) const {
+    const float4 xv = *reinterpret_cast<const float4*>(x + i);
+    const float4 cv = *reinterpret_cast<const float4*>(c + i);
+    const float4 lv = *reinterpret_cast<const float4*>(l + i);
+    const float4 uv = *reinterpret_cast<const float4*>(u + i);
+    const float4 kv = *reinterpret_cast<const float4*>(kty + i);
+    v[0] = at(xv.x, cv.x, lv.x, uv.x, kv.x);
+    v[1] = at(xv.y, cv.y, lv.y, uv.y, kv.y);
+    v[2] = at(xv.z, cv.z, lv.z, uv.z, kv.z);
+    v[3] = at(xv.w, cv.w, lv.w, uv.w, kv.w);
   }
 };
 

@@ -29,41 +29,56 @@
 // them over as one FullSide struct; the C functions write the number of
 // CUDA launches they made into it.
 //
-// Shared by both directions:
-//  * The wide pass is ragged and lopsided: at 20,000 demands the 2,687 bucket
-//    columns run from 8,040 entries deep down to 48, and the Gavel full LP's
-//    row bucket has 3 columns 16,384 deep.  So the bucket is cut into tiles of
-//    TC consecutive columns by CHUNK rows, TC a power of two up to 32 chosen
-//    from the plan's block width: the TC threads of a row group read
-//    consecutive addresses of one nnz-major row (coalesced), and the 256/TC
-//    row groups of a block split the chunk's rows.  A tile stops at its plan
-//    block's width wb, never at the stored depth (at 20,000 demands the plan
-//    covers 2.38 M of the 21.6 M stored elements).  The plan arrives as a
-//    small device int32 array of (c0, c1, wb[, first tile]) rows, copied to
-//    shared memory.
-//  * Deterministic, no atomics.  A tile's row groups are summed in a fixed
-//    order in shared memory and the tile writes its partial to
-//    partial[chunk, d]; a wide segment then adds its partials in chunk order
-//    through the fold map.  Every partial it reads was written: the chunks
-//    of column d are exactly those below its block's wb.
-//
-// Forward (full_forward_coop_kernel): a persistent cooperative kernel
+// Both half-steps are one persistent cooperative kernel each
 // (cudaLaunchCooperativeKernel, at most the blocks that fit on the card at
-// once), its phases separated by grid.sync():
-//  1. the primal tail for all N into x_new (grid-stride).  The reduces
-//     gather x_new at arbitrary indices, so it is stored once and gathered
-//     (recomputing it at each gathered index costs five L2 reads per stored
-//     entry in place of one);
-//  2. one work list: the plan's wide tiles, then the narrow rows in items of
-//     128; blocks take items round-robin.  A wide tile loads all 16 rows of
-//     each thread's chunk ahead of their gathers of x_new.  A narrow item
-//     splits each row's W entries over the block's 8 warps (warp g takes
-//     w = g, g+8, ...; each lane 4 consecutive rows, read with 16-byte
-//     loads where the layout is aligned) and adds the 8 warp sums in warp
-//     order: 8x the threads of one-per-row;
-//  3. each wide segment (fold < D) adds its partials in chunk order onto the
-//     narrow sum phase 2 stored.
-//  Variant 1 runs all three phases in one launch; variant 2 launches the
+// once; full_forward_coop_kernel and full_backward_coop_kernel, one body),
+// their phases separated by grid.sync():
+//  1. the tail for every vector entry into v_new (grid-stride).  The
+//     reduces gather v_new at arbitrary indices, so it is stored once and
+//     gathered (recomputing it at each gathered index costs five L2 reads
+//     per stored entry in place of one);
+//  2. one work list: the plan's wide tiles, then the narrow segments in
+//     items of 128; blocks take items round-robin.
+//     * The wide pass is ragged and lopsided: at 20,000 demands the 2,687
+//       row-bucket columns run from 8,040 entries deep down to 48, and the
+//       Gavel full LP's row bucket has 3 columns 16,384 deep.  So the bucket
+//       is cut into tiles of TC consecutive columns by CHUNK rows, TC a power
+//       of two up to 32 chosen from the plan's block width: the TC threads
+//       of a row group read consecutive addresses of one nnz-major row
+//       (coalesced), and the 256/TC row groups of a block split the chunk's
+//       rows, each thread loading all 16 rows of its share ahead of their
+//       gathers.  A tile stops at its plan block's width wb, never at the
+//       stored depth (at 20,000 demands the row plan covers 2.38 M of the
+//       21.6 M stored elements).  The plan arrives as a small device int32
+//       array of (c0, c1, wb, first tile) rows, copied to shared memory.  A
+//       bucket that no segment folds onto (the TE column side's [8, 1])
+//       launches no tile: the wrapper sets n_tiles to 0.
+//     * A narrow item splits each segment's W entries over the block's 8
+//       warps (warp g takes w = g, g+8, ...; each lane 4 consecutive
+//       segments, read with 16-byte loads where the layout is aligned) and
+//       adds the 8 warp sums in warp order: 8x the threads of
+//       one-per-segment.  The backward kernel's lanes stop at their group's
+//       stored width (gw, below) instead of W;
+//  3. each wide segment (fold < D) adds its tiles' partial sums in chunk
+//     order onto the narrow sum phase 2 stored; skipped, with its
+//     grid.sync, when there is no tile.
+//  Deterministic, no atomics: a tile's row groups and an item's warps are
+//  summed in a fixed order in shared memory.
+//
+// Stored width (backward).  The column side at 20,000 demands is [56,
+// 80,000] with 1.75 M stored entries in 4.48 M slots (39%): column widths
+// run from 1 to 49 and W rounds up to 56.  The wrapper computes gw[g], the
+// largest stored width of segments [4g, 4g + 4) (the position of the last
+// nonzero coefficient, plus one), once per operator, and a lane's loop over
+// w ends there: the group covers 43% of the slots, so the item reads ~15.5
+// MB of the ~35.8 MB every padded slot would cost.  Every slot past a
+// segment's count is padding (the packer front-packs), and a stored 0
+// coefficient left out adds exactly 0 for a finite y_new (a NaN at y_new[0]
+// no longer reaches the segments whose padding is skipped; the plain
+// version computes 0*NaN; ROADMAP section 3).  The forward kernel still
+// reads every W.
+//
+//  Forward variants: 1 runs all three phases in one launch; 2 launches the
 //  tail kernel, then the cooperative kernel from phase 2 (one grid.sync
 //  less).  Measured with chip_smoke.py on an NVIDIA H100 80GB HBM3 at
 //  700 W (PERF.md): staging the wide tiles' indices through a cp.async ring
@@ -72,10 +87,6 @@
 //  so there is no ring.  Variant 2 ran up to 1.2 us faster on the device
 //  but costs the host one launch more, and the host sets the pace of the
 //  solve loop, so the wrapper takes variant 1.
-//
-// Backward (three launches, the first design): full_tail_kernel stores the
-// tail, wide_partial_kernel one block per wide tile, full_narrow_kernel one
-// thread per output segment plus the fold-map add-back.
 //  * No TMA, no wgmma: the bytes are gathered, not tiled.
 
 #include <cooperative_groups.h>
@@ -98,7 +109,8 @@ struct FullSide {
   const void* wval;      // [ww, d]
   const float* wscale;   // [1] (int8) or null
   const int32_t* fold;   // [s_len]
-  const int32_t* plan;   // [n_blocks, 3] (backward) or [n_blocks, 4]
+  const int32_t* plan;   // [n_blocks, 4]
+  const int32_t* gw;     // [ceil(s_len / 4)]: each 4-segment group's width
   int32_t coef, w, s_len, d, n_blocks, tc, n_tiles, n_chunks;
   int32_t vec;       // idx/val rows may be read 4 segments at a time
   int32_t launches;  // written by the C functions: CUDA launches made
@@ -112,13 +124,26 @@ using pdhg::PrimalTail;
 constexpr int kThreads = 256;
 // rows each thread reduces in one wide tile: CHUNK = (256 / TC) * kWideIters
 constexpr int kWideIters = 16;
-// plan rows the reduces copy to shared memory: 12 B a row, within the 48 KB
-// a launch may ask for without opting in, less wide_partial_kernel's static
-// 1 KB of row-group sums: (49,152 - 1,024) / 12
+// most plan rows the kernels copy to shared memory
 constexpr int kMaxPlanBlocks = 4010;
-static_assert(3 * sizeof(int32_t) * kMaxPlanBlocks + sizeof(float) * kThreads
-                  <= 48 * 1024,
-              "the largest plan and the row-group sums exceed 48 KB");
+// narrow items: 8 warps split a segment's W entries, each lane 4 segments
+constexpr int kNarrowWarps = kThreads / 32;
+constexpr int kRowsPerLane = 4;
+constexpr int kNarrowRows = 32 * kRowsPerLane;
+// a wide segment's partials loaded ahead of their in-order sum
+constexpr int kFoldBatch = 16;
+// the cooperative kernels' dynamic shared memory: the plan with its first
+// tiles (16 B a row), beside their static 4 KB of sums
+constexpr int kCoopSmemMax = 4 * sizeof(int32_t) * kMaxPlanBlocks;
+// blocks of a cooperative kernel an SM should hold (caps its registers:
+// 40 forward; the backward kernel spilled at 40, and 5 blocks an SM still
+// hold every narrow item of the traffic shape's column side at once; 4 ran
+// slower, 6 no faster, PERF.md)
+constexpr int kCoopBlocksPerSM = 6;
+constexpr int kCoopBackwardBlocksPerSM = 5;
+static_assert(kCoopSmemMax + sizeof(float) * kNarrowWarps * kNarrowRows
+                  <= 227 * 1024,
+              "the cooperative kernels' shared memory exceeds 227 KB");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -128,136 +153,14 @@ __device__ __forceinline__ float to_f32(int8_t v) {
   return static_cast<float>(v);
 }
 
-// Launch 1: the tail for every vector entry, stored to v_new.
+// The forward variant 2's first launch: the tail for every vector entry,
+// stored to v_new.
 template <class Tail>
 __global__ void __launch_bounds__(kThreads)
 full_tail_kernel(Tail tail, int v_len, float* __restrict__ v_new) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < v_len) v_new[i] = tail.lane(0, v_len)(i);
 }
-
-// The plan's rows, copied to shared memory by the whole block.
-__device__ __forceinline__ void load_plan(const int32_t* __restrict__ plan,
-                                          int n_blocks, int32_t* splan) {
-  for (int k = threadIdx.x; k < 3 * n_blocks; k += blockDim.x)
-    splan[k] = plan[k];
-  __syncthreads();
-}
-
-// Launch 2: one block per tile of the wide bucket: TC consecutive columns of
-// one plan block by one chunk of rows below the block's width.  Tiles are
-// numbered block by block, so no block is launched for the padding a
-// rectangular grid over the ragged plan would hold.  Each tile stores one
-// partial sum per column.  (Tail only names the instance, so a profile
-// tells the two half-steps apart.)
-template <class T, class Tail>
-__global__ void __launch_bounds__(kThreads)
-wide_partial_kernel(const int32_t* __restrict__ widx,
-                    const T* __restrict__ wval,
-                    const float* __restrict__ wscale, int d_len,
-                    const int32_t* __restrict__ plan, int n_blocks, int tc,
-                    const float* __restrict__ v_new,
-                    float* __restrict__ partial) {
-  extern __shared__ int32_t splan[];
-  load_plan(plan, n_blocks, splan);
-  const int groups = kThreads / tc;
-  const int chunk_rows = groups * kWideIters;
-  int tile = blockIdx.x;
-  int c0 = 0, c1 = 0, wb = 0, n_sub = 1, b = 0;
-  for (; b < n_blocks; ++b) {
-    c0 = splan[3 * b];
-    c1 = splan[3 * b + 1];
-    wb = splan[3 * b + 2];
-    n_sub = (c1 - c0 + tc - 1) / tc;
-    const int n_tiles = n_sub * ((wb + chunk_rows - 1) / chunk_rows);
-    if (tile < n_tiles) break;
-    tile -= n_tiles;
-  }
-  if (b == n_blocks) return;  // the same for the whole block
-  const int j = tile / n_sub;
-  const int tx = threadIdx.x % tc;
-  const int ty = threadIdx.x / tc;
-  const int d = c0 + (tile % n_sub) * tc + tx;
-  const int w0 = j * chunk_rows;
-  const int w1 = min(wb, w0 + chunk_rows);
-  const float s = wscale != nullptr ? *wscale : 1.0f;
-  float acc = 0.0f;
-  if (d < c1) {
-#pragma unroll 4
-    for (int w = w0 + ty; w < w1; w += groups) {
-      const int64_t e = (int64_t)w * d_len + d;
-      acc = fmaf(__fmul_rn(to_f32(wval[e]), s), v_new[widx[e]], acc);
-    }
-  }
-  __shared__ float part[kThreads];
-  part[threadIdx.x] = acc;
-  __syncthreads();
-  if (ty == 0 && d < c1) {
-    float sum = 0.0f;
-    for (int g = 0; g < groups; ++g) sum = __fadd_rn(sum, part[g * tc + tx]);
-    partial[(int64_t)j * d_len + d] = sum;
-  }
-}
-
-// Launch 3: for every output segment, the narrow reduce plus its wide
-// partials through the fold map (stored to out).  (Tail names the instance.)
-template <class T, class Tail>
-__global__ void __launch_bounds__(kThreads)
-full_narrow_kernel(const int32_t* __restrict__ idx, const T* __restrict__ val,
-                   const float* __restrict__ scale, int w_len, int s_len,
-                   const int32_t* __restrict__ fold,
-                   const float* __restrict__ partial, int d_len,
-                   const int32_t* __restrict__ plan, int n_blocks,
-                   int chunk_rows, const float* __restrict__ v_new,
-                   float* __restrict__ out) {
-  extern __shared__ int32_t splan[];
-  load_plan(plan, n_blocks, splan);
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= s_len) return;
-  const float s = scale != nullptr ? *scale : 1.0f;
-  float acc = 0.0f;
-#pragma unroll 4
-  for (int w = 0; w < w_len; ++w) {
-    const int64_t e = (int64_t)w * s_len + i;
-    acc = fmaf(__fmul_rn(to_f32(val[e]), s), v_new[idx[e]], acc);
-  }
-  const int d = fold[i];
-  if (d < d_len) {
-    int n_chunks = 0;
-    for (int b = 0; b < n_blocks; ++b) {
-      if (d >= splan[3 * b] && d < splan[3 * b + 1]) {
-        n_chunks = (splan[3 * b + 2] + chunk_rows - 1) / chunk_rows;
-        break;
-      }
-    }
-    float wide = 0.0f;
-#pragma unroll 8
-    for (int j = 0; j < n_chunks; ++j)
-      wide = __fadd_rn(wide, partial[(int64_t)j * d_len + d]);
-    acc = __fadd_rn(acc, wide);
-  }
-  out[i] = acc;
-}
-
-
-// ----------------------------------------------------------------------
-// The forward half-step as one persistent cooperative launch
-// ----------------------------------------------------------------------
-
-// narrow items: 8 warps split a row's W entries, each lane 4 rows
-constexpr int kNarrowWarps = kThreads / 32;
-constexpr int kRowsPerLane = 4;
-constexpr int kNarrowRows = 32 * kRowsPerLane;
-// a wide segment's partials loaded ahead of their in-order sum
-constexpr int kFoldBatch = 16;
-// the cooperative kernel's dynamic shared memory: the plan with its first
-// tiles (16 B a row), beside its static 4 KB of sums
-constexpr int kCoopSmemMax = 4 * sizeof(int32_t) * kMaxPlanBlocks;
-// blocks of the cooperative kernel an SM should hold (caps its registers)
-constexpr int kCoopBlocksPerSM = 6;
-static_assert(kCoopSmemMax + sizeof(float) * kNarrowWarps * kNarrowRows
-                  <= 227 * 1024,
-              "the cooperative kernel's shared memory exceeds 227 KB");
 
 // four consecutive coefficients as f32 (16/8/4-byte loads; aligned)
 __device__ __forceinline__ void load4(const float* p, float* v) {
@@ -288,12 +191,12 @@ __device__ __forceinline__ int plan_row(const int32_t* splan, int n, int col,
   return lo;
 }
 
-// one wide tile (as wide_partial_kernel's): its partial sum of each of its
-// columns over its chunk of rows
+// one wide tile: TC consecutive columns of one plan block by one chunk of
+// rows below the block's width; its partial sum of each column
 template <class T>
 __device__ __forceinline__ void coop_wide_tile(
     const FullSide& s, int item, const int32_t* splan, float* sred,
-    const float* x_new, float* partial) {
+    const float* v_new, float* partial) {
   const T* wval = static_cast<const T*>(s.wval);
   const int b = plan_row(splan, s.n_blocks, 3, item);
   const int c0 = splan[4 * b], c1 = splan[4 * b + 1], wb = splan[4 * b + 2];
@@ -325,7 +228,7 @@ __device__ __forceinline__ void coop_wide_tile(
 #pragma unroll
   for (int g = 0; g < kWideIters; ++g) {
     if (live && w0 + g * groups < w1)
-      acc = fmaf(__fmul_rn(v[g], sc), x_new[id[g]], acc);
+      acc = fmaf(__fmul_rn(v[g], sc), v_new[id[g]], acc);
   }
   sred[threadIdx.x] = acc;
   __syncthreads();
@@ -337,10 +240,11 @@ __device__ __forceinline__ void coop_wide_tile(
   __syncthreads();
 }
 
-// one narrow item: rows [128 item, 128 item + 128), their sums stored to out
-template <class T>
+// one narrow item: segments [128 item, 128 item + 128), their sums stored
+// to out; with kGroupWidth each lane stops at its 4 segments' stored width
+template <class T, bool kGroupWidth>
 __device__ __forceinline__ void coop_narrow_item(
-    const FullSide& s, int item, float* sred, const float* x_new,
+    const FullSide& s, int item, float* sred, const float* v_new,
     float* out) {
   const T* val = static_cast<const T*>(s.val);
   const int warp = threadIdx.x >> 5;
@@ -350,8 +254,10 @@ __device__ __forceinline__ void coop_narrow_item(
   const float sc = s.scale != nullptr ? *s.scale : 1.0f;
   float acc[kRowsPerLane] = {0.0f, 0.0f, 0.0f, 0.0f};
   const bool vec = s.vec && i0 + kRowsPerLane <= S;
+  const int w_end = !kGroupWidth ? s.w
+                    : i0 < S ? s.gw[i0 / kRowsPerLane] : 0;
 #pragma unroll 4
-  for (int w = warp; w < s.w; w += kNarrowWarps) {
+  for (int w = warp; w < w_end; w += kNarrowWarps) {
     const int64_t e = (int64_t)w * S + i0;
     int32_t id[kRowsPerLane];
     float v[kRowsPerLane];
@@ -369,7 +275,7 @@ __device__ __forceinline__ void coop_narrow_item(
     }
 #pragma unroll
     for (int r = 0; r < kRowsPerLane; ++r)
-      acc[r] = fmaf(__fmul_rn(v[r], sc), x_new[id[r]], acc[r]);
+      acc[r] = fmaf(__fmul_rn(v[r], sc), v_new[id[r]], acc[r]);
   }
 #pragma unroll
   for (int r = 0; r < kRowsPerLane; ++r)
@@ -388,16 +294,14 @@ __device__ __forceinline__ void coop_narrow_item(
   __syncthreads();
 }
 
-// x_new, out and partial are written and read inside the launch, so they
-// are plain (never read-only-cache) pointers.  (Tail names the instance.)
-template <class T, class Tail>
-__global__ void __launch_bounds__(kThreads, kCoopBlocksPerSM)
-full_forward_coop_kernel(FullSide s, Tail tail, int v_len, int do_tail,
-                         float* x_new, float* out, float* partial) {
+// The three phases of either half-step (see the note at the top).  v_new,
+// out and partial are written and read inside the launch, so they are
+// plain (never read-only-cache) pointers.
+template <class T, class Tail, bool kGroupWidth>
+__device__ __forceinline__ void coop_half_step(
+    const FullSide& s, const Tail& tail, int v_len, int do_tail,
+    float* v_new, float* out, float* partial, int32_t* splan, float* sred) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ int32_t csmem[];
-  int32_t* splan = csmem;  // [n_blocks, 4]
-  __shared__ float sred[kNarrowWarps * kNarrowRows];
   for (int k = threadIdx.x; k < 4 * s.n_blocks; k += kThreads)
     splan[k] = s.plan[k];
   __syncthreads();
@@ -407,7 +311,7 @@ full_forward_coop_kernel(FullSide s, Tail tail, int v_len, int do_tail,
   // 1. the tail
   if (do_tail) {
     const Tail t = tail.lane(0, v_len);
-    for (int64_t i = gtid; i < v_len; i += gstride) x_new[i] = t(i);
+    for (int64_t i = gtid; i < v_len; i += gstride) v_new[i] = t(i);
     grid.sync();
   }
 
@@ -415,9 +319,10 @@ full_forward_coop_kernel(FullSide s, Tail tail, int v_len, int do_tail,
   const int n_items = s.n_tiles + (s.s_len + kNarrowRows - 1) / kNarrowRows;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     if (item < s.n_tiles)
-      coop_wide_tile<T>(s, item, splan, sred, x_new, partial);
+      coop_wide_tile<T>(s, item, splan, sred, v_new, partial);
     else
-      coop_narrow_item<T>(s, item - s.n_tiles, sred, x_new, out);
+      coop_narrow_item<T, kGroupWidth>(s, item - s.n_tiles, sred, v_new,
+                                       out);
   }
   if (s.d <= 0 || s.n_tiles <= 0) return;
   grid.sync();
@@ -445,32 +350,49 @@ full_forward_coop_kernel(FullSide s, Tail tail, int v_len, int do_tail,
   }
 }
 
-// the cooperative grid: the co-resident blocks, found once per device and
-// shared-memory size (and the shared-memory opt-in, once per device)
-template <class T>
-cudaError_t coop_grid(size_t smem, int* grid) {
-  struct Entry { int dev; size_t smem; int blocks; };
-  static Entry cache[16];
+// (Tail names the instance, so a profile tells the two half-steps apart.)
+template <class T, class Tail>
+__global__ void __launch_bounds__(kThreads, kCoopBlocksPerSM)
+full_forward_coop_kernel(FullSide s, Tail tail, int v_len, int do_tail,
+                         float* x_new, float* out, float* partial) {
+  extern __shared__ int32_t csmem[];  // the plan, [n_blocks, 4]
+  __shared__ float sred[kNarrowWarps * kNarrowRows];
+  coop_half_step<T, Tail, false>(s, tail, v_len, do_tail, x_new, out,
+                                 partial, csmem, sred);
+}
+
+template <class T, class Tail>
+__global__ void __launch_bounds__(kThreads, kCoopBackwardBlocksPerSM)
+full_backward_coop_kernel(FullSide s, Tail tail, int v_len, int do_tail,
+                          float* y_new, float* out, float* partial) {
+  extern __shared__ int32_t csmem[];  // the plan, [n_blocks, 4]
+  __shared__ float sred[kNarrowWarps * kNarrowRows];
+  coop_half_step<T, Tail, true>(s, tail, v_len, do_tail, y_new, out,
+                                partial, csmem, sred);
+}
+
+// the cooperative grid of ``kernel``: its co-resident blocks at ``smem``
+// bytes of dynamic shared memory, found (and the kernel opted into
+// kCoopSmemMax) once per device, kernel and size.  Each kernel has its own
+// registers, so its own entry.
+cudaError_t coop_grid(const void* kernel, size_t smem, int* grid) {
+  struct Entry { const void* kernel; int dev; size_t smem; int blocks; };
+  static Entry cache[32];
   static int n_cached = 0;
-  static uint64_t opted = 0;
-  auto kernel = full_forward_coop_kernel<T, PrimalTail>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   for (int e = 0; e < n_cached; ++e) {
-    if (cache[e].dev == dev && cache[e].smem == smem) {
+    if (cache[e].kernel == kernel && cache[e].dev == dev &&
+        cache[e].smem == smem) {
       *grid = cache[e].blocks;
       return cudaSuccess;
     }
   }
-  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
-  if (!(opted & bit)) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kCoopSmemMax);
-    if (err != cudaSuccess) return err;
-    opted |= bit;
-  }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kCoopSmemMax);
+  if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kThreads, smem);
@@ -479,8 +401,41 @@ cudaError_t coop_grid(size_t smem, int* grid) {
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   *grid = per_sm * sms;
-  if (n_cached < 16) cache[n_cached++] = Entry{dev, smem, *grid};
+  if (n_cached < 32) cache[n_cached++] = Entry{kernel, dev, smem, *grid};
   return cudaSuccess;
+}
+
+// one cooperative launch of ``kernel`` (phase 1 only with ``do_tail``),
+// its launches added to s->launches
+template <class Tail>
+int coop_launch(const void* kernel, FullSide* s, Tail tail, float* partial,
+                float* v_new, float* out, int v_len, int do_tail,
+                cudaStream_t stream) {
+  const size_t smem = 4 * sizeof(int32_t) * s->n_blocks;
+  int grid = 0;
+  cudaError_t err = coop_grid(kernel, smem, &grid);
+  if (err != cudaSuccess) return err;
+  // no more blocks than the largest phase has work for
+  const int64_t per = kThreads;
+  int64_t work = s->n_tiles + (s->s_len + kNarrowRows - 1) / kNarrowRows;
+  work = work > (s->s_len + per - 1) / per ? work : (s->s_len + per - 1) / per;
+  if (do_tail)
+    work = work > (v_len + per - 1) / per ? work : (v_len + per - 1) / per;
+  if (work < 1) work = 1;
+  if (grid > work) grid = static_cast<int>(work);
+  FullSide sv = *s;
+  void* args[] = {&sv, &tail, &v_len, &do_tail, &v_new, &out, &partial};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args,
+                                    smem, stream);
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch
+  if (err != cudaSuccess) return err;
+  if (last == cudaSuccess) s->launches += 1;
+  return last;
+}
+
+bool side_ok(const FullSide* s) {
+  return s->tc >= 1 && s->tc <= 32 && kThreads % s->tc == 0 &&
+         s->n_blocks >= 1 && s->n_blocks <= kMaxPlanBlocks;
 }
 
 // variant 1: one cooperative launch; variant 2: the tail kernel, then the
@@ -489,80 +444,30 @@ template <class T>
 int forward_coop(FullSide* s, PrimalTail tail, float* partial, float* x_new,
                  float* out, int v_len, int variant, cudaStream_t stream) {
   s->launches = 0;
-  if (s->tc < 1 || s->tc > 32 || kThreads % s->tc != 0 || s->n_blocks < 1 ||
-      s->n_blocks > kMaxPlanBlocks || (variant != 1 && variant != 2))
+  if (!side_ok(s) || (variant != 1 && variant != 2))
     return cudaErrorInvalidValue;
-  const size_t smem = 4 * sizeof(int32_t) * s->n_blocks;
-  int grid = 0;
-  cudaError_t err = coop_grid<T>(smem, &grid);
-  if (err != cudaSuccess) return err;
-  // no more blocks than the largest phase has work for
-  const int64_t per = kThreads;
-  int64_t work = s->n_tiles + (s->s_len + kNarrowRows - 1) / kNarrowRows;
-  work = work > (s->s_len + per - 1) / per ? work : (s->s_len + per - 1) / per;
-  if (variant == 1)
-    work = work > (v_len + per - 1) / per ? work : (v_len + per - 1) / per;
-  if (work < 1) work = 1;
-  if (grid > work) grid = static_cast<int>(work);
-  int do_tail = variant == 1;
   if (variant == 2 && v_len > 0) {
     full_tail_kernel<PrimalTail>
         <<<(v_len + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
             tail, v_len, x_new);
-    err = cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     s->launches = 1;
   }
-  FullSide sv = *s;
-  void* args[] = {&sv, &tail, &v_len, &do_tail, &x_new, &out, &partial};
-  err = cudaLaunchCooperativeKernel(
+  return coop_launch(
       reinterpret_cast<const void*>(full_forward_coop_kernel<T, PrimalTail>),
-      dim3(grid), dim3(kThreads), args, smem, stream);
-  const cudaError_t last = cudaGetLastError();  // clears a refused launch
-  if (err != cudaSuccess) return err;
-  if (last == cudaSuccess) s->launches += 1;
-  return last;
+      s, tail, partial, x_new, out, v_len, variant == 1, stream);
 }
 
-template <class T, class Tail>
-int half_step(FullSide* s, Tail tail, float* partial, float* v_new,
-              float* out, int v_len, cudaStream_t stream) {
-  const T* val = static_cast<const T*>(s->val);
-  const T* wval = static_cast<const T*>(s->wval);
-  const int tc = s->tc, n_blocks = s->n_blocks, d_len = s->d;
-  if (tc < 1 || tc > 32 || kThreads % tc != 0 || n_blocks < 0 ||
-      n_blocks > kMaxPlanBlocks)
+template <class T>
+int backward_coop(FullSide* s, DualTail tail, float* partial, float* y_new,
+                  float* out, int v_len, cudaStream_t stream) {
+  s->launches = 0;
+  if (!side_ok(s) || (s->s_len > 0 && s->gw == nullptr))
     return cudaErrorInvalidValue;
-  const size_t plan_bytes = 3 * sizeof(int32_t) * n_blocks;
-  int launches = 0;
-  if (v_len > 0) {
-    full_tail_kernel<Tail>
-        <<<(v_len + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-            tail, v_len, v_new);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    ++launches;
-  }
-  if (s->n_tiles > 0) {
-    wide_partial_kernel<T, Tail><<<s->n_tiles, kThreads, plan_bytes, stream>>>(
-        s->widx, wval, s->wscale, d_len, s->plan, n_blocks, tc, v_new,
-        partial);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    ++launches;
-  }
-  if (s->s_len > 0) {
-    const int chunk_rows = (kThreads / tc) * kWideIters;
-    full_narrow_kernel<T, Tail>
-        <<<(s->s_len + kThreads - 1) / kThreads, kThreads, plan_bytes,
-           stream>>>(s->idx, val, s->scale, s->w, s->s_len, s->fold, partial,
-                     d_len, s->plan, n_blocks, chunk_rows, v_new, out);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    ++launches;
-  }
-  s->launches = launches;
-  return cudaSuccess;
+  return coop_launch(
+      reinterpret_cast<const void*>(full_backward_coop_kernel<T, DualTail>),
+      s, tail, partial, y_new, out, v_len, 1, stream);
 }
 
 // coefficient storage codes the wrapper passes (kernels/structured_full_pdhg_step.py)
@@ -572,9 +477,9 @@ enum CoefType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 extern "C" {
 
-// (x_new [n], kx [m]) for the row side ``side`` (plan rows of 4) in one
-// cooperative launch (``variant`` 1) or the tail launch and the
-// cooperative launch (2); partial [side->n_chunks, side->d] f32 scratch.
+// (x_new [n], kx [m]) for the row side ``side`` in one cooperative launch
+// (``variant`` 1) or the tail launch and the cooperative launch (2);
+// partial [side->n_chunks, side->d] f32 scratch.
 int structured_full_forward_step(FullSide* side, const float* x,
                                  const float* c, const float* l,
                                  const float* u, const float* kty,
@@ -599,8 +504,8 @@ int structured_full_forward_step(FullSide* side, const float* x,
   }
 }
 
-// (y_new [m], kty [n]) for the column side ``side`` (plan rows of 3) in
-// three launches; partial [side->n_chunks, side->d] f32 scratch.
+// (y_new [m], kty [n]) for the column side ``side`` (its group widths set)
+// in one cooperative launch; partial [side->n_chunks, side->d] f32 scratch.
 int structured_full_backward_step(FullSide* side, const float* y,
                                   const float* q, const uint8_t* ineq_mask,
                                   const float* kx_new, const float* kx_prev,
@@ -612,11 +517,12 @@ int structured_full_backward_step(FullSide* side, const float* y,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (side->coef) {
     case kF32:
-      return half_step<float>(side, tail, partial, y_new, kty, m, st);
+      return backward_coop<float>(side, tail, partial, y_new, kty, m, st);
     case kBF16:
-      return half_step<__nv_bfloat16>(side, tail, partial, y_new, kty, m, st);
+      return backward_coop<__nv_bfloat16>(side, tail, partial, y_new, kty, m,
+                                          st);
     case kI8:
-      return half_step<int8_t>(side, tail, partial, y_new, kty, m, st);
+      return backward_coop<int8_t>(side, tail, partial, y_new, kty, m, st);
     default:
       return cudaErrorInvalidValue;
   }

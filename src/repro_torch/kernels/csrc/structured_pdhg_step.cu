@@ -25,56 +25,58 @@
 // sizes over as one LaneSide struct; the C functions write the number of
 // CUDA launches they made into it.
 //
-// Forward (two launches, the first design):
-//  * narrow_tail_kernel: one thread per output segment over 256-thread
-//    blocks (grid (ceil(max(S, V)/256), k)).  x_new is gathered at
-//    arbitrary indices of its lane while blocks run in no order, so the
-//    narrow pass RECOMPUTES the tail at each gathered index (5 L2 gathers
-//    instead of 1); the tails (pdhg_tails.cuh) round every operation to
-//    nearest, so the recomputed value is bit-equal to the stored one.
-//  * wide_fold_kernel: one 256-thread block per wide-bucket column reduces
-//    it against the stored x_new and adds its sum onto its segment with one
-//    exact atomicAdd (bucket ids are distinct except padded columns, id 0,
-//    value 0.0).
-//
-// Backward (one launch, dual_lane_kernel): C blocks per lane, grid (C, k).
+// Each half-step is one launch of one body (lane_step) over the side's
+// V-entry vector and its S segments: primal_lane_kernel (forward, V = N
+// columns of x_new, S = M rows of kx) and dual_lane_kernel (backward, V =
+// M rows of y_new, S = N columns of kty).  C blocks per lane, grid (C, k):
 //  0. Each thread first loads what needs no tail: the first batch of its
 //     first segment's narrow entries and the first rows of its block's
 //     first wide column, so their latency hides behind the tail.
-//  1. The tail.  A lane whose M rows fit a block's shared memory (every
+//  1. The tail.  A lane whose V entries fit a block's shared memory (every
 //     lane of the main path and the traffic sessions; kLocal): each block
-//     computes the dual tail of all M rows into its shared memory (16 KB at
-//     the main path; the five vectors are read from L2, once per block) and
-//     stores its 1/C share to y_new; the blocks never wait for each other.
-//     A larger lane: the C blocks form a thread-block cluster (cluster
-//     (C, 1, 1), launched with cudaLaunchKernelEx), each computes the tail
-//     of its share once and stores it to y_new, and one cluster.sync (its
-//     release/acquire) makes the stores visible to the cluster's blocks.
-//  2. Each block reduces its 1/C of the lane's N segments over the narrow
-//     ELL, gathering y_new[idx] from its shared memory (or, in a cluster,
-//     the stored y_new: one read per stored entry in place of the five a
+//     computes the lane's whole tail into its shared memory (24.6 KB
+//     forward, 16.4 KB backward at the main path; the five vectors are
+//     read from L2, once per block) and stores its 1/C share to v_new; the
+//     blocks never wait for each other.  Forward, a thread reads four
+//     entries of each vector in one 16-byte load where the lane's five
+//     vectors are aligned alike (PrimalTail::quad; the 0-3 entries before
+//     the first aligned one and the 0-3 after the last quad one at a
+//     time).  A larger lane: the C blocks form a thread-block cluster
+//     (cluster (C, 1, 1), launched with cudaLaunchKernelEx), each computes
+//     the tail of its share once and stores it to v_new, and one
+//     cluster.sync (its release/acquire) makes the stores visible to the
+//     cluster's blocks.
+//  2. Each block reduces its 1/C of the lane's S segments over the narrow
+//     ELL, gathering v_new[idx] from its shared memory (or, in a cluster,
+//     the stored v_new: one read per stored entry in place of the five a
 //     recomputed tail costs), a batch of entries loaded ahead of its
-//     gathers, summed over w in order; the sum goes to kty.
+//     gathers, summed over w in order; the sum goes to out.
 //  3. The same block reduces every wide bucket column whose segment it
-//     owns, over all the column's rows (the wrapper sorts each lane's real
-//     bucket columns by segment once per operator, so a block's columns
-//     are one range, found by binary search), and adds the sum onto the
-//     segment's narrow sum.  Padded bucket columns (id 0, value 0) are
-//     left out.
+//     owns, whole, over all the column's rows (the wrapper sorts each
+//     lane's real bucket columns by segment once per operator, so a
+//     block's columns are one range, found by binary search), and adds
+//     the sums onto the segment's narrow sum, in column order, once per
+//     segment (columns that share a segment are added by one thread).
+//     Padded bucket columns (id 0, value 0) are left out.
 //  No atomics, sums in a fixed order: the result is deterministic.
-//  Measured with chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W at the
-//  main-path shape (PERF.md): one cluster per lane took 6.6 us a call
-//  whether it gathered the tail from its owners' shared memory through
-//  distributed shared memory (three cluster barriers) or gathered the
-//  stored y_new (one barrier), above the two-launch design's 5.6; the
-//  shared-memory instance, with no barrier between blocks, took less.
-//  Hence that instance for the lanes that fit, the cluster for those that
-//  do not.
+//  Measured on an NVIDIA H100 80GB HBM3 at 700 W at the main-path shape
+//  (PERF.md): one cluster per lane took 6.6 us a call backward whether it
+//  gathered the tail from its owners' shared memory through distributed
+//  shared memory (three cluster barriers) or gathered the stored y_new
+//  (one barrier); the shared-memory instance, with no barrier between
+//  blocks, took less.  Hence that instance for the lanes that fit, the
+//  cluster for those that do not.  Forward, the block's tail of N = 6,145
+//  columns sets the pace: one 4-byte load a vector and entry took 11.0 us
+//  a call, 16-byte loads with the bucket rows loaded ahead 6.8 (loading
+//  2 or 3 quads before storing any, or 768 or 1,024 threads a block, did
+//  not help).
 //  * No wgmma, no TMA: the work is a few MB of gathers.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "pdhg_tails.cuh"
 
@@ -99,107 +101,33 @@ namespace {
 using pdhg::DualTail;
 using pdhg::PrimalTail;
 
-constexpr int kNarrowThreads = 256;
-constexpr int kWideThreads = 256;
 constexpr int kClusterThreads = 512;
 // narrow entries of a segment loaded ahead of their gathers
 constexpr int kGatherBatch = 8;
 // rows of a block's first wide column a thread loads ahead of the tail
+// (forward: 16, so the main path's tile of 3 bucket rows, 2,048 deep, is
+// loaded whole before the tail)
+template <class Tail>
 constexpr int kWideAhead = 4;
+template <>
+constexpr int kWideAhead<PrimalTail> = 16;
 // dynamic shared memory a block may hold: a lane's whole tail, beside the
 // static row-group sums, within the 227 KB of an SM
 constexpr int kLaneSmemBytes = 227 * 1024 - 4 * kClusterThreads;
 constexpr int kMaxCluster = 16;
 
-// Launch 1: the tail for every vector entry (stored to v_new) and the
-// narrow ELL reduce for every output segment (stored to out).
-template <class Tail>
-__global__ void __launch_bounds__(kNarrowThreads)
-narrow_tail_kernel(const int32_t* __restrict__ idx,
-                   const float* __restrict__ val, int w_len, int s_len,
-                   int v_len, Tail tail, float* __restrict__ v_new,
-                   float* __restrict__ out) {
-  const int b = blockIdx.y;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const Tail t = tail.lane(b, v_len);
-  if (i < v_len) v_new[(int64_t)b * v_len + i] = t(i);
-  if (i < s_len) {
-    const int64_t base = (int64_t)b * w_len * s_len + i;
-    float acc = 0.0f;
-    for (int w = 0; w < w_len; ++w) {
-      const int64_t e = base + (int64_t)w * s_len;
-      acc = fmaf(val[e], t(idx[e]), acc);
-    }
-    out[(int64_t)b * s_len + i] = acc;
-  }
-}
-
-// Launch 2: one block per (wide bucket column d, lane b) reduces the column
-// against the stored v_new and adds the sum onto segment wids[b, d].  (Tail
-// only names the instance, so a profile tells the two half-steps apart.)
-template <class Tail>
-__global__ void __launch_bounds__(kWideThreads)
-wide_fold_kernel(const int32_t* __restrict__ widx,
-                 const float* __restrict__ wval,
-                 const int32_t* __restrict__ wids, int w_len, int d_len,
-                 const float* __restrict__ v_new, int v_len,
-                 float* __restrict__ out, int s_len) {
-  const int d = blockIdx.x;
-  const int b = blockIdx.y;
-  const int64_t base = (int64_t)b * w_len * d_len + d;
-  const float* v = v_new + (int64_t)b * v_len;
-  float acc = 0.0f;
-  for (int w = threadIdx.x; w < w_len; w += kWideThreads) {
-    const int64_t e = base + (int64_t)w * d_len;
-    acc = fmaf(wval[e], v[widx[e]], acc);
-  }
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-  __shared__ float part[kWideThreads / 32];
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    acc = threadIdx.x < kWideThreads / 32 ? part[threadIdx.x] : 0.0f;
-    for (int o = 16; o > 0; o >>= 1)
-      acc += __shfl_down_sync(0xffffffffu, acc, o);
-    if (threadIdx.x == 0)
-      atomicAdd(out + (int64_t)b * s_len + wids[(int64_t)b * d_len + d], acc);
-  }
-}
-
-template <class Tail>
-int half_step(LaneSide* s, Tail tail, float* v_new, float* out,
-              cudaStream_t stream) {
-  s->launches = 0;
-  if (s->k <= 0 || (s->v_len <= 0 && s->s_len <= 0)) return cudaSuccess;
-  const int span = s->v_len > s->s_len ? s->v_len : s->s_len;
-  const dim3 grid((span + kNarrowThreads - 1) / kNarrowThreads, s->k);
-  narrow_tail_kernel<Tail><<<grid, kNarrowThreads, 0, stream>>>(
-      s->idx, s->val, s->w, s->s_len, s->v_len, tail, v_new, out);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  s->launches = 1;
-  if (s->d <= 0 || s->s_len <= 0) return cudaSuccess;
-  wide_fold_kernel<Tail><<<dim3(s->d, s->k), kWideThreads, 0, stream>>>(
-      s->widx, s->wval, s->wids, s->ww, s->d, v_new, s->v_len, out,
-      s->s_len);
-  err = cudaGetLastError();
-  if (err == cudaSuccess) s->launches = 2;
-  return err;
-}
-
-// The backward half-step in one launch: see the note at the top.  v_new
-// is read after other blocks of the cluster wrote it, so it is a plain
-// (never read-only-cache) pointer.  (Tail names the instance.)
+// One half-step of one block: see the note at the top.  v_new is read
+// after other blocks of the cluster wrote it, so it is a plain (never
+// read-only-cache) pointer; sv is the lane's tail in shared memory
+// (kLocal), sred the row-group sums.
 template <bool kLocal, class Tail>
-__global__ void __launch_bounds__(kClusterThreads)
-dual_lane_kernel(LaneSide s, Tail tail, float* v_new,
-                 float* __restrict__ out) {
+__device__ __forceinline__ void lane_step(const LaneSide& s, const Tail& tail,
+                                          float* v_new, float* out,
+                                          float* sv, float* sred) {
   const int C = gridDim.x;  // the blocks of a lane (a cluster if !kLocal)
   const int r = blockIdx.x;
   const int b = blockIdx.y;
-  const int M = s.v_len, S = s.s_len, D = s.d;
-  extern __shared__ float sy[];  // [M] (kLocal)
-  __shared__ float sred[kClusterThreads];
+  const int V = s.v_len, S = s.s_len, D = s.d;
   const int SC = (S + C - 1) / C;
   const int s0 = r * SC;
   const int s1 = min(S, s0 + SC);
@@ -248,10 +176,10 @@ dual_lane_kernel(LaneSide s, Tail tail, float* v_new,
   load_batch(s0 + threadIdx.x, 0, pj, pv);
   const bool wlive = first + tx < last;
   const int d_first = wlive ? ws[first + tx] : 0;
-  int32_t qj[kWideAhead];
-  float qv[kWideAhead];
+  int32_t qj[kWideAhead<Tail>];
+  float qv[kWideAhead<Tail>];
 #pragma unroll
-  for (int u = 0; u < kWideAhead; ++u) {
+  for (int u = 0; u < kWideAhead<Tail>; ++u) {
     const int w = ty + u * groups;
     const bool in = wlive && w < s.ww;
     const int64_t e = wbase + (int64_t)w * D + d_first;
@@ -259,27 +187,45 @@ dual_lane_kernel(LaneSide s, Tail tail, float* v_new,
     qv[u] = in ? __ldg(s.wval + e) : 0.0f;
   }
 
-  // 1. the tail: this block's share of the rows stored to v_new; with
-  // kLocal every row into shared memory too, else a cluster barrier
-  const Tail t = tail.lane(b, M);
-  float* vl = v_new + (int64_t)b * M;
-  const int R = (M + C - 1) / C;
+  // 1. the tail: this block's share of the entries stored to v_new; with
+  // kLocal every entry into shared memory too, else a cluster barrier
+  const Tail t = tail.lane(b, V);
+  float* vl = v_new + (int64_t)b * V;
+  const int R = (V + C - 1) / C;
   const int r0 = r * R;
-  const int r1 = min(M, r0 + R);
+  const int r1 = min(V, r0 + R);
   if (kLocal) {
+    // the forward tail: entries [h, h + 4 nq) four at a time from 16-byte
+    // loads, the at most 3 + 3 around them one at a time
+    int h = 0, nq = 0;
+    if constexpr (std::is_same<Tail, PrimalTail>::value) {
+      h = t.quad_start();
+      nq = h < 0 || h > V ? 0 : (V - h) >> 2;
+      h = nq > 0 ? h : 0;
+      for (int q = threadIdx.x; q < nq; q += kClusterThreads) {
+        const int i = h + 4 * q;
+        float v[4];
+        t.quad(i, v);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sv[i + e] = v[e];
+          if (i + e >= r0 && i + e < r1) vl[i + e] = v[e];
+        }
+      }
+    }
 #pragma unroll 4
-    for (int i = threadIdx.x; i < M; i += kClusterThreads) {
+    for (int j = threadIdx.x; j < V - 4 * nq; j += kClusterThreads) {
+      const int i = j < h ? j : j + 4 * nq;
       const float v = t(i);
-      sy[i] = v;
+      sv[i] = v;
       if (i >= r0 && i < r1) vl[i] = v;
     }
     __syncthreads();
   } else {
-    for (int i = r0 + threadIdx.x; i < r1; i += kClusterThreads)
-      vl[i] = t(i);
+    for (int i = r0 + threadIdx.x; i < r1; i += kClusterThreads) vl[i] = t(i);
     cg::this_cluster().sync();
   }
-  auto y = [&](int j) -> float { return kLocal ? sy[j] : vl[j]; };
+  auto g = [&](int j) -> float { return kLocal ? sv[j] : vl[j]; };
 
   // 2. the narrow reduce of segments [s0, s1), summed over w in order,
   // each batch of entries loaded ahead of its gathers
@@ -288,7 +234,7 @@ dual_lane_kernel(LaneSide s, Tail tail, float* v_new,
     float acc = 0.0f;
     for (int w0 = 0; w0 < s.w; w0 += kGatherBatch) {
       int32_t j[kGatherBatch];
-      float v[kGatherBatch], g[kGatherBatch];
+      float v[kGatherBatch], x[kGatherBatch];
       if (i == s0 + threadIdx.x && w0 == 0) {
 #pragma unroll
         for (int u = 0; u < kGatherBatch; ++u) {
@@ -299,10 +245,10 @@ dual_lane_kernel(LaneSide s, Tail tail, float* v_new,
         load_batch(i, w0, j, v);
       }
 #pragma unroll
-      for (int u = 0; u < kGatherBatch; ++u) g[u] = y(j[u]);
+      for (int u = 0; u < kGatherBatch; ++u) x[u] = g(j[u]);
 #pragma unroll
       for (int u = 0; u < kGatherBatch; ++u)
-        if (w0 + u < s.w) acc = fmaf(v[u], g[u], acc);
+        if (w0 + u < s.w) acc = fmaf(v[u], x[u], acc);
     }
     ol[i] = acc;
   }
@@ -312,7 +258,8 @@ dual_lane_kernel(LaneSide s, Tail tail, float* v_new,
   // 3. the block's wide columns in tiles of tc columns, the rows split
   // over kClusterThreads / tc groups (the first tile's first rows loaded
   // in 0.); a warp's groups are summed with a fixed butterfly, the warps
-  // in order, and the column's sum is added onto its segment's narrow sum
+  // in order, and the first column of each run of columns with one
+  // segment adds the run's sums, in order, onto the segment's narrow sum
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int m0 = first; m0 < last; m0 += tc) {
@@ -323,31 +270,72 @@ dual_lane_kernel(LaneSide s, Tail tail, float* v_new,
       int w = ty;
       if (m0 == first) {
 #pragma unroll
-        for (int u = 0; u < kWideAhead; ++u)
-          if (ty + u * groups < s.ww) acc = fmaf(qv[u], y(qj[u]), acc);
-        w += kWideAhead * groups;
+        for (int u = 0; u < kWideAhead<Tail>; ++u)
+          if (ty + u * groups < s.ww) acc = fmaf(qv[u], g(qj[u]), acc);
+        w += kWideAhead<Tail> * groups;
       }
 #pragma unroll 4
       for (; w < s.ww; w += groups) {
         const int64_t e = wbase + (int64_t)w * D + d;
-        acc = fmaf(__ldg(s.wval + e), y(__ldg(s.widx + e)), acc);
+        acc = fmaf(__ldg(s.wval + e), g(__ldg(s.widx + e)), acc);
       }
     }
     for (int o = 16; o >= tc; o >>= 1)
       acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, o));
     if (lane < tc) sred[warp * tc + lane] = acc;
     __syncthreads();
-    if (threadIdx.x < tc && m0 + threadIdx.x < last) {
-      float sum = 0.0f;
+    const bool col = threadIdx.x < tc && m0 + threadIdx.x < last;
+    float sum = 0.0f;
+    if (col) {
 #pragma unroll 8
-      for (int g = 0; g < kClusterThreads / 32; ++g)
-        sum = __fadd_rn(sum, sred[g * tc + threadIdx.x]);
+      for (int w8 = 0; w8 < kClusterThreads / 32; ++w8)
+        sum = __fadd_rn(sum, sred[w8 * tc + threadIdx.x]);
+    }
+    __syncthreads();  // every column summed before sred holds the sums
+    if (col) sred[threadIdx.x] = sum;
+    __syncthreads();
+    if (col) {
+      const int n = min(tc, last - m0);
       const int i = wid[ws[m0 + threadIdx.x]];
-      ol[i] = __fadd_rn(ol[i], sum);
+      if (threadIdx.x == 0 || wid[ws[m0 + threadIdx.x - 1]] != i) {
+        float o = ol[i];
+        for (int c = threadIdx.x; c < n && wid[ws[m0 + c]] == i; ++c)
+          o = __fadd_rn(o, sred[c]);
+        ol[i] = o;
+      }
     }
     __syncthreads();
   }
 }
+
+// The forward half-step: x_new over the N columns, kx over the M rows.
+// (Tail names the instance, so a profile tells the two half-steps apart.)
+template <bool kLocal, class Tail>
+__global__ void __launch_bounds__(kClusterThreads)
+primal_lane_kernel(LaneSide s, Tail tail, float* v_new,
+                   float* __restrict__ out) {
+  extern __shared__ float sv[];  // [V] (kLocal)
+  __shared__ float sred[kClusterThreads];
+  lane_step<kLocal>(s, tail, v_new, out, sv, sred);
+}
+
+// The backward half-step: y_new over the M rows, kty over the N columns.
+template <bool kLocal, class Tail>
+__global__ void __launch_bounds__(kClusterThreads)
+dual_lane_kernel(LaneSide s, Tail tail, float* v_new,
+                 float* __restrict__ out) {
+  extern __shared__ float sv[];  // [V] (kLocal)
+  __shared__ float sred[kClusterThreads];
+  lane_step<kLocal>(s, tail, v_new, out, sv, sred);
+}
+
+// each half-step's kernel instance
+template <bool kLocal>
+auto lane_kernel(PrimalTail) {
+  return primal_lane_kernel<kLocal, PrimalTail>;
+}
+template <bool kLocal>
+auto lane_kernel(DualTail) { return dual_lane_kernel<kLocal, DualTail>; }
 
 // once per device: a kernel's opt-in (cudaFuncSetAttribute) of ``attr``
 template <class Kernel>
@@ -363,8 +351,16 @@ cudaError_t opt_in(Kernel kernel, uint64_t* done, cudaFuncAttribute attr,
   return err;
 }
 
-int launch_dual_lane(LaneSide* s, DualTail tail, float* v_new, float* out,
-                     int C, bool local, cudaStream_t stream) {
+// one launch of ``C`` blocks a lane: each holding the lane's whole tail in
+// shared memory (``local``) or a cluster of them over the stored tail
+template <class Tail>
+int launch_lane(LaneSide* s, Tail tail, float* v_new, float* out, int C,
+                bool local, cudaStream_t stream) {
+  s->launches = 0;
+  if (C < 1 || C > kMaxCluster ||
+      (s->d > 0 && (s->wsort == nullptr || s->nreal == nullptr)))
+    return cudaErrorInvalidValue;
+  if (s->k <= 0 || (s->v_len <= 0 && s->s_len <= 0)) return cudaSuccess;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C, s->k, 1);
   cfg.blockDim = dim3(kClusterThreads, 1, 1);
@@ -373,7 +369,7 @@ int launch_dual_lane(LaneSide* s, DualTail tail, float* v_new, float* out,
   cudaError_t err = cudaSuccess;
   if (local) {
     static uint64_t opted = 0;
-    auto kernel = dual_lane_kernel<true, DualTail>;
+    auto kernel = lane_kernel<true>(tail);
     cfg.dynamicSmemBytes = sizeof(float) * (size_t)s->v_len;
     if (cfg.dynamicSmemBytes > (size_t)kLaneSmemBytes)
       return cudaErrorInvalidValue;
@@ -383,7 +379,7 @@ int launch_dual_lane(LaneSide* s, DualTail tail, float* v_new, float* out,
                                                      v_new, out);
   } else {
     static uint64_t opted = 0;
-    auto kernel = dual_lane_kernel<false, DualTail>;
+    auto kernel = lane_kernel<false>(tail);
     if (C > 8)  // a non-portable cluster size
       err = opt_in(kernel, &opted,
                    cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -406,34 +402,28 @@ int launch_dual_lane(LaneSide* s, DualTail tail, float* v_new, float* out,
 
 extern "C" {
 
-// (x_new [k, n], kx [k, m]) for the row side ``side`` (v_len n, s_len m);
-// two launches.
+// (x_new [k, n], kx [k, m]) for the row side ``side`` (v_len n, s_len m,
+// its sorted bucket columns set): ``blocks`` blocks per lane, each holding
+// the lane's tail in shared memory (``local``) or a cluster of them.
 int structured_forward_step(LaneSide* side, const float* x, const float* c,
                             const float* l, const float* u, const float* kty,
                             const float* tau, float* x_new, float* kx,
-                            void* stream) {
+                            int blocks, int local, void* stream) {
   const PrimalTail tail{x, c, l, u, kty, tau, 0.0f};
-  return half_step(side, tail, x_new, kx, static_cast<cudaStream_t>(stream));
+  return launch_lane(side, tail, x_new, kx, blocks, local != 0,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // (y_new [k, m], kty [k, n]) for the column side ``side`` (v_len m, s_len
-// n, its sorted bucket columns set) in one launch of a cluster of
-// ``blocks`` blocks per lane: with ``local`` each block holds the lane's
-// whole tail in shared memory, else the blocks of a lane form a cluster.
+// n, its sorted bucket columns set), launched as the forward step is.
 int structured_backward_step(LaneSide* side, const float* y, const float* q,
                              const uint8_t* ineq_mask, const float* kx_new,
                              const float* kx_prev, const float* sigma,
                              float* y_new, float* kty, int blocks, int local,
                              void* stream) {
-  side->launches = 0;
-  if (blocks < 1 || blocks > kMaxCluster ||
-      (side->d > 0 && (side->wsort == nullptr || side->nreal == nullptr)))
-    return cudaErrorInvalidValue;
-  if (side->k <= 0 || (side->v_len <= 0 && side->s_len <= 0))
-    return cudaSuccess;
   const DualTail tail{y, q, ineq_mask, kx_new, kx_prev, sigma, 0.0f};
-  return launch_dual_lane(side, tail, y_new, kty, blocks, local != 0,
-                          static_cast<cudaStream_t>(stream));
+  return launch_lane(side, tail, y_new, kty, blocks, local != 0,
+                     static_cast<cudaStream_t>(stream));
 }
 
 const char* structured_pdhg_error_string(int err) {

@@ -20,7 +20,11 @@ a check:
   ``_version`` s (an in-place change re-checks; each tensor's ``weakref``
   drops the pack when the operator is freed);
 * the plan is checked, laid out (:func:`plan_layout`) and copied to the
-  device once per operator and plan object, into the same pack;
+  device once per operator and plan object, into the same pack, with no
+  wide tile at all where no segment folds onto the bucket;
+* each group of 4 segments' stored width (:func:`group_widths`) is
+  reduced on the device once per operator into the pack: the backward
+  kernel's narrow reduce stops there instead of at the padded W;
 * each call checks only its vectors, allocates its outputs uninitialised
   (``new_empty`` of a checked vector: the ``torch.empty`` of its dtype and
   device) and takes the pack's scratch of wide partial sums for its CUDA
@@ -29,9 +33,9 @@ a check:
   its entry in :data:`LAUNCHES` and the CUDA launches it made to
   :data:`CUDA_LAUNCHES`.
 
-The forward step is a persistent cooperative kernel, launched alone
-(``VARIANT`` 1, the default) or after a tail launch (``VARIANT`` 2); the
-backward step three launches (see the source's note).
+Each half-step is a persistent cooperative kernel: the forward one
+launched alone (``VARIANT`` 1, the default) or after a tail launch
+(``VARIANT`` 2), the backward one alone (see the source's note).
 """
 
 from __future__ import annotations
@@ -55,12 +59,13 @@ CUDA_LAUNCHES = {"structured_full_forward_step": 0,
 THREADS = 256
 WIDE_ITERS = 16
 MAX_PLAN_BLOCKS = 4010
-# the forward kernel's narrow split, its blocks per SM and its shared
-# memory (the source's kNarrowWarps, kRowsPerLane, kCoopBlocksPerSM and
-# kCoopSmemMax)
+# the cooperative kernels' narrow split, their blocks per SM and their
+# shared memory (the source's kNarrowWarps, kRowsPerLane, kCoopBlocksPerSM,
+# kCoopBackwardBlocksPerSM and kCoopSmemMax)
 NARROW_WARPS = THREADS // 32
 ROWS_PER_LANE = 4
 COOP_BLOCKS_PER_SM = 6
+COOP_BACKWARD_BLOCKS_PER_SM = 5
 COOP_SMEM_MAX = 16 * MAX_PLAN_BLOCKS
 # the forward step: 1 = one cooperative launch, 2 = the tail launch, then
 # the cooperative launch (1-2 us faster on the device, but one launch more
@@ -84,8 +89,9 @@ class FullSide(ctypes.Structure):
                 ("scale", ctypes.c_void_p), ("widx", ctypes.c_void_p),
                 ("wval", ctypes.c_void_p), ("wscale", ctypes.c_void_p),
                 ("fold", ctypes.c_void_p), ("plan", ctypes.c_void_p),
-                ("coef", ctypes.c_int32), ("w", ctypes.c_int32),
-                ("s_len", ctypes.c_int32), ("d", ctypes.c_int32),
+                ("gw", ctypes.c_void_p), ("coef", ctypes.c_int32),
+                ("w", ctypes.c_int32), ("s_len", ctypes.c_int32),
+                ("d", ctypes.c_int32),
                 ("n_blocks", ctypes.c_int32), ("tc", ctypes.c_int32),
                 ("n_tiles", ctypes.c_int32), ("n_chunks", ctypes.c_int32),
                 ("vec", ctypes.c_int32), ("launches", ctypes.c_int32)]
@@ -93,12 +99,13 @@ class FullSide(ctypes.Structure):
 
 class Pack:
     """A checked operator side with its plan: the struct, its address,
-    the device, the shapes a call must bring and the plan's device
-    tensor."""
+    the device, the shapes a call must bring, whether any segment folds
+    onto the wide bucket, the group widths' and the plan's device
+    tensors."""
     __slots__ = ("struct", "addr", "ids", "versions", "refs", "device",
                  "cuda", "dev_index", "v_len", "s_len", "d", "ww",
-                 "vec_shape", "out_shape", "part_shape", "plan", "plan_cols",
-                 "plan_t", "scratch", "__weakref__")
+                 "vec_shape", "out_shape", "part_shape", "has_wide", "gw",
+                 "plan", "plan_t", "scratch", "__weakref__")
 
 
 def library() -> ctypes.CDLL:
@@ -147,16 +154,32 @@ def plan_layout(plan: tuple, d: int, ww: int):
     return tc, n_tiles, n_chunks
 
 
-def plan_rows(plan: tuple, d: int, ww: int, tc: int, cols: int) -> list:
-    """The plan as the kernels read it: rows ``(c0, c1, wb)``, with
-    ``cols`` = 4 each block's first wide tile appended."""
+def plan_rows(plan: tuple, d: int, ww: int, tc: int) -> list:
+    """The plan as the kernels read it: rows ``(c0, c1, wb, first tile)``,
+    the last the number of the block's first wide tile."""
     plan = plan or ((0, d, ww),)
     rows, first = [], 0
     chunk_rows = (THREADS // tc) * WIDE_ITERS
     for c0, c1, wb in plan:
-        rows.append((c0, c1, wb, first)[:cols])
+        rows.append((c0, c1, wb, first))
         first += -(-(c1 - c0) // tc) * -(-wb // chunk_rows)
     return rows
+
+
+def group_widths(val: torch.Tensor) -> torch.Tensor:
+    """int32 ``[ceil(S / 4)]`` of one lane's narrow ``[1, W, S]``
+    coefficients: for each group of 4 consecutive segments the largest
+    stored width, the position of a segment's last nonzero coefficient plus
+    one (0 for a group with none), reduced where ``val`` lives.  The packer
+    front-packs every segment, so every slot past it is padding (idx 0,
+    val 0); a stored 0 before it is kept, and one after it adds exactly 0
+    for a finite gathered value."""
+    v = val[0]
+    w, s_len = v.shape
+    pos = torch.arange(1, w + 1, dtype=torch.int32, device=v.device)
+    last = torch.where(v != 0, pos[:, None], 0).amax(dim=0)          # [S]
+    last = torch.nn.functional.pad(last, (0, -s_len % ROWS_PER_LANE))
+    return last.reshape(-1, ROWS_PER_LANE).amax(dim=1).contiguous()
 
 
 def _dropper(key):
@@ -171,7 +194,8 @@ def _check_side(name, side, v_len):
     is one lane on one device: contiguous [1, W, S] int32 indices and
     coefficients of one storage type, [1, Ww, D] likewise, [1, S] int32
     fold values in ``[0, D]`` (one device sync) and [1, 1] f32 scales for
-    int8 storage (none otherwise)."""
+    int8 storage (none otherwise).  Returns whether any segment folds onto
+    the bucket (a fold value below D)."""
     idx, val, scale, widx, wval, wscale, fold = side
     dev = idx.device
     int8 = val.dtype == torch.int8
@@ -206,28 +230,29 @@ def _check_side(name, side, v_len):
     if lo < 0 or hi > d:
         raise ValueError(f"{name}: fold map values span [{lo}, {hi}], "
                          f"outside [0, {d}]")
+    return lo < d
 
 
-def side_pack(name, side, v_len: int, plan, plan_cols: int) -> Pack:
+def side_pack(name, side, v_len: int, plan) -> Pack:
     """The checked, packed operator side with ``plan`` laid out, from the
     cache while its tensors live unmodified (the plan re-laid only when
     another plan object comes); ``v_len`` is the length of the vectors it
-    gathers from, ``plan_cols`` the plan row width its kernel reads."""
+    gathers from."""
     key = id(side[0])
     p = _packs.get(key)
     if (p is None or p.ids != tuple(map(id, side))
             or p.versions != tuple([t._version for t in side
                                     if t is not None])
-            or p.v_len != v_len or p.plan_cols != plan_cols):
-        p = _new_pack(name, side, v_len, plan_cols)
+            or p.v_len != v_len):
+        p = _new_pack(name, side, v_len)
         _packs[key] = p
     if p.plan is not plan:
         _set_plan(p, plan)
     return p
 
 
-def _new_pack(name, side, v_len, plan_cols):
-    _check_side(name, side, v_len)
+def _new_pack(name, side, v_len):
+    has_wide = _check_side(name, side, v_len)
     idx, val, scale, widx, wval, wscale, fold = side
     key = id(idx)
     _, w, s_len = idx.shape
@@ -236,8 +261,9 @@ def _new_pack(name, side, v_len, plan_cols):
     vec = (s_len % 4 == 0 and idx.data_ptr() % 16 == 0
            and val.data_ptr() % (4 * val.element_size()) == 0)
     p = Pack()
+    p.gw = group_widths(val)
     p.struct = FullSide(ptr(idx), ptr(val), ptr(scale), ptr(widx),
-                        ptr(wval), ptr(wscale), ptr(fold), 0,
+                        ptr(wval), ptr(wscale), ptr(fold), 0, ptr(p.gw),
                         _COEF[val.dtype], w, s_len, d, 0, 0, 0, 0, int(vec),
                         0)
     p.addr = ctypes.addressof(p.struct)
@@ -249,18 +275,21 @@ def _new_pack(name, side, v_len, plan_cols):
     p.cuda = idx.is_cuda
     p.dev_index = idx.get_device()
     p.v_len, p.s_len, p.d, p.ww = v_len, s_len, d, ww
+    p.has_wide = has_wide
     p.vec_shape = torch.Size((1, v_len))
     p.out_shape = torch.Size((1, s_len))
-    p.plan, p.plan_cols, p.plan_t = None, plan_cols, None
+    p.plan, p.plan_t = None, None
     return p
 
 
 def _set_plan(p: Pack, plan) -> None:
     """Check and lay out ``plan`` for ``p``'s bucket and copy its rows to
-    the pack's device."""
+    the pack's device; a bucket that no segment folds onto gets no tile."""
     plan_t = tuple(plan)
     tc, n_tiles, n_chunks = plan_layout(plan_t, p.d, p.ww)
-    rows = plan_rows(plan_t, p.d, p.ww, tc, p.plan_cols)
+    if not p.has_wide:
+        n_tiles = 0
+    rows = plan_rows(plan_t, p.d, p.ww, tc)
     p.plan_t = torch.tensor(rows, dtype=torch.int32, device=p.device)
     st = p.struct
     st.plan = p.plan_t.data_ptr()
@@ -318,7 +347,7 @@ def forward_checks(s, x, c, l, u, tau, kty, plan):
     name = "structured_full_forward_step"
     p = side_pack(name, (s.row_idx, s.row_val, s.row_scale, s.wrow_idx,
                          s.wrow_val, s.wrow_scale, s.row_fold),
-                  s.col_idx.shape[-1], plan, 4)
+                  s.col_idx.shape[-1], plan)
     return p, vector_ptrs(name, p, (x, c, l, u, kty, tau), (_F,) * 6)
 
 
@@ -330,7 +359,7 @@ def backward_checks(s, y, q, sigma, ineq_mask, kx_new, kx_prev, plan):
                          f"{ineq_mask.dtype}")
     p = side_pack(name, (s.col_idx, s.col_val, s.col_scale, s.wcol_idx,
                          s.wcol_val, s.wcol_scale, s.col_fold),
-                  s.row_idx.shape[-1], plan, 3)
+                  s.row_idx.shape[-1], plan)
     return p, vector_ptrs(name, p, (y, q, ineq_mask, kx_new, kx_prev, sigma),
                           (_F, _F, torch.bool, _F, _F, _F))
 

@@ -11,9 +11,9 @@ The host path of a call is kept short, without dropping a check:
 
 * an operator side (its five ELL tensors) is checked once — device,
   dtype, contiguity, every shape, the bucket ids' range — and packed with
-  its sizes (and, for the backward kernel, its bucket columns sorted by
-  segment) into one :class:`LaneSide` struct that the C side reads through
-  a single pointer (:func:`side_pack`).  The pack is cached by the
+  its sizes and its real bucket columns sorted by segment into one
+  :class:`LaneSide` struct that the C side reads through a single pointer
+  (:func:`side_pack`).  The pack is cached by the
   tensors' ids and ``_version`` s, so an in-place change re-checks, and
   each tensor's ``weakref`` drops it when the operator is freed;
 * each call checks only its vectors (dtype, device, contiguity, shape),
@@ -23,11 +23,12 @@ The host path of a call is kept short, without dropping a check:
   entry in :data:`LAUNCHES` and the CUDA launches it made to
   :data:`CUDA_LAUNCHES`.
 
-The forward step makes two CUDA launches (narrow pass + tail, then the
-wide bucket).  The backward step makes one: :data:`CLUSTER` blocks per
-lane, each holding the lane's whole tail in shared memory, or, for a lane
-too large for that (:func:`lane_local`), a thread-block cluster of them,
-which needs a Hopper card (see the source's note).
+Each half-step makes one CUDA launch of :data:`CLUSTER` blocks per lane,
+each holding the lane's whole tail in shared memory, or, for a lane too
+large for that (:func:`lane_local`), a thread-block cluster of them over
+the stored tail; each block reduces its share of the segments and the wide
+bucket columns of its segments, whole.  Both need a Hopper card (see the
+source's note).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ LAUNCHES = {"structured_forward_step": 0, "structured_backward_step": 0}
 CUDA_LAUNCHES = {"structured_forward_step": 0,
                  "structured_backward_step": 0}
 
-# the backward kernel's block size, its most blocks a lane, the narrow
+# the lane kernels' block size, their most blocks a lane, the narrow
 # entries a thread loads ahead of their gathers and the dynamic shared
 # memory a block may hold (the source's kClusterThreads, kMaxCluster,
 # kGatherBatch and kLaneSmemBytes)
@@ -53,9 +54,9 @@ CLUSTER_THREADS = 512
 MAX_CLUSTER = 16
 GATHER_BATCH = 8
 LANE_SMEM_BYTES = 227 * 1024 - 4 * CLUSTER_THREADS
-# the backward kernel's blocks a lane (a cluster where the lane does not fit
-# a block's shared memory): the fastest of 4, 8 and 16 on the device at the
-# main-path shape (PERF.md)
+# both kernels' blocks a lane (a cluster where the lane does not fit a
+# block's shared memory): the fastest of 4, 8 and 16 on the device at the
+# main-path shape, for each half-step (PERF.md)
 CLUSTER = 16
 
 _F, _I = torch.float32, torch.int32
@@ -75,8 +76,8 @@ class LaneSide(ctypes.Structure):
 
 class Pack:
     """A checked operator side: the struct, its address, the device, the
-    vector shapes a call must bring and (backward) the bucket columns
-    sorted by segment."""
+    vector shapes a call must bring and the bucket columns sorted by
+    segment."""
     __slots__ = ("struct", "addr", "ids", "versions", "refs", "device",
                  "cuda", "dev_index", "k", "v_len", "s_len", "d",
                  "vec_shape", "out_shape", "step_shape", "order",
@@ -96,7 +97,7 @@ def library() -> ctypes.CDLL:
         return _lib
     lib = _build.load("structured_pdhg_step")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.structured_forward_step.argtypes = [p] * 10
+    lib.structured_forward_step.argtypes = [p] * 9 + [i, i, p]
     lib.structured_forward_step.restype = i
     lib.structured_backward_step.argtypes = [p] * 9 + [i, i, p]
     lib.structured_backward_step.restype = i
@@ -110,8 +111,9 @@ def wide_order(wids: torch.Tensor, wval: torch.Tensor, s_len: int):
     """``(wsort [k, D], nreal [k])`` int32: each lane's wide bucket columns
     sorted by the segment they add onto, and how many of them are real.  A
     padded bucket column (id 0, every value 0.0) adds nothing and sorts
-    last, so a lane's real columns, whose ids are distinct, come first in
-    segment order."""
+    last, so a lane's real columns come first in segment order; columns
+    that share a segment sit side by side in column order (the sort is
+    stable), and the kernel adds them onto it in that order."""
     k, d = wids.shape
     real = (wval != 0).any(dim=1)                                  # [k, D]
     cols = torch.arange(d, device=wids.device)
@@ -156,29 +158,27 @@ def _dropper(key):
     return lambda _ref: pop(key, None)
 
 
-def side_pack(name, side, v_len: int, with_order: bool) -> Pack:
-    """The checked, packed operator side, from the cache while its tensors
-    live unmodified; ``v_len`` is the length of the lane vectors the side
-    gathers from, ``with_order`` adds the sorted bucket columns the
-    backward kernel reads."""
+def side_pack(name, side, v_len: int) -> Pack:
+    """The checked, packed operator side with its sorted bucket columns,
+    from the cache while its tensors live unmodified; ``v_len`` is the
+    length of the lane vectors the side gathers from."""
     key = id(side[0])
     p = _packs.get(key)
     if (p is not None and p.ids == tuple(map(id, side))
             and p.versions == tuple([t._version for t in side])
-            and p.v_len == v_len and (p.order is not None or not with_order)):
+            and p.v_len == v_len):
         return p
     _check_side(name, side, v_len)
     idx, val, widx, wval, wids = side
     k, w, s_len = idx.shape
     ww, d = widx.shape[1:]
     p = Pack()
-    p.order = wide_order(wids, wval, s_len) if with_order else None
-    wsort, nreal = p.order if with_order else (None, None)
-    ptr = lambda t: 0 if t is None else t.data_ptr()
+    p.order = wide_order(wids, wval, s_len)
+    wsort, nreal = p.order
     p.struct = LaneSide(
         idx.data_ptr(), val.data_ptr(), widx.data_ptr(), wval.data_ptr(),
-        wids.data_ptr(), ptr(wsort), ptr(nreal), k, v_len, s_len, w, ww, d,
-        0)
+        wids.data_ptr(), wsort.data_ptr(), nreal.data_ptr(), k, v_len,
+        s_len, w, ww, d, 0)
     p.addr = ctypes.addressof(p.struct)
     p.ids = tuple(map(id, side))
     p.versions = tuple([t._version for t in side])
@@ -241,14 +241,15 @@ def forward_checks(s, x, c, l, u, tau, kty):
     """(pack, vector pointers) of a forward call."""
     name = "structured_forward_step"
     p = side_pack(name, (s.row_idx, s.row_val, s.wrow_idx, s.wrow_val,
-                         s.wrow_ids), s.col_idx.shape[-1], False)
+                         s.wrow_ids), s.col_idx.shape[-1])
     return p, vector_ptrs(name, p, (x, c, l, u, kty, tau), (_F,) * 6)
 
 
-def forward_call(p, ptrs, x_new, kx):
+def forward_call(p, ptrs, x_new, kx, cluster):
     lib = library()
     err = lib.structured_forward_step(
-        p.addr, *ptrs, x_new.data_ptr(), kx.data_ptr(), _stream(p))
+        p.addr, *ptrs, x_new.data_ptr(), kx.data_ptr(), cluster,
+        int(lane_local(p)), _stream(p))
     if err != 0:
         _raise(lib, "structured_forward_step", err)
     LAUNCHES["structured_forward_step"] += 1
@@ -267,7 +268,7 @@ def structured_forward_step(s, x, c, l, u, tau, kty):
     StructuredOperator); x/c/l/u/kty [k, N] f32, tau [k] f32."""
     p, ptrs = forward_checks(s, x, c, l, u, tau, kty)
     x_new, kx = forward_alloc(p, x)
-    forward_call(p, ptrs, x_new, kx)
+    forward_call(p, ptrs, x_new, kx, CLUSTER)
     return x_new, kx
 
 
@@ -278,15 +279,16 @@ def backward_checks(s, y, q, sigma, ineq_mask, kx_new, kx_prev):
         raise ValueError(f"{name}: ineq_mask must be bool, got "
                          f"{ineq_mask.dtype}")
     p = side_pack(name, (s.col_idx, s.col_val, s.wcol_idx, s.wcol_val,
-                         s.wcol_ids), s.row_idx.shape[-1], True)
+                         s.wcol_ids), s.row_idx.shape[-1])
     return p, vector_ptrs(name, p, (y, q, ineq_mask, kx_new, kx_prev, sigma),
                           (_F, _F, torch.bool, _F, _F, _F))
 
 
 def lane_local(p: Pack) -> bool:
-    """The backward kernel's shape rule: a lane whose M rows of tail fit a
-    block's shared memory takes the instance whose blocks each hold the
-    whole tail; a larger lane takes the cluster instance."""
+    """The lane kernels' shape rule: a lane whose tail (``v_len`` entries:
+    N forward, M backward) fits a block's shared memory takes the instance
+    whose blocks each hold the whole tail; a larger lane takes the cluster
+    instance."""
     return 4 * p.v_len <= LANE_SMEM_BYTES
 
 

@@ -182,6 +182,32 @@ def ragged_operator(coef_dtype: str = "float32", **kw):
     return pdhg.map_arrays(lambda a: a[None], s)
 
 
+def shared_segment_operator(M: int = 500, N: int = 700, n_wide: int = 6,
+                            seed: int = 14):
+    """A single-lane (``[1, ...]``) :class:`StructuredOperator` (CPU) of
+    random sparse entries plus ``n_wide`` rows over 300 columns each and
+    ``n_wide`` columns over 300 rows each (``n_wide`` real bucket columns
+    on each side), whose second and third bucket columns on each side are
+    then sent onto the first one's segment: three bucket columns add onto
+    one segment, as the plain version's ``index_add_`` allows."""
+    from .core import pdhg
+    rng = np.random.default_rng(seed)
+    rows, cols = [rng.integers(0, M, 4000)], [rng.integers(0, N, 4000)]
+    for d in range(n_wide):
+        rows += [np.full(300, 7 * d), rng.integers(0, M, 300)]
+        cols += [rng.choice(N, 300, replace=False), np.full(300, 11 * d)]
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    s = pdhg.structured_from_coo(rows, cols, rng.normal(size=rows.size),
+                                 M, N)
+    s = pdhg.map_arrays(lambda a: a[None], s)
+    ids = {}
+    for name in ("wrow_ids", "wcol_ids"):
+        wids = getattr(s, name).clone()
+        wids[0, 1:3] = wids[0, 0]
+        ids[name] = wids
+    return s._replace(**ids)
+
+
 def random_dense_lps(k: int, n: int, mi: int, seed: int = 0) -> list:
     """``[(c, G, h)]``, float64 numpy, of ``k`` random bounded-feasible LPs
     ``min c x, G x <= h, 0 <= x <= 1`` (``h`` leaves slack at an interior

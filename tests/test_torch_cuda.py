@@ -374,7 +374,7 @@ def test_cuda_backward_lane_beyond_shared_memory(cuda_device):
     name = "structured_backward_step"
     pack = structured_pdhg_step.side_pack(
         name, (s.col_idx, s.col_val, s.wcol_idx, s.wcol_val, s.wcol_ids),
-        M, True)
+        M)
     assert not structured_pdhg_step.lane_local(pack)
     o = testing.step_tensors(s, cuda_device, seed=3)
     before = structured_pdhg_step.CUDA_LAUNCHES[name]
@@ -458,7 +458,7 @@ def test_cuda_full_scratch_is_kept_per_stream(cuda_device):
     side = (s.row_idx, s.row_val, s.row_scale, s.wrow_idx, s.wrow_val,
             s.wrow_scale, s.row_fold)
     pack = structured_full_pdhg_step.side_pack(
-        "t", side, s.col_idx.shape[-1], rplan, 4)
+        "t", side, s.col_idx.shape[-1], rplan)
     got = []
     for _ in range(2):
         got.append(_full_forward(s, o, rplan, "kernel"))
@@ -522,6 +522,227 @@ def test_cuda_redesigned_wrappers_reject_bad_operands(cuda_device):
     bad_op = f._replace(row_idx=f.row_idx.cpu())
     with pytest.raises(ValueError, match="contiguous"):
         _full_forward(bad_op, fo, rplan, "kernel")
+
+
+# --------------------------------------------------------------------------
+# the kernels redesigned next: structured_forward_step (one launch, the
+# lanes: each block holds the lane's tail) and
+# structured_full_backward_step (one cooperative launch that stops at each
+# column group's stored width)
+# --------------------------------------------------------------------------
+
+def _forward(s, o, backend):
+    return ops.structured_forward_step(s, o["x"], o["c"], o["l"], o["u"],
+                                       o["tau"], o["kty"], backend=backend)
+
+
+def _full_backward(s, o, plan, backend):
+    return ops.structured_full_backward_step(
+        s, o["y"], o["q"], o["sigma"], o["mask"], o["kxn"], o["kxp"],
+        plan=plan, backend=backend)
+
+
+def _one_launch_matches_plain(mod, name, step, repeats=3):
+    """``step(backend)`` on the kernel: one CUDA launch, the tail bit-equal
+    to the plain version's, the product within 1e-4, and bit-for-bit the
+    same over ``repeats`` more calls."""
+    before = mod.CUDA_LAUNCHES[name]
+    got = [v.cpu().numpy() for v in step("kernel")]
+    assert mod.CUDA_LAUNCHES[name] == before + 1
+    want = [v.cpu().numpy() for v in step("ref")]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], **PRODUCT_TOL)
+    for _ in range(repeats):
+        again = [v.cpu().numpy() for v in step("kernel")]
+        for u, v in zip(got, again):
+            np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", ["shared", "cluster"])
+@pytest.mark.parametrize("cluster", [4, 8, 16])
+@pytest.mark.parametrize("case", sorted(LANE_CASES))
+def test_cuda_forward_kernel(case, cluster, instance, cuda_device,
+                             monkeypatch):
+    """Both instances of the forward kernel (the lane's tail in each
+    block's shared memory; a cluster over the stored tail) at every block
+    count: the tail bit-equal, the product within 1e-4, one CUDA launch
+    per call, bit-for-bit the same over repeated calls (no atomics)."""
+    monkeypatch.setattr(structured_pdhg_step, "CLUSTER", cluster)
+    monkeypatch.setattr(structured_pdhg_step, "lane_local",
+                        lambda p: instance == "shared")
+    s = pdhg.to_device(LANE_CASES[case](), cuda_device)
+    o = testing.step_tensors(s, cuda_device, seed=5)
+    _one_launch_matches_plain(structured_pdhg_step,
+                              "structured_forward_step",
+                              lambda be: _forward(s, o, be))
+
+
+@pytest.mark.cuda
+def test_cuda_forward_lane_beyond_shared_memory(cuda_device):
+    """A lane of 250,000 columns (a tail of 1 MB, beyond a block's shared
+    memory) takes the cluster instance: right, in one launch, and
+    deterministic; a row holding every column goes to the wide bucket."""
+    rng = np.random.default_rng(12)
+    M, N = 3_000, 250_000
+    cols = np.concatenate([rng.integers(0, N, 600_000), np.arange(N)])
+    rows = np.concatenate([rng.integers(0, M, 600_000),
+                           np.full(N, 7)])          # a row over every column
+    s = pdhg.structured_from_coo(rows, cols, rng.normal(size=rows.size),
+                                 M, N)
+    s = pdhg.to_device(pdhg.map_arrays(lambda a: a[None], s), cuda_device)
+    assert s.wrow_idx.shape[-2] >= N
+    name = "structured_forward_step"
+    pack = structured_pdhg_step.side_pack(
+        name, (s.row_idx, s.row_val, s.wrow_idx, s.wrow_val, s.wrow_ids), N)
+    assert pack.v_len > 57_600 and not structured_pdhg_step.lane_local(pack)
+    o = testing.step_tensors(s, cuda_device, seed=3)
+    _one_launch_matches_plain(structured_pdhg_step, name,
+                              lambda be: _forward(s, o, be), repeats=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_cuda_forward_lane_of_many_bucket_rows(cluster, cuda_device,
+                                               monkeypatch):
+    """A lane of 12,500 wide bucket rows (each block reduces the rows it
+    owns, whole, many tiles of them): each row's sum added once, right, in
+    one launch, and deterministic."""
+    monkeypatch.setattr(structured_pdhg_step, "CLUSTER", cluster)
+    rng = np.random.default_rng(13)
+    n_wide, depth, n_narrow, N = 12_500, 40, 40_000, 30_000
+    rows = np.concatenate([np.repeat(np.arange(n_wide), depth),
+                           n_wide + np.arange(n_narrow)])
+    cols = rng.integers(0, N, rows.size)
+    s = pdhg.structured_from_coo(rows, cols, rng.normal(size=rows.size),
+                                 n_wide + n_narrow, N)
+    s = pdhg.to_device(pdhg.map_arrays(lambda a: a[None], s), cuda_device)
+    assert s.wrow_idx.shape[-1] >= n_wide
+    o = testing.step_tensors(s, cuda_device, seed=3)
+    _one_launch_matches_plain(structured_pdhg_step,
+                              "structured_forward_step",
+                              lambda be: _forward(s, o, be), repeats=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", ["shared", "cluster"])
+@pytest.mark.parametrize("name", ["structured_forward_step",
+                                  "structured_backward_step"])
+def test_cuda_lane_kernels_add_bucket_columns_that_share_a_segment(
+        name, instance, cuda_device, monkeypatch):
+    """Three real wide bucket columns of one segment all add onto it (the
+    plain version's ``index_add_``), in one launch, deterministically, in
+    either instance, at a block count that puts several columns in one
+    tile."""
+    monkeypatch.setattr(structured_pdhg_step, "CLUSTER", 4)
+    monkeypatch.setattr(structured_pdhg_step, "lane_local",
+                        lambda p: instance == "shared")
+    s = pdhg.to_device(testing.shared_segment_operator(), cuda_device)
+    o = testing.step_tensors(s, cuda_device, seed=6)
+    step = _forward if name == "structured_forward_step" else _backward
+    _one_launch_matches_plain(structured_pdhg_step, name,
+                              lambda be: step(s, o, be))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coef_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", sorted(FULL_CASES))
+def test_cuda_full_backward_cooperative_kernel(case, coef_dtype,
+                                               cuda_device):
+    """The cooperative backward kernel, its narrow reduce stopping at each
+    column group's stored width: the tail bit-equal, the product within
+    1e-4, one CUDA launch, bit-for-bit the same over repeated calls."""
+    s = pdhg.to_device(FULL_CASES[case](coef_dtype), cuda_device)
+    o = testing.step_tensors(s, cuda_device, seed=4)
+    _, cplan = pdhg._wide_block_plans(s)
+    _one_launch_matches_plain(
+        structured_full_pdhg_step, "structured_full_backward_step",
+        lambda be: _full_backward(s, o, cplan, be))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["traffic_small", "traffic_kdl_600"])
+def test_cuda_full_backward_empty_bucket_launches_no_tile(case,
+                                                          cuda_device):
+    """A column bucket no column folds onto (traffic engineering's) is
+    laid out with no tile: one launch without the wide pass or the fold
+    phase, the plain version's result."""
+    s = pdhg.to_device(FULL_CASES[case](), cuda_device)
+    o = testing.step_tensors(s, cuda_device, seed=8)
+    _, cplan = pdhg._wide_block_plans(s)
+    side = (s.col_idx, s.col_val, s.col_scale, s.wcol_idx, s.wcol_val,
+            s.wcol_scale, s.col_fold)
+    pack = structured_full_pdhg_step.side_pack(
+        "structured_full_backward_step", side, s.row_idx.shape[-1], cplan)
+    assert not pack.has_wide and pack.struct.n_tiles == 0
+    _one_launch_matches_plain(
+        structured_full_pdhg_step, "structured_full_backward_step",
+        lambda be: _full_backward(s, o, cplan, be), repeats=1)
+
+
+@pytest.mark.cuda
+def test_cuda_full_backward_skips_stored_zeros_and_padding(cuda_device):
+    """Columns whose stored entries end in explicit zero coefficients and
+    groups of very different widths: the width table stops each group at
+    its last nonzero, and the result is the plain version's."""
+    rng = np.random.default_rng(21)
+    M, N = 5_000, 4_099
+    counts = rng.integers(1, 60, N)
+    cols = np.repeat(np.arange(N), counts)
+    rows = rng.integers(0, M, cols.size)
+    vals = rng.normal(size=cols.size)
+    vals[rng.random(cols.size) < 0.2] = 0.0       # stored zeros, kept
+    s32 = _one_lane(pdhg.structured_from_coo(rows, cols, vals, M, N))
+    for dt in ("float32", "bfloat16", "int8"):
+        s = pdhg.to_device(pdhg.quantize_structured(s32, dt), cuda_device)
+        o = testing.step_tensors(s, cuda_device, seed=2)
+        _, cplan = pdhg._wide_block_plans(s)
+        _one_launch_matches_plain(
+            structured_full_pdhg_step, "structured_full_backward_step",
+            lambda be: _full_backward(s, o, cplan, be), repeats=1)
+
+
+@pytest.mark.cuda
+def test_cuda_next_redesigned_wrappers_reject_bad_operands(cuda_device):
+    """The lane forward and full backward wrappers raise before launch on
+    a non-contiguous, wrong-dtype, wrong-device or wrong-shape operand."""
+    s = pdhg.to_device(_gavel(), cuda_device)
+    o = testing.step_tensors(s, cuda_device, seed=1)
+    k, n = o["x"].shape
+    strided = torch.empty((n, k), device=cuda_device).t()
+    strided.copy_(o["x"])
+    for bad_x in (strided, o["x"].double(), o["x"].cpu()):
+        with pytest.raises(ValueError, match="contiguous CUDA"):
+            structured_pdhg_step.structured_forward_step(
+                s, bad_x, o["c"], o["l"], o["u"], o["tau"], o["kty"])
+    with pytest.raises(ValueError, match="shapes"):
+        _forward(s, dict(o, x=o["x"][:, :-1]), None)
+    bad_op = s._replace(row_val=s.row_val.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        _forward(bad_op, o, "kernel")
+
+    f = pdhg.to_device(testing.ragged_operator(), cuda_device)
+    fo = testing.step_tensors(f, cuda_device, seed=1)
+    _, cplan = pdhg._wide_block_plans(f)
+    m = fo["y"].shape[1]
+    strided = torch.empty((1, 2 * m), device=cuda_device)[:, ::2]
+    strided.copy_(fo["y"])
+    for bad_y in (strided, fo["y"].double(), fo["y"].cpu()):
+        with pytest.raises(ValueError, match="contiguous CUDA"):
+            structured_full_pdhg_step.structured_full_backward_step(
+                f, bad_y, fo["q"], fo["sigma"], fo["mask"], fo["kxn"],
+                fo["kxp"], cplan)
+    with pytest.raises(ValueError, match="bool"):
+        _full_backward(f, dict(fo, mask=fo["mask"].to(torch.uint8)), cplan,
+                       "kernel")
+    with pytest.raises(ValueError, match="one lane"):
+        _full_backward(f, dict(fo, y=fo["y"][:, :-1]), cplan, "kernel")
+    with pytest.raises(ValueError, match="plan"):
+        _full_backward(f, fo, cplan[1:], "kernel")
+    bad_fold = f._replace(col_fold=f.col_fold.clone())
+    bad_fold.col_fold[0, 0] = f.wcol_idx.shape[-1] + 1
+    with pytest.raises(ValueError, match="fold map"):
+        _full_backward(bad_fold, fo, cplan, "kernel")
 
 
 # --------------------------------------------------------------------------
