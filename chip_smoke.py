@@ -57,38 +57,44 @@ Phases, each of which must pass:
              reference's ragged kernel-test shapes, f32 and (for the
              matvecs) bf16 coefficients; each with its time beside the
              plain version's, one ``torch.bmm`` of the same product (plus
-             the tail in torch for the half-steps) and the bound;
-11. dense    the main path's k=8 Gavel stack densified
+             the tail in torch for the half-steps, timed in turns) and the
+             bound;
+11. redesign-dense the redesigned matvecs' device times under the
+             profiler at the densified stack, f32 and bf16 A, in turns
+             with ``torch.bmm``, each one CUDA launch a call and
+             bit-for-bit the same twice, beside the earlier design's;
+12. dense    the main path's k=8 Gavel stack densified
              (``pdhg.structured_to_dense``) through ``backends.solve_map(
              engine="auto")``, which must take the ``fused`` engine: the
              launch counts against the count the code predicts, a fixed
              budget against ``fused_structured`` on the same stack, a solve
              at the Gavel defaults (every lane converges, fairness within
              1e-3 of the structured path's solve of the same instance), and
-             a profiled fixed budget;
-12. dense-sweep ``fused`` against ``matvec`` on random dense LP stacks
+             a profiled fixed budget; one CUDA launch a matvec call, and
+             fairness within 1e-4 of the earlier design's;
+13. dense-sweep ``fused`` against ``matvec`` on random dense LP stacks
              [k, 256, 256], k = 1..32 (the reference's engine sweep,
              ``benchmarks/bench_pop_scaling.py``), a fixed budget of 2,000
              iterations: equal iterations, times, the engines' distance;
-13. solve-dense ``pdhg.solve_dense`` at the reference's ``pdhg_vs_scipy``
+14. solve-dense ``pdhg.solve_dense`` at the reference's ``pdhg_vs_scipy``
              size against scipy's HiGHS, at the reference test's bounds.
 
-The kernels' launch counts (calls and, for the structured kernels, the
-CUDA launches the calls made, printed per half-step on the ``[launches]``
-lines) are set to 0 just before each path and read just after it: the
-lane kernels' over the main path; the full kernels' over each of the
-traffic f32 solve (the count the JSON line reports), the
-int8 solve, the fixed-budget kernel run and the Gavel full solve; the
-dense kernels' over the dense path's Gavel-defaults solve (the count the
-JSON line reports) and its fixed budget.  Prints
-one JSON line of kernel results, then the
-card line, and as the last line ``{"ok": true, "device": {...}}``.  Exits
-nonzero, printing no result, without a CUDA device or outside the
-repository.
+The kernels' launch counts (calls and, for the structured kernels and the
+matvecs, the CUDA launches the calls made, printed per call on the
+``[launches]`` lines) are set to 0 just before each path and read just
+after it: the lane kernels' over the main path; the full kernels' over
+each of the traffic f32 solve (the count the JSON line reports), the int8
+solve, the fixed-budget kernel run and the Gavel full solve; the dense
+kernels' over the dense path's Gavel-defaults solve (the count the JSON
+line reports) and its fixed budget.  Prints one JSON line of kernel
+results, then the card line, and as the last line ``{"ok": true,
+"device": {...}}``.  Exits nonzero, printing no result, without a CUDA
+device or outside the repository.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -176,7 +182,24 @@ EARLIER_MS = {
     "structured_backward_step": (0.0450, 0.0056, 0.0252),
     "structured_full_forward_step": (0.0831, 0.0316, 0.0399),
     "structured_full_backward_step": (0.0604, 0.0258, 0.0477),
+    # the dense matvecs before their redesign to a stream of whole-row
+    # slabs (the last whole run of the earlier design, PERF.md section 6),
+    # at the densified stack [8, 4,099, 6,145], f32 and bf16 A, the
+    # library call torch.bmm; no device time was taken in bf16
+    ("bmatvec", "float32"): (0.2810, 0.2799, 0.2791),
+    ("bmatvec_t", "float32"): (0.3152, 0.3097, 0.3102),
+    ("bmatvec", "bfloat16"): (0.2267, None, 0.1658),
+    ("bmatvec_t", "bfloat16"): (0.1806, None, 0.1770),
 }
+STRUCTURED_NAMES = ("structured_forward_step", "structured_backward_step",
+                    "structured_full_forward_step",
+                    "structured_full_backward_step")
+MATVEC_NAMES = ("bmatvec", "bmatvec_t")
+# the dense path's Gavel-defaults solve before the matvecs' redesign:
+# mean_norm_throughput, held within DENSE_MEAN_TOL (the power iteration
+# sums in another order now, so its iterations may move)
+DENSE_MEAN_EARLIER = 0.414357
+DENSE_MEAN_TOL = 1e-4
 # the redesigned kernels: the lane kernels' block counts and the forward
 # full kernel's single and two-launch variants measured, calls per
 # profiled window, calls per piece of the host breakdown
@@ -306,14 +329,24 @@ def host_breakdown(name, total, direct, checks, alloc, call, stream):
     return t
 
 
-def old_new(name: str, ms: float, dev, library_ms: float) -> str:
-    """This run's numbers of a structured kernel beside the earlier
-    design's."""
+def _median(values):
+    """The median of the measured values (None: not measured)."""
+    got = sorted(v for v in values if v is not None)
+    return got[len(got) // 2] if got else None
+
+
+def _ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def old_new(name, ms: float, dev, library_ms: float,
+            library: str = "torch.sparse CSR") -> str:
+    """This run's numbers of a redesigned kernel beside the earlier
+    design's (``name`` a key of :data:`EARLIER_MS`)."""
     old = EARLIER_MS[name]
-    dev_s = "not measured" if dev is None else f"{dev:.4f}"
-    return (f"ms with host {ms:.4f} (earlier: {old[0]:.4f}), device ms "
-            f"{dev_s} (earlier: {old[1]:.4f}), torch.sparse CSR "
-            f"{library_ms:.4f} (earlier: {old[2]:.4f})")
+    return (f"ms with host {_ms(ms)} (earlier: {_ms(old[0])}), device ms "
+            f"{_ms(dev)} (earlier: {_ms(old[1])}), {library} "
+            f"{_ms(library_ms)} (earlier: {_ms(old[2])})")
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -931,10 +964,10 @@ KERNEL_NAMES = {
     "fused_backward_step": (
         "DualTail>", ("dense_cols_kernel", "dense_chunk_sum_kernel"),
         "dense_cols_kernel"),
-    "bmatvec": ("PlainVec>", ("dense_rows_kernel",), "dense_rows_kernel"),
-    "bmatvec_t": (
-        "PlainVec>", ("dense_cols_kernel", "dense_chunk_sum_kernel"),
-        "dense_cols_kernel"),
+    "bmatvec": ("matvec_rows_kernel", ("matvec_rows_kernel",),
+                "matvec_rows_kernel"),
+    "bmatvec_t": ("matvec_cols_kernel", ("matvec_cols_kernel",),
+                  "matvec_cols_kernel"),
 }
 
 
@@ -1299,15 +1332,17 @@ def dense_library(A, o):
 
 def time_dense(tag, A, o, names):
     """{kernel: (ms, plain_ms, library_ms, bound_ms, bound_by)} of the named
-    dense kernels at A's shape, each printed."""
+    dense kernels at A's shape, each printed; the kernel and its library
+    call timed in turns."""
     k, M, N = A.shape
     work = dense_bytes_ops(k, M, N, A.element_size())
     calls, library = dense_calls(A, o), dense_library(A, o)
     out = {}
     for name in names:
-        ms = event_ms(lambda: calls[name]("kernel"), reps=100)
+        paired = turns_ms({"kernel": lambda: calls[name]("kernel"),
+                           "library": library[name]})
+        ms, library_ms = paired["kernel"], paired["library"]
         plain_ms = event_ms(lambda: calls[name]("ref"), reps=50)
-        library_ms = event_ms(library[name], reps=100)
         bound_ms, bound_by = bound(*work[name])
         out[name] = (ms, plain_ms, library_ms, bound_ms, bound_by)
         log(f"[kernels-dense] {name} at {tag}, per call: kernel {ms:.4f} ms, "
@@ -1365,8 +1400,8 @@ def phase_kernels_dense(device, dense_ops):
     o = cases["densified"][1]
     times = time_dense(f"the densified stack {tuple(A.shape)} f32", A, o,
                        DENSE_NAMES)
-    time_dense(f"the densified stack {tuple(A.shape)} bf16",
-               A.to(torch.bfloat16), o, DENSE_NAMES[2:])
+    times_bf16 = time_dense(f"the densified stack {tuple(A.shape)} bf16",
+                            A.to(torch.bfloat16), o, MATVEC_NAMES)
     a, o_s = cases["(32, 256, 256)"]
     time_dense("the sweep shape (32, 256, 256) f32", a, o_s, DENSE_NAMES)
     records = {}
@@ -1377,7 +1412,61 @@ def phase_kernels_dense(device, dense_ops):
             replaces=REPLACES[name], launches=0, max_abs_err=max_err[name],
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms, device_ms=None)
+    for name in MATVEC_NAMES:
+        ms, plain_ms, library_ms, bound_ms, _ = times_bf16[name]
+        records[name]["bfloat16"] = dict(ms=ms, plain_ms=plain_ms,
+                                         library_ms=library_ms,
+                                         bound_ms=bound_ms)
     return records
+
+
+def phase_redesign_dense(dense_ops, records):
+    """The redesigned matvecs' device times under the profiler at the
+    densified stack, f32 and bf16 A, each in turns with torch.bmm of the
+    same product (kernel, bmm, bmm, kernel, kernel, bmm; the median of
+    each three, all three printed): one CUDA launch a call and bit-for-bit
+    the same twice; this run's numbers beside the earlier design's."""
+    from repro_torch.kernels import pdhg_matvec as mv
+    A32 = dense_ops.data[0]
+    k, M, N = A32.shape
+    o = dense_tensors(k, M, N, A32.device)
+    for dt in (torch.float32, torch.bfloat16):
+        A = A32 if dt == torch.float32 else A32.to(dt)
+        vec = {"bmatvec": o["x"], "bmatvec_t": o["y"]}
+        cast = {name: v.to(dt) for name, v in vec.items()}
+        library = {
+            "bmatvec": lambda: torch.bmm(A, cast["bmatvec"][:, :, None]),
+            "bmatvec_t": lambda: torch.bmm(cast["bmatvec_t"][:, None, :], A)}
+        dt_name = str(dt)[6:]
+        for name in MATVEC_NAMES:
+            kernel = functools.partial(getattr(mv, name), A, vec[name])
+            zero_launches(mv)
+            first = kernel()
+            again = kernel()
+            torch.cuda.synchronize()
+            check(per_half_step(mv)[name] == 1,
+                  f"{name} {dt_name}: {per_half_step(mv)[name]} CUDA "
+                  "launches a call")
+            check(bool(torch.equal(first, again)),
+                  f"{name} {dt_name} is not deterministic")
+            dev = {"kernel": [], "library": []}
+            for who in ("kernel", "library", "library", "kernel", "kernel",
+                        "library"):
+                dev[who].append(device_ms(kernel if who == "kernel"
+                                          else library[name], calls=50))
+            best = {who: _median(vals) for who, vals in dev.items()}
+            log(f"[redesign] {name} {dt_name}: device ms of the three "
+                f"turns {dev}")
+            r = (records[name] if dt == torch.float32
+                 else records[name][dt_name])
+            r["device_ms_alone"] = best["kernel"]
+            r["library_device_ms"] = best["library"]
+            log(f"[redesign] {name} {dt_name} at {tuple(A.shape)}: "
+                + old_new((name, dt_name), r["ms"], best["kernel"],
+                          r["library_ms"], "torch.bmm")
+                + f"; torch.bmm device ms {_ms(best['library'])}, bound "
+                f"{r['bound_ms']:.5f}, 1 CUDA launch a call")
+        del A
 
 
 def phase_dense(device, prob, prep, dense_ops):
@@ -1434,14 +1523,23 @@ def phase_dense(device, prob, prep, dense_ops):
             f"iteration), mean_norm_throughput "
             f"{mm['mean_norm_throughput']:.6f}, min_norm_throughput "
             f"{mm['min_norm_throughput']:.6f}")
-    log(f"[dense] launches {launched}, predicted {predicted}")
+    from repro_torch.kernels import pdhg_matvec
+    per_call = per_half_step(pdhg_matvec)
+    log(f"[dense] launches {launched}, predicted {predicted}; CUDA "
+        f"launches per matvec call {per_call}")
     check(launched == predicted, "dense launches differ from the prediction")
+    check(all(v == 1 for v in per_call.values()),
+          f"matvec CUDA launches per call {per_call}")
     check(r.alloc.shape == (N_JOBS,) and np.isfinite(r.alloc).all(),
           "dense allocation not finite")
     check(conv.all(), f"{int((~conv).sum())} dense lane(s) did not converge")
     d_mean = abs(m["mean_norm_throughput"] - m_s["mean_norm_throughput"])
     check(d_mean <= 1e-3, f"dense mean_norm_throughput differs from the "
           f"structured path's by {d_mean}")
+    d_earlier = abs(m["mean_norm_throughput"] - DENSE_MEAN_EARLIER)
+    check(d_earlier <= DENSE_MEAN_TOL, f"dense mean_norm_throughput "
+          f"differs from the earlier design's {DENSE_MEAN_EARLIER} by "
+          f"{d_earlier}")
 
     fixed = dict(kw, max_iters=DENSE_FIXED_ITERS, tol_primal=0.0, tol_gap=0.0)
     for mod in dense_mods():
@@ -1597,6 +1695,7 @@ def main() -> int:
                                       device)
         records.update(phase("kernels-dense", phase_kernels_dense, device,
                              dense_ops))
+        phase("redesign-dense", phase_redesign_dense, dense_ops, records)
         dense_launched, dense_ms = phase("dense", phase_dense, device, prob,
                                          prep, dense_ops)
         phase("dense-sweep", phase_dense_sweep, device)
@@ -1615,7 +1714,7 @@ def main() -> int:
     for name, n in launches.items():
         records[name]["launches"] = n
         records[name]["device_ms"] = profiled_ms.get(name)
-    for name in EARLIER_MS:
+    for name in STRUCTURED_NAMES:
         r = records[name]
         log(f"[redesign] {name}: " + old_new(name, r["ms"], r["device_ms"],
                                               r["library_ms"])

@@ -1,6 +1,6 @@
 // Dense batched products over A [k, M, N] (f32 or bf16 coefficients, f32
-// accumulation), shared by the matvec kernels (pdhg_matvec.cu) and the fused
-// PDHG half-steps (fused_pdhg_step.cu).
+// accumulation) of the fused PDHG half-steps (fused_pdhg_step.cu).  The
+// plain matvecs stream A their own way (pdhg_matvec.cu).
 //
 // What bounds them on this card: bytes.  Each product reads A once and does
 // 2 flops per element, 0.5 flop per byte in f32, far below the H100's
@@ -45,16 +45,6 @@ constexpr int kColUnroll = 8;
 // 16-byte loads each lane of the row pass issues before their FMAs
 constexpr int kRowUnroll = 4;
 
-// w[i] read from a plain lane vector (the non-fused products)
-struct PlainVec {
-  const float* v;
-
-  __device__ PlainVec lane(int b, int64_t v_len) const {
-    return {v + (int64_t)b * v_len};
-  }
-  __device__ __forceinline__ float operator()(int64_t i) const { return v[i]; }
-};
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -78,8 +68,7 @@ __device__ __forceinline__ void unpack(const uint4& raw, float (&f)[8]) {
 }
 
 // out[b, m] = sum_n A[b, m, n] * v[b, n]: one warp per row.  (Tail only
-// names the instance, so a profile tells the fused forward step's product
-// from the plain matvec's.)
+// names the instance in a profile.)
 template <class T, class Tail>
 __global__ void __launch_bounds__(kThreads)
 dense_rows_kernel(const T* __restrict__ A, const float* __restrict__ v,
@@ -129,8 +118,8 @@ dense_rows_kernel(const T* __restrict__ A, const float* __restrict__ v,
 }
 
 // dst[b, chunk, n] = sum over the chunk's rows m of A[b, m, n] * w(m), where
-// w is the lane's row vector: read (PlainVec) or the dual tail (DualTail),
-// staged once per block in shared memory.  With v_new non-null, the blocks of
+// w is the lane's row vector, the dual tail (DualTail), staged once per
+// block in shared memory.  With v_new non-null, the blocks of
 // the first column tile also store w to v_new (each row exactly once).
 template <class T, class Src>
 __global__ void __launch_bounds__(kThreads)
@@ -235,7 +224,8 @@ int cols_product(const T* A, Src w, float* v_new, float* part, float* out,
   return cudaGetLastError();
 }
 
-// coefficient storage codes the wrappers pass (kernels/pdhg_matvec.py)
+// coefficient storage codes the wrappers pass (kernels/pdhg_matvec.py's
+// COEF)
 enum CoefType { kF32 = 0, kBF16 = 1 };
 
 }  // namespace dense

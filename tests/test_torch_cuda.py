@@ -810,12 +810,136 @@ def test_cuda_dense_kernels_match_plain_versions(shape, dtype, offset,
 
 @pytest.mark.cuda
 def test_cuda_dense_kernels_are_deterministic(cuda_device):
-    """The column pass adds its M chunks in a fixed order (no atomics)."""
+    """The fused column pass adds its M chunks in a fixed order, and
+    bmatvec_t its blocks' partials in block order (no atomics)."""
     A, o = _dense_operands((3, 2_000, 700), "float32", cuda_device, seed=4)
     assert pdhg_matvec.col_chunks(3, 2_000, 700)[1] > 1
+    assert pdhg_matvec.stream_plan(3, 2_000, 700, transposed=True).blocks > 1
     a, b = _dense_steps(A, o, "kernel"), _dense_steps(A, o, "kernel")
     for u, v in zip(a, b):
         np.testing.assert_array_equal(u, v)
+
+
+# the matvec stream's own cases: a row longer than a stage (several column
+# slabs, and bmatvec_t's blocks of 32 rows), lanes split over many blocks,
+# k = 1, M = 1, more lanes than the grid's blocks, bmatvec_t's f32 blocks
+# taking interleaved chunks of rows
+STREAM_SHAPES = [(1, 64, 80_000), (2, 1_000, 300), (1, 500, 700),
+                 (4, 1, 1_000), (300, 5, 7), (8, 4_099, 97),
+                 (2, 3_000, 4_000)]
+
+
+def _matvecs(A, o, backend):
+    return (ops.bmatvec(A, o["x"], backend=backend),
+            ops.bmatvec_t(A, o["y"], backend=backend))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", STREAM_SHAPES, ids=str)
+def test_cuda_matvec_stream_cases(shape, dtype, offset, cuda_device):
+    """Both matvecs against their plain versions where the stream's plan
+    takes its other branches, each in one CUDA launch a call."""
+    k, m, n = shape
+    A, o = _dense_operands(shape, dtype, cuda_device, offset=offset)
+    before = dict(pdhg_matvec.CUDA_LAUNCHES)
+    got = [v.cpu().numpy() for v in _matvecs(A, o, "kernel")]
+    torch.cuda.synchronize()
+    want = [v.cpu().numpy() for v in _matvecs(A, o, "ref")]
+    tol = PRODUCT_TOL if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, **tol)
+    assert {name: n_ - before[name] for name, n_ in
+            pdhg_matvec.CUDA_LAUNCHES.items()} == {"bmatvec": 1,
+                                                   "bmatvec_t": 1}
+
+
+def _device_operands(shape, dtype, device, seed):
+    """A [k, M, N] in ``dtype``, x [k, N] and y [k, M], drawn on the card
+    (the large shapes would take seconds to draw on the host); A is
+    scaled by 1/sqrt(N), so that the products stay near 1 and the f32
+    rounding of a sum of 30,000 terms (about 1e-3 at unit entries) stays
+    below the 1e-4 product tolerance."""
+    k, m, n = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    A = (torch.randn(shape, generator=g, device=device) / n ** 0.5).to(
+        getattr(torch, dtype))
+    return A, {"x": torch.randn((k, n), generator=g, device=device),
+               "y": torch.randn((k, m), generator=g, device=device)}
+
+
+@pytest.mark.cuda
+def test_cuda_matvecs_past_4gb(cuda_device):
+    """A [2, 20,000, 30,000] f32 (4.8 GB): byte offsets into A pass 2^32
+    in the second lane, and both matvecs still agree with the plain
+    versions."""
+    A, o = _device_operands((2, 20_000, 30_000), "float32", cuda_device, 5)
+    assert A.numel() * 4 > 2 ** 32
+    got = _matvecs(A, o, "kernel")
+    torch.cuda.synchronize()
+    for g, w in zip(got, _matvecs(A, o, "ref")):
+        torch.testing.assert_close(g, w, **PRODUCT_TOL)
+    del A
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 4_099, 6_145), (1, 64, 80_000),
+                                   (3, 2_000, 700)], ids=str)
+def test_cuda_matvecs_repeat_bit_equal(shape, dtype, cuda_device):
+    """Three calls of each matvec give the same bits where bmatvec_t's last
+    blocks add the partials (the ticket reduction, in one level and in
+    two), and every ticket is 0 again after the calls."""
+    k, m, n = shape
+    assert pdhg_matvec.stream_plan(k, m, n, transposed=True).blocks > 1
+    A, o = _device_operands(shape, dtype, cuda_device, seed=8)
+    runs = [[v.cpu().numpy() for v in _matvecs(A, o, "kernel")]
+            for _ in range(3)]
+    for run in runs[1:]:
+        for got, first in zip(run, runs[0]):
+            np.testing.assert_array_equal(got, first)
+    stream = torch.cuda.current_stream().cuda_stream
+    count = k * (1 + pdhg_matvec.stream_plan(k, m, n, True).n_groups)
+    assert not pdhg_matvec.tickets(cuda_device, stream, count)[:count].any()
+
+
+@pytest.mark.cuda
+def test_cuda_matvecs_make_one_launch_a_call(cuda_device):
+    """Each call of either matvec is one CUDA launch, with its block
+    partials summed inside it."""
+    A, o = _dense_operands((8, 300, 500), "float32", cuda_device)
+    assert pdhg_matvec.stream_plan(8, 300, 500, transposed=True).blocks > 1
+    before = dict(pdhg_matvec.CUDA_LAUNCHES), dict(pdhg_matvec.LAUNCHES)
+    for _ in range(5):
+        _matvecs(A, o, "kernel")
+    torch.cuda.synchronize()
+    for counts, start in zip((pdhg_matvec.CUDA_LAUNCHES, pdhg_matvec.LAUNCHES),
+                             before):
+        assert {name: n - start[name] for name, n in counts.items()} == {
+            "bmatvec": 5, "bmatvec_t": 5}
+
+
+@pytest.mark.cuda
+def test_cuda_matvec_tickets_are_kept_per_stream(cuda_device):
+    """bmatvec_t's tickets belong to one stream: calls on two streams at
+    once get their own and both are right."""
+    A, o = _dense_operands((4, 2_000, 900), "float32", cuda_device, seed=3)
+    want = ops.bmatvec_t(A, o["y"], backend="ref").cpu().numpy()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    got = [ops.bmatvec_t(A, o["y"], backend="kernel")]
+    with torch.cuda.stream(side):
+        got.append(ops.bmatvec_t(A, o["y"], backend="kernel"))
+    torch.cuda.synchronize()
+    main = torch.cuda.current_stream().cuda_stream
+    assert (pdhg_matvec.tickets(cuda_device, main, 4).data_ptr()
+            != pdhg_matvec.tickets(cuda_device, side.cuda_stream, 4)
+            .data_ptr())
+    for x in got:
+        np.testing.assert_allclose(x.cpu().numpy(), want, **PRODUCT_TOL)
+    np.testing.assert_array_equal(got[0].cpu().numpy(), got[1].cpu().numpy())
 
 
 @pytest.mark.cuda
