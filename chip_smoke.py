@@ -34,15 +34,38 @@ Phases, each of which must pass:
              (the ``fused_structured_full`` engine): the domain's
              defaults, then int8 coefficient storage (the same trajectory:
              TE coefficients are all 1.0), then a fixed budget against the
-             plain engine on the same card inputs; then profiled fixed
-             budgets of the full solve at the traffic shape (f32, int8)
-             and at the Gavel full shape (f32, equilibrated);
+             plain engine on the same card inputs, then the f32 solve at
+             30,000 iterations (the full-LP quality gate); then profiled
+             fixed budgets of the full solve at the traffic shape (f32,
+             int8) and at the Gavel full shape (f32, equilibrated);
 7. traffic   a POP session on the same instance (domain defaults: k=8
              stratified): a cold step, every demand x 1.05 (a warm hit),
-             and the CSPF heuristic beside POP and the full LP;
+             and the CSPF heuristic beside POP and the full LP; a
+             converged full LP must carry at least 99% of CSPF's flow;
 8. gavel-full the unpartitioned Gavel LP of the main path's fleet (Gavel
              defaults, equilibrate), its fairness beside POP's;
-9. redesign  the redesigned kernels' device times under the profiler:
+9. balance-kernels the lane and full kernels at load-balancing shapes
+             (1,024 shards on 64 servers): the stacked POP-4 relaxation and
+             the single-lane full one with their ELL metadata, each solved
+             at the conformance budget with the kernels, their plain
+             versions on the card and the ``matvec`` engine (within 1e-5,
+             equal iterations, one CUDA launch per half-step), their ELL
+             fill and per-call times;
+10. balance  the paper's Fig. 5 (``benchmarks/bench_load_balancing.py``):
+             the full relax-and-round, POP-k for k = 2, 4, 8, 16 and
+             E-Store's greedy at 1,024 shards on 64 servers, held to the
+             reference's gates (``tests/test_problems.py``); the matvec
+             engine's stacked and per-lane forms at POP-16 in turns; CUDA
+             kernels per PDHG iteration of each run (two profiled fixed
+             budgets); the host's relaxation build and repair, timed by
+             wrapping them from here;
+11. balance-session the ``load_balance`` domain through
+             ``PopService(device="cuda")`` at its defaults (k=4): 8,192
+             shards on 256 servers, cold, a +-5% load drift (a hit), 5%
+             shard churn (a repair, warm fraction 0.950), E-Store's greedy
+             beside each step; valid placements within twice the load
+             window;
+12. redesign the redesigned kernels' device times under the profiler:
              ``structured_forward_step`` and ``structured_backward_step``
              at 4, 8 and 16 blocks a lane (main-path shape),
              ``structured_full_forward_step`` in one launch and after a
@@ -50,7 +73,7 @@ Phases, each of which must pass:
              ``structured_full_backward_step`` at the traffic shape (f32,
              int8) and the Gavel full shape; run after the paths, since a
              profiler session slows every later host call;
-10. kernels-dense the four dense kernels (``bmatvec``, ``bmatvec_t``,
+13. kernels-dense the four dense kernels (``bmatvec``, ``bmatvec_t``,
              ``fused_forward_step``, ``fused_backward_step``) against their
              plain versions at the densified main-path stack [8, 4,099,
              6,145], the dense engine sweep's [32, 256, 256] and the
@@ -59,11 +82,11 @@ Phases, each of which must pass:
              plain version's, one ``torch.bmm`` of the same product (plus
              the tail in torch for the half-steps, timed in turns) and the
              bound;
-11. redesign-dense the redesigned matvecs' device times under the
+14. redesign-dense the redesigned matvecs' device times under the
              profiler at the densified stack, f32 and bf16 A, in turns
              with ``torch.bmm``, each one CUDA launch a call and
              bit-for-bit the same twice, beside the earlier design's;
-12. dense    the main path's k=8 Gavel stack densified
+15. dense    the main path's k=8 Gavel stack densified
              (``pdhg.structured_to_dense``) through ``backends.solve_map(
              engine="auto")``, which must take the ``fused`` engine: the
              launch counts against the count the code predicts, a fixed
@@ -72,11 +95,11 @@ Phases, each of which must pass:
              1e-3 of the structured path's solve of the same instance), and
              a profiled fixed budget; one CUDA launch a matvec call, and
              fairness within 1e-4 of the earlier design's;
-13. dense-sweep ``fused`` against ``matvec`` on random dense LP stacks
+16. dense-sweep ``fused`` against ``matvec`` on random dense LP stacks
              [k, 256, 256], k = 1..32 (the reference's engine sweep,
              ``benchmarks/bench_pop_scaling.py``), a fixed budget of 2,000
              iterations: equal iterations, times, the engines' distance;
-14. solve-dense ``pdhg.solve_dense`` at the reference's ``pdhg_vs_scipy``
+17. solve-dense ``pdhg.solve_dense`` at the reference's ``pdhg_vs_scipy``
              size against scipy's HiGHS, at the reference test's bounds.
 
 The kernels' launch counts (calls and, for the structured kernels and the
@@ -84,7 +107,9 @@ matvecs, the CUDA launches the calls made, printed per call on the
 ``[launches]`` lines) are set to 0 just before each path and read just
 after it: the lane kernels' over the main path; the full kernels' over
 each of the traffic f32 solve (the count the JSON line reports), the int8
-solve, the fixed-budget kernel run and the Gavel full solve; the dense
+solve, the fixed-budget kernel run and the Gavel full solve; the lane and
+full kernels' again over each kernel solve of the balance-kernels phase;
+the dense
 kernels' over the dense path's Gavel-defaults solve (the count the JSON
 line reports) and its fixed budget.  Prints one JSON line of kernel
 results, then the card line, and as the last line ``{"ok": true,
@@ -94,6 +119,7 @@ device or outside the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import subprocess
@@ -117,6 +143,9 @@ CHURN = 0.05
 # 48 edges, the default size of benchmarks/bench_traffic_engineering.py
 TE_DEMANDS = 20_000
 FULL_FIXED_ITERS = 200
+# the full-LP quality gate's budget: the reference converges TE-20k at
+# 27,000 iterations (tools/te_full_reference.py)
+TE_LONG_ITERS = 30_000
 PROFILE_FULL_ITERS = 400
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -207,6 +236,22 @@ CLUSTERS = (4, 8, 16)
 FULL_VARIANTS = (1, 2)
 PROFILE_CALLS = 200
 HOST_CALLS = 1_000
+# load balancing: the Fig. 5 comparison at the default size of
+# benchmarks/bench_load_balancing.py, held at the conformance matrix's
+# budget (tests/test_engine_conformance.py) for the kernels, and a
+# session at 8x its shard count with bench_churn.py's 32 shards a server
+BALANCE_SHARDS, BALANCE_SERVERS = 1_024, 64
+BALANCE_KS = (2, 4, 8, 16)
+BALANCE_KW = dict(max_iters=12_000, tol_primal=1e-4, tol_gap=1e-4)
+CONFORMANCE_KW = dict(max_iters=120, check_every=40, tol_primal=0.0,
+                      tol_gap=0.0)
+BALANCE_TOL = 1e-5
+SESSION_SHARDS, SESSION_SERVERS = 8_192, 256
+SESSION_EPS, SESSION_CHURN = 0.15, 0.05
+# fixed budgets: the matvec forms in turns, and the two profiled budgets
+# whose difference gives the kernels per PDHG iteration
+FORM_ITERS = 400
+LAUNCH_ITERS = (80, 160)
 
 
 class SmokeError(RuntimeError):
@@ -1096,6 +1141,22 @@ def phase_full(device, te_arrays):
     for name, a, b in (("x", got.x, want.x), ("y", got.y, want.y)):
         check(np.allclose(a, b, rtol=SOLVE_RTOL, atol=SOLVE_ATOL),
               f"fixed-budget {name} differs from the plain engine's")
+
+    # the full-LP quality gate: the domain's 8,000 iterations stop short of
+    # convergence (so does the reference, which converges at 27,000); the
+    # same solve once more with a larger explicit budget
+    long_cfg = dataclasses.replace(exec_cfg, solver_kw={
+        **dict(exec_cfg.solver_kw), "max_iters": TE_LONG_ITERS})
+    fr = pop.solve_full_ex(prob, exec_cfg=long_cfg, device=device)
+    its = int(fr.res.iterations)
+    metrics = prob.evaluate(fr.alloc)
+    log(f"[full] TE {TE_DEMANDS} demands, f32, max_iters {TE_LONG_ITERS}: "
+        f"{its} iterations, converged {bool(fr.res.converged)}, solve_s "
+        f"{fr.solve_time_s:.4f} ({fr.solve_time_s * 1e3 / max(its, 1):.4f} "
+        f"ms per iteration); {_flow_line(metrics)}")
+    check(np.isfinite(fr.alloc).all() and not bool(fr.res.diverged),
+          "the long full solve is not finite or diverged")
+    runs[f"float32_{TE_LONG_ITERS}"] = (fr, metrics)
     return runs, paths
 
 
@@ -1139,9 +1200,11 @@ def phase_profile_full(device, te_arrays, gavel_prob):
     return out
 
 
-def phase_traffic(device, te_arrays, full_metrics, full_converged):
+def phase_traffic(device, te_arrays, full_runs):
     """A POP session on the traffic instance with the domain's defaults:
-    cold, then every demand x 1.05; CSPF beside POP and the full LP."""
+    cold, then every demand x 1.05; CSPF beside POP and the full LP runs
+    (``{label: (FullResult, metrics)}``, the domain's defaults first),
+    each converged one held to at least 99% of CSPF's flow."""
     from repro_torch.kernels import structured_pdhg_step as lane_mod
     from repro_torch.problems.traffic_engineering import (TrafficProblem,
                                                           cspf_heuristic)
@@ -1181,16 +1244,23 @@ def phase_traffic(device, te_arrays, full_metrics, full_converged):
     cspf = insts[0].evaluate(cspf_heuristic(insts[0]))
     log(f"[traffic] CSPF ({time.perf_counter() - t0:.2f} s on the host): "
         f"{_flow_line(cspf)}")
-    log(f"[traffic] full LP: {_flow_line(full_metrics)}")
+    full_metrics = next(iter(full_runs.values()))[1]
     pop_flow = allocs[0].metrics["total_flow"]
     log(f"[traffic] POP-{allocs[0].k} / full total flow "
         f"{pop_flow / full_metrics['total_flow']:.6f}; POP / CSPF "
-        f"{pop_flow / cspf['total_flow']:.6f}; full / CSPF "
-        f"{full_metrics['total_flow'] / cspf['total_flow']:.6f}; lane "
-        f"kernel launches {launched}")
-    if full_converged:
-        check(full_metrics["total_flow"] >= 0.99 * cspf["total_flow"],
-              "the converged full LP carries less than 99% of CSPF's flow")
+        f"{pop_flow / cspf['total_flow']:.6f}; lane kernel launches "
+        f"{launched}")
+    for label, (fr, metrics) in full_runs.items():
+        converged = bool(fr.res.converged)
+        log(f"[traffic] full LP {label} ({int(fr.res.iterations)} "
+            f"iterations, converged {converged}): {_flow_line(metrics)}; "
+            f"full / CSPF {metrics['total_flow'] / cspf['total_flow']:.6f}"
+            + ("" if converged else "; not converged, so not held to the "
+               "99% gate"))
+        if converged:
+            check(metrics["total_flow"] >= 0.99 * cspf["total_flow"],
+                  f"the converged full LP ({label}) carries less than 99% "
+                  "of CSPF's flow")
     return allocs
 
 
@@ -1229,6 +1299,337 @@ def phase_gavel_full(device, prob, pop_allocs):
           "allocation not finite")
     check(not bool(fr.res.diverged), "the full Gavel solve diverged")
     return launched
+
+
+# --------------------------------------------------------------------------
+# load balancing (paper §3.3)
+# --------------------------------------------------------------------------
+
+class StepParts:
+    """Where a load-balancing solve's time goes, timed by wrapping from
+    here, while the context is open, ``LoadBalanceProblem._relax_op`` (the
+    numpy relaxation and its upload), ``_round_repair`` (the numpy
+    rounding and repair) and the map step ``backends.solve_map`` (the
+    PDHG solve, one host sync per 40 iterations); the last map step's
+    per-lane iterations and converged flags are kept.  :meth:`take`
+    returns the seconds since the last take."""
+
+    PARTS = ("relax_op", "round_repair", "solve_map")
+
+    def __enter__(self):
+        from repro_torch.core import backends
+        from repro_torch.problems.load_balancing import LoadBalanceProblem
+        self.targets = {"relax_op": (LoadBalanceProblem, "_relax_op"),
+                        "round_repair": (LoadBalanceProblem, "_round_repair"),
+                        "solve_map": (backends, "solve_map")}
+        self.orig = {key: getattr(*where)
+                     for key, where in self.targets.items()}
+        self.seconds = dict.fromkeys(self.PARTS, 0.0)
+        self.last = None
+
+        def timed(key, fn):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    out = fn(*args, **kwargs)
+                finally:
+                    self.seconds[key] += time.perf_counter() - t0
+                if key == "solve_map":
+                    self.last = out
+                return out
+            return wrapper
+
+        for key, (obj, name) in self.targets.items():
+            setattr(obj, name, timed(key, self.orig[key]))
+        return self
+
+    def __exit__(self, *exc):
+        for key, (obj, name) in self.targets.items():
+            setattr(obj, name, self.orig[key])
+
+    def take(self) -> dict:
+        out, self.seconds = self.seconds, dict.fromkeys(self.PARTS, 0.0)
+        its = np.asarray(self.last.iterations)
+        conv = np.asarray(self.last.converged)
+        out.update(lane_max_iterations=int(its.max()),
+                   converged=f"{int(conv.sum())}/{conv.size}",
+                   ms_per_iteration=out["solve_map"] * 1e3
+                   / max(int(its.max()), 1))
+        return out
+
+
+def ell_fills(tag, s):
+    """Print the stored share of the narrow and wide ELL slots of each side
+    of the (stacked) structured operator ``s``."""
+    parts = []
+    for side, narrow, wide in (("rows", s.row_val, s.wrow_val),
+                               ("cols", s.col_val, s.wcol_val)):
+        for kind, val in (("narrow", narrow), ("wide", wide)):
+            stored = int((val != 0).sum())
+            parts.append(f"{kind} {side} {tuple(val.shape)} {stored} of "
+                         f"{val.numel()} slots ({100 * stored / val.numel():.1f}%)")
+    log(f"[balance-kernels] {tag} fill: " + "; ".join(parts))
+
+
+def phase_balance_kernels(device):
+    """The lane and full kernels held at load-balancing shapes: the stacked
+    POP-4 ``structured=True`` operator at 1,024 shards on 64 servers and
+    the single-lane full relaxation, each solved at the conformance budget
+    with the kernels, with their plain versions on the card and with the
+    ``matvec`` engine; x and y within 1e-5, equal iterations, one CUDA
+    launch per structured half-step."""
+    from repro_torch import testing
+    from repro_torch.core import pdhg
+    from repro_torch.kernels import structured_full_pdhg_step as full_mod
+    from repro_torch.kernels import structured_pdhg_step as lane_mod
+    from repro_torch.problems import load_balancing as lb
+    prob = lb.LoadBalanceProblem(lb.make_shard_workload(
+        BALANCE_SHARDS, BALANCE_SERVERS, seed=0))
+    stacked = testing.balance_ops(prob, 4, device, structured=True)
+    full = testing.balance_ops(prob, 1, device, structured=True)
+    ell_fills("POP-4 stack", stacked.structured)
+    ell_fills("full", full.structured)
+    plans = pdhg._wide_block_plans(full.structured)
+    cases = (
+        ("POP-4 stack", stacked, lane_mod, pdhg.fused_structured_engine(),
+         pdhg.fused_structured_engine("ref")),
+        ("full", full, full_mod,
+         pdhg.resolve_engine("fused_structured_full", full),
+         pdhg.fused_structured_full_engine("ref", *plans)))
+    for tag, op, mod, kernels, plain in cases:
+        zero_launches(mod)
+        got = pdhg.solve_stacked(op, engine=kernels, **CONFORMANCE_KW)
+        launched = dict(mod.LAUNCHES)
+        per_call = per_half_step(mod)
+        runs = {"plain": pdhg.solve_stacked(op, engine=plain,
+                                            **CONFORMANCE_KW),
+                "matvec": pdhg.solve_stacked(op, engine="matvec",
+                                             K_mv=lb._k_mv, KT_mv=lb._kt_mv,
+                                             **CONFORMANCE_KW)}
+        its = int(np.asarray(got.iterations).max())
+        errs = []
+        for label, want in runs.items():
+            dx = float(np.abs(got.x - want.x).max())
+            dy = float(np.abs(got.y - want.y).max())
+            errs.append(f"{label} max |dx| {dx:.3g}, max |dy| {dy:.3g}")
+            for name, a, b in (("x", got.x, want.x), ("y", got.y, want.y)):
+                check(np.allclose(a, b, rtol=BALANCE_TOL, atol=BALANCE_TOL),
+                      f"{tag}: {name} of the kernels differs from the "
+                      f"{label} run's")
+            check(np.array_equal(got.iterations, want.iterations),
+                  f"{tag}: iterations differ from the {label} run's")
+        log(f"[balance-kernels] {tag}: {kernels.name} at the conformance "
+            f"budget ({its} iterations): kernels against " + "; ".join(errs)
+            + f" (rtol=atol={BALANCE_TOL})")
+        log(f"[launches] balance-kernels {tag}: calls {launched}, CUDA "
+            f"launches {dict(mod.CUDA_LAUNCHES)}, per half-step {per_call}")
+        check(all(n == its for n in launched.values()),
+              f"{tag}: launches {launched} against {its} iterations")
+        check(all(per == 1 for per in per_call.values()),
+              f"{tag}: {per_call} CUDA launches per half-step, not one")
+        # the two half-steps at this shape, per call
+        s = kernels.prep(op).data
+        o = testing.step_tensors(s, device)
+        calls = (lane_calls(s, o) if mod is lane_mod else full_calls(s, o))
+        log(f"[balance-kernels] {tag} per call: " + "; ".join(
+            f"{name} kernel {event_ms(lambda: fn('kernel')):.4f} ms, plain "
+            f"{event_ms(lambda: fn('ref'), reps=50):.4f} ms"
+            for name, fn in calls.items()))
+
+
+def per_iteration(run, iters=LAUNCH_ITERS):
+    """(CUDA kernels, device us, wall us) per PDHG iteration of ``run(n)``,
+    a fixed budget of n iterations, from the difference of two profiled
+    budgets (so the setup before the loop cancels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    totals = []
+    for n in iters:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(n)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+        totals.append((sum(ev.count for ev in evs),
+                       sum(ev.self_device_time_total for ev in evs), wall))
+    d = iters[1] - iters[0]
+    return tuple((b - a) / d for a, b in zip(*totals))
+
+
+def fixed_solve(ops, engine, K_mv, KT_mv):
+    from repro_torch.core import backends
+    return lambda n: backends.solve_map(
+        ops, K_mv, KT_mv, dict(max_iters=n, tol_primal=0.0, tol_gap=0.0),
+        backend="vmap", engine=engine)
+
+
+def phase_balance(device):
+    """The paper's Fig. 5 comparison (``benchmarks/bench_load_balancing.
+    py``): the full relax-and-round, POP-k for k = 2, 4, 8, 16 and E-Store's
+    greedy at 1,024 shards on 64 servers, at most 12,000 iterations,
+    tolerances 1e-4, held to the reference's own gates
+    (``tests/test_problems.py``); then the matvec engine's stacked and
+    per-lane forms at POP-16 in turns, and each run's CUDA kernels per
+    PDHG iteration."""
+    from repro_torch import testing
+    from repro_torch.core import pdhg
+    from repro_torch.problems import load_balancing as lb
+    wl = lb.make_shard_workload(BALANCE_SHARDS, BALANCE_SERVERS, seed=0)
+    prob = lb.LoadBalanceProblem(wl)
+    rows = {}
+    t_runs = time.perf_counter()
+    with StepParts() as parts:
+        full = prob.solve_full(solver_kw=BALANCE_KW, device=device)
+        rows[1] = (full, parts.take())
+        for k in BALANCE_KS:
+            rows[k] = (prob.pop_solve(k, seed=0, solver_kw=BALANCE_KW,
+                                      device=device), parts.take())
+    t0 = time.perf_counter()
+    greedy = prob.evaluate(lb.estore_greedy(wl))
+    greedy_s = time.perf_counter() - t0
+
+    # the matvec engine's two forms at POP-16, a fixed budget in turns
+    t_forms = time.perf_counter()
+    ops16 = testing.balance_ops(prob, 16, device)
+    forms = {"stacked": pdhg.matvec_engine(lb._k_mv, lb._kt_mv),
+             "per-lane": pdhg._engine_from_matvecs(
+                 "matvec", pdhg._lanewise(lb._k_mv),
+                 pdhg._lanewise(lb._kt_mv))}
+    wall = {}
+    for name in list(forms) + list(forms)[::-1]:
+        run = fixed_solve(ops16, forms[name], lb._k_mv, lb._kt_mv)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(FORM_ITERS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / FORM_ITERS
+        wall[name] = min(wall.get(name, ms), ms)
+        check(np.isfinite(res.x).all(), f"POP-16 {name} form: not finite")
+    log(f"[balance] POP-16 matvec engine, {FORM_ITERS} iterations in turns: "
+        + ", ".join(f"{n} form {ms:.4f} ms per iteration"
+                    for n, ms in wall.items()))
+
+    # kernels per PDHG iteration (profiled last: a profiler session slows
+    # later host calls)
+    t_counts = time.perf_counter()
+    counts = {}
+    for k in (1,) + BALANCE_KS:
+        ops = ops16 if k == 16 else testing.balance_ops(prob, k, device)
+        counts[k] = per_iteration(fixed_solve(ops, "matvec", lb._k_mv,
+                                              lb._kt_mv))
+    lanewise = per_iteration(fixed_solve(ops16, forms["per-lane"],
+                                         lb._k_mv, lb._kt_mv))
+    log(f"[balance] POP-16 per-lane form: {lanewise[0]:.1f} CUDA kernels, "
+        f"{lanewise[1]:.2f} us of device time and {lanewise[2]:.2f} us of "
+        "wall per PDHG iteration under the profiler")
+    t_end = time.perf_counter()
+    log(f"[balance] walls: the Fig. 5 runs {t_forms - t_runs:.2f} s, the two "
+        f"forms {t_counts - t_forms:.2f} s, the {2 * (len(counts) + 1)} "
+        f"profiled budgets {t_end - t_counts:.2f} s")
+
+    for k, (r, secs) in rows.items():
+        kernels, dev_us, wall_us = counts[k]
+        row = dict(
+            method="full" if k == 1 else f"pop{k}", k=k,
+            solve_s=r.solve_time_s, relax_op_s=secs["relax_op"],
+            solve_map_s=secs["solve_map"],
+            round_repair_s=secs["round_repair"],
+            iterations=r.extra["iterations"],
+            lane_max_iterations=secs["lane_max_iterations"],
+            converged=secs["converged"],
+            ms_per_iteration=secs["ms_per_iteration"],
+            engine=r.extra["engine"],
+            backend=r.extra["backend"], kernels_per_iteration=kernels,
+            device_us_per_iteration=dev_us, wall_us_per_iteration=wall_us,
+            movement=r.movement, max_load_dev=r.max_load_dev,
+            feasible=r.feasible,
+            speedup=full.solve_time_s / r.solve_time_s,
+            movement_over_full=r.movement / max(full.movement, 1e-9))
+        log("[balance] " + json.dumps(row))
+        check(r.placement.shape == (BALANCE_SHARDS,)
+              and ((r.placement >= 0)
+                   & (r.placement < BALANCE_SERVERS)).all(),
+              f"{row['method']}: a shard off the servers")
+        check(r.extra["engine"] == "matvec", f"engine {r.extra['engine']}")
+    log("[balance] " + json.dumps(dict(
+        method="greedy", solve_s=greedy_s, movement=greedy["movement"],
+        max_load_dev=greedy["max_load_dev"],
+        feasible=greedy["load_feasible"] and greedy["mem_feasible"])))
+    pop4 = rows[4][0]
+    check(full.feasible, "the full relax-and-round placement is infeasible")
+    check(full.max_load_dev < greedy["max_load_dev"],
+          "the full placement balances no better than E-Store's greedy")
+    check(pop4.max_load_dev < 2.0 * wl.eps_frac,
+          f"POP-4 max_load_dev {pop4.max_load_dev} not below 2 eps_frac")
+    check(pop4.movement < 2.0 * full.movement + 1e-9,
+          "POP-4 moves more than twice the full placement's data")
+
+
+def phase_balance_session(device):
+    """The ``load_balance`` domain through ``PopService(device="cuda")`` at
+    its defaults (k = 4): 8,192 shards on 256 servers, eps_frac 0.15;
+    cold, a +-5% load drift (a hit, warm fraction 1), then 5% churn (a
+    repair, warm fraction 7,783 / 8,192), E-Store's greedy beside each
+    step."""
+    from repro_torch import testing
+    from repro_torch.problems import load_balancing as lb
+    from repro_torch.service import PopService
+    sess = PopService(device=device).session("lb", domain="load_balance")
+    walls, secs = [], []
+
+    def step(inst):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = sess.step(inst)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        secs.append(parts.take())
+        return a
+
+    with StepParts() as parts:
+        insts, allocs = testing.balance_session(
+            step, SESSION_SHARDS, SESSION_SERVERS, SESSION_CHURN,
+            eps_frac=SESSION_EPS)
+    n_out = int(SESSION_CHURN * SESSION_SHARDS)
+    want_wf = [None, 1.0, (SESSION_SHARDS - n_out) / SESSION_SHARDS]
+    for inst, a, wall, sec, wf in zip(insts, allocs, walls, secs, want_wf):
+        n = inst.n_shards
+        base = lb.ShardWorkload(
+            load=np.asarray(inst.load, np.float64), mem=np.ones(n),
+            placement=np.asarray(inst.current, np.int64),
+            cap=np.full(inst.n_targets, float(n)), eps_frac=inst.eps_frac)
+        greedy = lb.LoadBalanceProblem(base).evaluate(lb.estore_greedy(base))
+        m = a.metrics
+        row = dict(step=a.step, plan_cache=a.plan_cache,
+                   warm_fraction=a.warm_fraction, k=a.k, engine=a.engine,
+                   backend=a.backend, build_time_s=a.build_time_s,
+                   solve_time_s=a.solve_time_s, relax_op_s=sec["relax_op"],
+                   solve_map_s=sec["solve_map"],
+                   round_repair_s=sec["round_repair"], wall_s=wall,
+                   iterations=a.iterations,
+                   lane_max_iterations=sec["lane_max_iterations"],
+                   converged=sec["converged"],
+                   ms_per_iteration=sec["ms_per_iteration"],
+                   movement=m["movement"],
+                   n_moved=m["n_moved"], max_load_dev=m["max_load_dev"],
+                   load_feasible=m["load_feasible"],
+                   mem_feasible=m["mem_feasible"],
+                   greedy_max_load_dev=greedy["max_load_dev"],
+                   greedy_movement=greedy["movement"])
+        log("[balance-session] " + json.dumps(row))
+        check(a.warm_fraction == wf,
+              f"step {a.step}: warm fraction {a.warm_fraction}, not {wf}")
+        check(np.isfinite(a.alloc).all() and a.alloc.shape == (n,)
+              and ((a.alloc >= 0) & (a.alloc < inst.n_targets)).all(),
+              f"step {a.step}: the placement is not valid")
+        check(m["max_load_dev"] < 2.0 * inst.eps_frac,
+              f"step {a.step}: max_load_dev {m['max_load_dev']} not below "
+              "2 eps_frac")
+    verdicts = [a.plan_cache for a in allocs]
+    check(verdicts == ["miss", "hit", "repair"], f"verdicts {verdicts}")
 
 
 # --------------------------------------------------------------------------
@@ -1685,11 +2086,14 @@ def main() -> int:
         gavel_prob = gavel_full_problem()
         full_profiles = phase("profile-full", phase_profile_full, device,
                               te_arrays, gavel_prob)
-        fr, full_metrics = runs["float32"]
-        phase("traffic", phase_traffic, device, te_arrays, full_metrics,
-              bool(fr.res.converged))
+        phase("traffic", phase_traffic, device, te_arrays,
+              {dt: runs[dt] for dt in ("float32",
+                                       f"float32_{TE_LONG_ITERS}")})
         full_paths["gavel_full"] = phase("gavel-full", phase_gavel_full,
                                          device, gavel_prob, allocs)
+        phase("balance-kernels", phase_balance_kernels, device)
+        phase("balance", phase_balance, device)
+        phase("balance-session", phase_balance_session, device)
         phase("redesign", phase_redesign, lane_case, full_cases, records)
         prob, prep, dense_ops = phase("dense-instance", dense_instance,
                                       device)

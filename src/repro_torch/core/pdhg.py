@@ -418,12 +418,18 @@ def _lanewise(fn: Callable) -> Callable:
     return batched
 
 
+def _stacked(fn: Callable) -> Callable:
+    """The batched form of a per-lane matvec: its own ``stacked`` form
+    where it carries one (load balancing's), else :func:`_lanewise`."""
+    return getattr(fn, "stacked", None) or _lanewise(fn)
+
+
 @functools.lru_cache(maxsize=64)
 def matvec_engine(K_mv: Callable = dense_K_mv,
                   KT_mv: Callable = dense_KT_mv) -> StepEngine:
     """Generic operator engine over the problem's per-lane matvecs;
     memoized on matvec identity (one engine object per matvec pair)."""
-    return _engine_from_matvecs("matvec", _lanewise(K_mv), _lanewise(KT_mv))
+    return _engine_from_matvecs("matvec", _stacked(K_mv), _stacked(KT_mv))
 
 
 @functools.lru_cache(maxsize=16)
@@ -459,12 +465,14 @@ def fused_dense_engine(kernel_backend: Optional[str] = None) -> StepEngine:
     return StepEngine("fused", K, KT, forward, backward, scale_data)
 
 
-@functools.lru_cache(maxsize=1)
-def fused_structured_engine() -> StepEngine:
+@functools.lru_cache(maxsize=4)
+def fused_structured_engine(kernel_backend: Optional[str] = None
+                            ) -> StepEngine:
     """Structured engine: one ``kernels/ops.py`` call per half-step across
     the whole k-lane stack (hand-written CUDA kernel on CUDA tensors, plain
-    torch on CPU tensors).  ``prep`` moves ``op.structured`` into
-    ``op.data``."""
+    torch on CPU tensors; ``kernel_backend="ref"`` forces the plain
+    version, what ``chip_smoke.py`` holds a solve against on the card).
+    ``prep`` moves ``op.structured`` into ``op.data``."""
     from ..kernels import ops as kops
 
     def K(data, x):
@@ -474,11 +482,13 @@ def fused_structured_engine() -> StepEngine:
         return kops.smatvec_t(data, y)
 
     def forward(data, x, c, l, u, tau, kty):
-        return kops.structured_forward_step(data, x, c, l, u, tau, kty)
+        return kops.structured_forward_step(data, x, c, l, u, tau, kty,
+                                            backend=kernel_backend)
 
     def backward(data, y, q, sigma, ineq_mask, kx_new, kx_prev):
         return kops.structured_backward_step(data, y, q, sigma, ineq_mask,
-                                             kx_new, kx_prev)
+                                             kx_new, kx_prev,
+                                             backend=kernel_backend)
 
     def prep(op: OperatorLP) -> OperatorLP:
         return op._replace(data=dequantize_structured(op.structured),

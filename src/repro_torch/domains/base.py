@@ -3,10 +3,19 @@
 A domain describes itself as data (:class:`DomainSpec`) and registers the
 description; :class:`~repro_torch.service.PopService` sessions look it up
 by name or instance type and drive the generic ``plan -> build -> solve
--> reduce`` pipeline.  This slice ports the ``problem=`` factory style
-(how the paper domains register); the declarative-hooks style and
-``step_override`` domains come with the domains that need them (ROADMAP
-open items §1, items 8 and 13).
+-> reduce`` pipeline.  Two styles are ported:
+
+* a ``problem`` factory (how Gavel and traffic register): map the
+  instance to a :class:`~repro_torch.core.pop.POPProblem`;
+* a ``step_override`` (load balancing): a domain whose split is not an
+  entity partition (it splits SERVER GROUPS and shards follow their
+  server) runs its own pipeline; the session calls it with the instance,
+  the configs, its carried warm state and its device, and the domain
+  returns a :class:`StepOutcome` — still behind the one public
+  ``session.step`` door.
+
+The declarative-hooks style comes with the domain that needs it (ROADMAP
+open items §1, item 13).
 """
 
 from __future__ import annotations
@@ -18,6 +27,26 @@ import numpy as np
 
 from ..core.config import ExecConfig, SolveConfig
 from ..core.pop import POPProblem
+
+
+@dataclasses.dataclass
+class StepOutcome:
+    """What a ``step_override`` returns — the fields the session needs to
+    assemble an :class:`~repro_torch.service.Allocation` plus the warm
+    state it should carry into the next step."""
+
+    alloc: np.ndarray
+    metrics: dict
+    warm_state: Any
+    backend: Optional[str] = None
+    engine: Optional[str] = None
+    plan_cache: str = "miss"
+    warm_fraction: Optional[float] = None
+    solve_time_s: float = 0.0
+    build_time_s: float = 0.0
+    iterations: int = 0
+    k: int = 1
+    raw: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,12 +65,15 @@ class DomainSpec:
     evaluate: Optional[Callable] = None       # (inst, alloc) -> metrics
     default_solve: SolveConfig = SolveConfig()
     default_exec: ExecConfig = ExecConfig()
+    # full custom online step (domain-aware splits, e.g. load balancing):
+    # (inst, solve_cfg, exec_cfg, warm, *, device) -> StepOutcome
+    step_override: Optional[Callable] = None
 
     def __post_init__(self):
-        if self.problem is None:
+        if self.problem is None and self.step_override is None:
             raise ValueError(
-                f"domain {self.name!r}: provide a problem= factory (the "
-                "declarative-hooks and step_override styles are not ported "
+                f"domain {self.name!r}: provide a problem= factory or a "
+                "step_override= (the declarative-hooks style is not ported "
                 "yet)")
 
     def make_problem(self, instance: Any) -> POPProblem:

@@ -16,11 +16,16 @@ otherwise (``"miss"``), or solves the unpartitioned problem when the
 instance is too small to split (``"full"``); the :class:`Allocation`
 reports the backend and engine that actually ran.
 
+A domain with a ``step_override`` (load balancing) runs its own pipeline
+on the service's device; the session carries the warm state the domain
+hands back and reports the outcome's own metrics and verdict.
+
 Not ported yet (ROADMAP open items §1, items 10-12): the deadline ladder
 and divergence quarantine, the micro-batching dispatcher and
 ``step_async``, paging, checkpoints and the SLO tuner.  Their arguments
 raise ``NotImplementedError``, and a step whose solve reports diverged
-lanes raises ``RuntimeError`` instead of entering the quarantine path.
+lanes, or whose ``step_override`` raises or returns a non-finite
+allocation, raises instead of entering the quarantine path.
 """
 
 from __future__ import annotations
@@ -132,13 +137,34 @@ class PopSession:
         if deadline_s is not None:
             raise _not_ported("step(deadline_s=) — the deadline ladder", "10")
         with self._lock:
-            alloc = self._step_generic(instance)
+            if self.spec.step_override is not None:
+                alloc = self._step_override(instance)
+            else:
+                alloc = self._step_generic(instance)
             self.steps += 1
             _tally(self.stats, alloc)
             with self.service._lock:
                 _tally(self.service._stats, alloc)
             self.last = alloc
         return alloc
+
+    def _step_override(self, instance: Any) -> Allocation:
+        out = self.spec.step_override(instance, self.solve_cfg,
+                                      self.exec_cfg, self._warm,
+                                      device=self.service.device)
+        if not np.isfinite(np.asarray(out.alloc, dtype=float)).all():
+            raise RuntimeError(
+                f"tenant {self.tenant!r}: the {self.spec.name!r} step "
+                "returned a non-finite allocation; the quarantine retry is "
+                "not ported yet (ROADMAP open items §1, item 10)")
+        self._warm, self._mode = out.warm_state, "domain"
+        return self._wrap(
+            instance, out.alloc, metrics=out.metrics, problem=None,
+            backend=out.backend, engine=out.engine,
+            plan_cache=out.plan_cache, k=out.k,
+            warm_fraction=out.warm_fraction, solve_time_s=out.solve_time_s,
+            build_time_s=out.build_time_s, iterations=out.iterations,
+            raw=out.raw)
 
     def _step_generic(self, instance: Any) -> Allocation:
         problem = self.spec.make_problem(instance)
@@ -160,7 +186,8 @@ class PopSession:
             res.plan_source, "miss")
         wf = res.warm_stats["warm_fraction"] if res.warm_stats else None
         return self._wrap(
-            instance, res.alloc, problem=problem, backend=res.backend,
+            instance, res.alloc, metrics=None, problem=problem,
+            backend=res.backend,
             engine=res.engine, plan_cache=cache, k=res.plan.k,
             warm_fraction=wf, solve_time_s=res.solve_time_s,
             build_time_s=res.build_time_s,
@@ -181,19 +208,23 @@ class PopSession:
         self._warm, self._mode = fr.res, "full"
         self._full_ids = ids_key
         return self._wrap(
-            instance, fr.alloc, problem=problem, backend=fr.backend,
+            instance, fr.alloc, metrics=None, problem=problem,
+            backend=fr.backend,
             engine=fr.engine, plan_cache="full", k=1,
             warm_fraction=None if warm is None else 1.0,
             solve_time_s=fr.solve_time_s, build_time_s=fr.build_time_s,
             iterations=int(np.asarray(fr.res.iterations).sum()), raw=fr)
 
-    def _wrap(self, instance, raw_alloc, *, problem, backend, engine,
-              plan_cache, k, warm_fraction, solve_time_s, build_time_s,
-              iterations, raw) -> Allocation:
+    def _wrap(self, instance, raw_alloc, *, metrics, problem, backend,
+              engine, plan_cache, k, warm_fraction, solve_time_s,
+              build_time_s, iterations, raw) -> Allocation:
+        """The :class:`Allocation` of a step; ``metrics`` None asks the
+        domain for them (a ``step_override`` brings its own)."""
         alloc = raw_alloc
-        if self.spec.round is not None:
+        if self.spec.round is not None and self.spec.step_override is None:
             alloc = self.spec.round(instance, raw_alloc)
-        metrics = self.spec.metrics_of(instance, problem, alloc)
+        if metrics is None:
+            metrics = self.spec.metrics_of(instance, problem, alloc)
         return Allocation(
             domain=self.spec.name, tenant=self.tenant, step=self.steps,
             alloc=alloc, metrics=metrics, backend=backend, engine=engine,

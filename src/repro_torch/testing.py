@@ -9,6 +9,11 @@ and by ``chip_smoke.py``.
   half-step pair, numpy f32 or tensors on a device;
 * :func:`session_workloads` / :func:`session_instances`: a three-step Gavel
   session (cold, a +-3% throughput drift, then job churn under stable ids);
+* :func:`balance_ops`: the stacked POP-k relaxation a cold load-balancing
+  step builds (or the single-lane full one), optionally with its ELL
+  metadata; :func:`balance_session`: a three-step load-balancing session
+  (cold, a +-5% load drift on the previous placement, then shard churn
+  under stable ids);
 * :func:`traffic_arrays` / :func:`traffic_problem`: a traffic-engineering
   instance (topology, demands, k-shortest paths) from three seeds;
 * :func:`ragged_coo` / :func:`ragged_operator`: a single-lane K whose wide
@@ -119,6 +124,75 @@ def session_instances(n_jobs: int, num_workers, churn: float):
     from .domains import GavelInstance
     return [GavelInstance(wl, job_ids=ids)
             for wl, ids in session_workloads(n_jobs, num_workers, churn)]
+
+
+def balance_ops(prob, k: int, device, structured: bool = False):
+    """The stacked POP-k operator ``LoadBalanceProblem.pop_solve`` builds on
+    a cold step (its server grouping, shard subsets and load windows) on
+    ``device``, with the ELL metadata when ``structured``; for ``k == 1``
+    the single-lane full relaxation (a k=1 stack)."""
+    from .core import pdhg
+    wl = prob.wl
+    if k == 1:
+        op = prob._relax_op(np.arange(wl.n_shards), np.arange(wl.n_servers),
+                            wl.n_shards, wl.n_servers, structured=structured,
+                            device=device)
+        return pdhg.map_arrays(lambda a: a[None], op)
+    groups, shard_sets, s_pad, n_pad, _, _ = prob._pop_split(k)
+    windows = prob._sub_windows(shard_sets, groups)
+    return pdhg.stack_ops([
+        prob._relax_op(s, g, n_pad, s_pad, L_target=wl.target, eps_eff=e,
+                       structured=structured, device=device)
+        for s, g, e in zip(shard_sets, groups, windows)])
+
+
+def balance_session(step, n_shards: int, n_servers: int, churn: float, *,
+                    eps_frac: float = 0.15, seed: int = 0,
+                    make_workload=None, instance=None):
+    """Drive three ticks of a load-balancing session through ``step(inst)
+    -> Allocation`` and return ``(instances, allocations)``:
+
+    1. cold: ``make_shard_workload(n_shards, n_servers, eps_frac=eps_frac,
+       seed=seed)`` on its own skewed placement, ids ``arange(n_shards)``;
+    2. drift: every load x U(0.95, 1.05), the previous step's placement as
+       the current one, the same ids;
+    3. churn: ``int(churn * n_shards)`` shards leave, as many arrive from a
+       pool of ``2 * n_shards`` (seed 9) onto uniformly drawn servers with
+       fresh ids; every load x U(0.97, 1.03); survivors keep their ids and
+       their placement.
+
+    ``make_workload`` / ``instance`` default to the port's
+    ``make_shard_workload`` / ``BalanceInstance``; the parity tests pass
+    the reference's, which draw the same arrays."""
+    if make_workload is None:
+        from .problems.load_balancing import make_shard_workload
+        make_workload = make_shard_workload
+    if instance is None:
+        from .domains import BalanceInstance
+        instance = BalanceInstance
+    wl = make_workload(n_shards, n_servers, eps_frac=eps_frac, seed=seed)
+    pool = make_workload(2 * n_shards, n_servers, eps_frac=eps_frac, seed=9)
+    rng = np.random.default_rng(1_000 + seed)
+    ids = np.arange(n_shards)
+    insts = [instance(wl.load, n_servers, current=wl.placement,
+                      eps_frac=eps_frac, ids=ids)]
+    allocs = [step(insts[-1])]
+    load = wl.load * rng.uniform(0.95, 1.05, n_shards)
+    insts.append(instance(load, n_servers, current=allocs[-1].alloc,
+                          eps_frac=eps_frac, ids=ids))
+    allocs.append(step(insts[-1]))
+    n_out = int(churn * n_shards)
+    keep = np.sort(rng.choice(n_shards, n_shards - n_out, replace=False))
+    new = rng.choice(2 * n_shards, n_out, replace=False)
+    insts.append(instance(
+        np.concatenate([load[keep], pool.load[new]])
+        * rng.uniform(0.97, 1.03, n_shards), n_servers,
+        current=np.concatenate([allocs[-1].alloc[keep],
+                                rng.integers(0, n_servers, n_out)]),
+        eps_frac=eps_frac,
+        ids=np.concatenate([ids[keep], n_shards + np.arange(n_out)])))
+    allocs.append(step(insts[-1]))
+    return insts, allocs
 
 
 def traffic_arrays(n_demands: int, n_nodes: int = 754,

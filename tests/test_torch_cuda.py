@@ -983,3 +983,83 @@ def test_cuda_dense_stack_resolves_fused(cuda_device):
                               **kw)
     np.testing.assert_allclose(got.x, want.x, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got.y, want.y, rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# load balancing (paper §3.3) on the card
+# --------------------------------------------------------------------------
+
+BALANCE_FIXED = dict(max_iters=400, check_every=40, tol_primal=0.0,
+                     tol_gap=0.0)
+
+
+@pytest.mark.cuda
+def test_cuda_load_balance_session_matches_cpu_session(cuda_device):
+    """Cold, drift, then 20% churn at 128 shards on 16 servers
+    (``testing.balance_session``) through ``PopService`` on the card and
+    on the CPU at a fixed budget: the same verdicts, warm fractions and
+    placements, the relaxations within 1e-5."""
+    cfg = ExecConfig(solver_kw=BALANCE_FIXED)
+    runs = {}
+    for device in (cuda_device, "cpu"):
+        sess = PopService(device=device).session("lb", domain="load_balance",
+                                                 exec=cfg)
+        runs[str(device)] = testing.balance_session(sess.step, 128, 16,
+                                                    0.2)[1]
+    got, want = runs[str(cuda_device)], runs["cpu"]
+    assert [a.plan_cache for a in got] == ["miss", "hit", "repair"]
+    for a, b in zip(got, want):
+        assert a.plan_cache == b.plan_cache and a.engine == "matvec"
+        assert a.warm_fraction == b.warm_fraction
+        np.testing.assert_array_equal(a.alloc, b.alloc)
+        np.testing.assert_allclose(a.raw.extra["pop_state"]["x"],
+                                   b.raw.extra["pop_state"]["x"],
+                                   rtol=1e-5, atol=1e-5)
+
+
+def _balance_prob():
+    from repro_torch.problems.load_balancing import (LoadBalanceProblem,
+                                                     make_shard_workload)
+    return LoadBalanceProblem(make_shard_workload(256, 16, seed=0))
+
+
+def _kernel_solve_matches_plain(op, mod, kernels, plain):
+    """A fixed budget through the kernels against the plain versions on
+    the same card inputs: x and y within 1e-5, equal iterations, one
+    call and one CUDA launch per half-step and iteration."""
+    before = dict(mod.LAUNCHES)
+    cuda_before = dict(mod.CUDA_LAUNCHES)
+    got = pdhg.solve_stacked(op, engine=kernels, **BALANCE_FIXED)
+    want = pdhg.solve_stacked(op, engine=plain, **BALANCE_FIXED)
+    np.testing.assert_allclose(got.x, want.x, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.y, want.y, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got.iterations, want.iterations)
+    its = int(got.iterations.max())
+    for name in before:
+        assert mod.LAUNCHES[name] - before[name] == its
+        assert mod.CUDA_LAUNCHES[name] - cuda_before[name] == its
+
+
+@pytest.mark.cuda
+def test_cuda_lane_kernels_at_balance_shapes(cuda_device):
+    """The POP-4 ``structured=True`` relaxation at 256 shards on 16
+    servers: each lane's per-server rows fill the wide bucket."""
+    op = testing.balance_ops(_balance_prob(), 4, cuda_device,
+                             structured=True)
+    assert op.structured.wrow_idx.shape[-1] == 12
+    _kernel_solve_matches_plain(op, structured_pdhg_step,
+                                pdhg.fused_structured_engine(),
+                                pdhg.fused_structured_engine("ref"))
+
+
+@pytest.mark.cuda
+def test_cuda_full_kernels_at_balance_shapes(cuda_device):
+    """The single-lane full relaxation at 256 shards on 16 servers through
+    the cooperative kernels."""
+    op = testing.balance_ops(_balance_prob(), 1, cuda_device,
+                             structured=True)
+    plans = pdhg._wide_block_plans(op.structured)
+    _kernel_solve_matches_plain(
+        op, structured_full_pdhg_step,
+        pdhg.resolve_engine("fused_structured_full", op),
+        pdhg.fused_structured_full_engine("ref", *plans))

@@ -16,10 +16,14 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch import domains
 from repro_torch.core import pop
 from repro_torch.core.problem import LinearProgram
 from repro_torch.problems.cluster_scheduling import (GavelProblem,
                                                      make_cluster_workload)
+from repro_torch.problems.load_balancing import (LoadBalanceProblem,
+                                                 balance_placement,
+                                                 make_shard_workload)
 from repro_torch.service import PopService
 
 PKG = Path(next(iter(repro_torch.__path__)))
@@ -57,13 +61,15 @@ def _module_names():
 
 def test_new_modules_are_checked():
     """The dense and full-problem kernels, the LP containers, the traffic
-    domain and the shared build are among the sources the import checks
-    walk."""
+    and load-balancing domains, the rounding and max-min helpers and the
+    shared build are among the sources the import checks walk."""
     names = {str(p.relative_to(ROOT)) for p in _sources()}
     for rel in ("kernels/structured_full_pdhg_step.py", "kernels/build.py",
                 "kernels/pdhg_matvec.py", "kernels/fused_pdhg_step.py",
                 "core/problem.py", "problems/traffic_engineering.py",
-                "domains/traffic.py", "testing.py", "interop.py"):
+                "domains/traffic.py", "testing.py", "interop.py",
+                "problems/load_balancing.py", "domains/load_balance.py",
+                "core/rounding.py", "core/maxmin.py"):
         assert f"src/repro_torch/{rel}" in names, rel
     assert "chip_smoke.py" in names
 
@@ -96,6 +102,14 @@ def test_every_module_imports_without_jax():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
+def test_registered_domains():
+    """The three paper domains register on import, load balancing with
+    its ``step_override``."""
+    assert domains.names() == ("gavel", "load_balance", "traffic")
+    sess = PopService(device="cpu").session("t", domain="load_balance")
+    assert sess.spec.step_override is not None
+
+
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -110,6 +124,14 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
             full(prob)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LinearProgram.build(c=np.ones(3))
+    wl = make_shard_workload(16, 4, seed=0)
+    lb = LoadBalanceProblem(wl)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lb._relax_op(np.arange(16), np.arange(4), 16, 4)
+    for solve in (lb.solve_full, lambda: lb.pop_solve(2),
+                  lambda: balance_placement(wl.load, 4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            solve()
     assert PopService(device="cpu").device.type == "cpu"
 
 
