@@ -27,9 +27,24 @@ Phases, each of which must pass:
              stable ids); every lane converges and the allocation beats
              the Gandiva heuristic's fairness twice over, as the
              reference's own test holds it (``tests/test_problems.py``);
-5. profile   one more warm step under ``torch.profiler``: device time by
+5. robust    the serving ladder on the main path's instances through its
+             own ``PopService`` (``main``'s session untouched): a cold
+             step and a hit to measure the ladder's rates; NaN in warm
+             lane 3 and a step on the drifted fleet, which must come back
+             ``recovered`` with the lane quarantined, 8/8 converged and
+             beating Gandiva's mean throughput, the retry (one lane cold
+             beside seven warm) through the lane kernels, one CUDA launch
+             per half-step; deadlines of 100 s (``ok``), a budget of about
+             1,000 iterations (``degraded``) and inflated rates
+             (``fallback`` to the previous allocation within twice its
+             deadline); a checkpoint restored into a fresh service, its
+             next step a warm hit matching the uninterrupted session's;
+             truncated and corrupted blobs restored cold; two tenants
+             under ``max_resident=1``, the paged-in one a warm hit; the
+             lane kernels' counts put back afterwards;
+6. profile   one more warm step under ``torch.profiler``: device time by
              kernel and the device's busy share;
-6. full      the unpartitioned traffic-engineering baseline at 20,000
+7. full      the unpartitioned traffic-engineering baseline at 20,000
              demands on the KDL-like topology through ``pop.solve_full_ex``
              (the ``fused_structured_full`` engine): the domain's
              defaults, then int8 coefficient storage (the same trajectory:
@@ -38,20 +53,20 @@ Phases, each of which must pass:
              30,000 iterations (the full-LP quality gate); then profiled
              fixed budgets of the full solve at the traffic shape (f32,
              int8) and at the Gavel full shape (f32, equilibrated);
-7. traffic   a POP session on the same instance (domain defaults: k=8
+8. traffic   a POP session on the same instance (domain defaults: k=8
              stratified): a cold step, every demand x 1.05 (a warm hit),
              and the CSPF heuristic beside POP and the full LP; a
              converged full LP must carry at least 99% of CSPF's flow;
-8. gavel-full the unpartitioned Gavel LP of the main path's fleet (Gavel
+9. gavel-full the unpartitioned Gavel LP of the main path's fleet (Gavel
              defaults, equilibrate), its fairness beside POP's;
-9. balance-kernels the lane and full kernels at load-balancing shapes
+10. balance-kernels the lane and full kernels at load-balancing shapes
              (1,024 shards on 64 servers): the stacked POP-4 relaxation and
              the single-lane full one with their ELL metadata, each solved
              at the conformance budget with the kernels, their plain
              versions on the card and the ``matvec`` engine (within 1e-5,
              equal iterations, one CUDA launch per half-step), their ELL
              fill and per-call times;
-10. balance  the paper's Fig. 5 (``benchmarks/bench_load_balancing.py``):
+11. balance  the paper's Fig. 5 (``benchmarks/bench_load_balancing.py``):
              the full relax-and-round, POP-k for k = 2, 4, 8, 16 and
              E-Store's greedy at 1,024 shards on 64 servers, held to the
              reference's gates (``tests/test_problems.py``); the matvec
@@ -59,13 +74,13 @@ Phases, each of which must pass:
              kernels per PDHG iteration of each run (two profiled fixed
              budgets); the host's relaxation build and repair, timed by
              wrapping them from here;
-11. balance-session the ``load_balance`` domain through
+12. balance-session the ``load_balance`` domain through
              ``PopService(device="cuda")`` at its defaults (k=4): 8,192
              shards on 256 servers, cold, a +-5% load drift (a hit), 5%
              shard churn (a repair, warm fraction 0.950), E-Store's greedy
              beside each step; valid placements within twice the load
              window;
-12. redesign the redesigned kernels' device times under the profiler:
+13. redesign the redesigned kernels' device times under the profiler:
              ``structured_forward_step`` and ``structured_backward_step``
              at 4, 8 and 16 blocks a lane (main-path shape),
              ``structured_full_forward_step`` in one launch and after a
@@ -73,7 +88,7 @@ Phases, each of which must pass:
              ``structured_full_backward_step`` at the traffic shape (f32,
              int8) and the Gavel full shape; run after the paths, since a
              profiler session slows every later host call;
-13. kernels-dense the four dense kernels (``bmatvec``, ``bmatvec_t``,
+14. kernels-dense the four dense kernels (``bmatvec``, ``bmatvec_t``,
              ``fused_forward_step``, ``fused_backward_step``) against their
              plain versions at the densified main-path stack [8, 4,099,
              6,145], the dense engine sweep's [32, 256, 256] and the
@@ -82,11 +97,11 @@ Phases, each of which must pass:
              plain version's, one ``torch.bmm`` of the same product (plus
              the tail in torch for the half-steps, timed in turns) and the
              bound;
-14. redesign-dense the redesigned matvecs' device times under the
+15. redesign-dense the redesigned matvecs' device times under the
              profiler at the densified stack, f32 and bf16 A, in turns
              with ``torch.bmm``, each one CUDA launch a call and
              bit-for-bit the same twice, beside the earlier design's;
-15. dense    the main path's k=8 Gavel stack densified
+16. dense    the main path's k=8 Gavel stack densified
              (``pdhg.structured_to_dense``) through ``backends.solve_map(
              engine="auto")``, which must take the ``fused`` engine: the
              launch counts against the count the code predicts, a fixed
@@ -95,11 +110,11 @@ Phases, each of which must pass:
              1e-3 of the structured path's solve of the same instance), and
              a profiled fixed budget; one CUDA launch a matvec call, and
              fairness within 1e-4 of the earlier design's;
-16. dense-sweep ``fused`` against ``matvec`` on random dense LP stacks
+17. dense-sweep ``fused`` against ``matvec`` on random dense LP stacks
              [k, 256, 256], k = 1..32 (the reference's engine sweep,
              ``benchmarks/bench_pop_scaling.py``), a fixed budget of 2,000
              iterations: equal iterations, times, the engines' distance;
-17. solve-dense ``pdhg.solve_dense`` at the reference's ``pdhg_vs_scipy``
+18. solve-dense ``pdhg.solve_dense`` at the reference's ``pdhg_vs_scipy``
              size against scipy's HiGHS, at the reference test's bounds.
 
 The kernels' launch counts (calls and, for the structured kernels and the
@@ -988,6 +1003,219 @@ def phase_main(device, n_jobs=N_JOBS, num_workers=NUM_WORKERS):
     for name, per in per_call.items():
         check(per == 1, f"{name}: {per} CUDA launches per call, not one")
     return sess, insts, allocs, launches
+
+
+def _timed(record: list, fn):
+    """``fn`` wrapped to append its wall seconds to ``record``."""
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        record.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def _lane_max(a) -> int:
+    return int(np.max(a.raw.iterations))
+
+
+def phase_robust(device, insts):
+    """The serving ladder on the main path's instances, through its own
+    ``PopService`` (``main``'s session is left as it was): the lane
+    quarantine (a NaN lane in the warm state, re-solved cold beside seven
+    warm lanes through the lane kernels), the deadline ladder's three
+    rungs, a checkpoint restored warm into a fresh service, damaged
+    checkpoints restored cold, and paging with ``max_resident=1``.  The
+    lane kernels' launch counts are put back as they were afterwards."""
+    from repro_torch.analysis import faults
+    from repro_torch.kernels import structured_pdhg_step as kernel_mod
+    from repro_torch.problems.cluster_scheduling import (GavelProblem,
+                                                         gandiva_heuristic)
+    from repro_torch.service import PopService
+    saved = dict(kernel_mod.LAUNCHES), dict(kernel_mod.CUDA_LAUNCHES)
+    drift = insts[1]
+    base = GavelProblem(drift.wl).evaluate(
+        gandiva_heuristic(drift.wl, space_sharing=False))
+    service = PopService(device=device)
+    sess = service.session("robust", insts[0])
+    solves = []
+    inner = service._solve_instance
+
+    def recording(*args, **kw):
+        calls, cuda = dict(kernel_mod.LAUNCHES), dict(kernel_mod.CUDA_LAUNCHES)
+        res = inner(*args, **kw)
+        solves.append(dict(
+            solve_s=res.solve_time_s, build_s=res.build_time_s,
+            iterations=np.asarray(res.iterations).tolist(),
+            diverged=int(np.asarray(res.diverged).sum()),
+            calls={n: kernel_mod.LAUNCHES[n] - calls[n] for n in calls},
+            cuda={n: kernel_mod.CUDA_LAUNCHES[n] - cuda[n] for n in cuda}))
+        return res
+
+    service._solve_instance = recording
+
+    def step(s, inst, **kw):
+        t0 = time.perf_counter()
+        a = s.step(inst, **kw)
+        return a, time.perf_counter() - t0
+
+    # 1. rates: a cold step, then a warm hit
+    cold, cold_wall = step(sess, insts[0])
+    hit, hit_wall = step(sess, drift)
+    key = ("pop", sess.spec.name, sess.exec_cfg, hit.k, drift.n_jobs)
+    log(f"[robust] cold {cold.plan_cache} {cold_wall:.3f} s (solve "
+        f"{cold.solve_time_s:.3f}), hit {hit.plan_cache} {hit_wall:.3f} s "
+        f"(build {hit.build_time_s:.3f}, solve {hit.solve_time_s:.3f}, "
+        f"lane-max {_lane_max(hit)} iterations); ladder rate "
+        f"{service._rates[key] * 1e3:.4f} ms per iteration, overhead "
+        f"{service._overheads[key]:.3f} s")
+    check(cold.status == hit.status == "ok" and hit.plan_cache == "hit",
+          f"clean steps: {cold.status}/{hit.status}, {hit.plan_cache}")
+
+    # 2. the lane quarantine
+    faults.poison_warm(sess, lanes=[3])
+    del solves[:]
+    rec, rec_wall = step(sess, drift)
+    ws = rec.raw.warm_stats
+    conv = np.asarray(rec.raw.converged)
+    log(f"[robust] poisoned lane 3: status {rec.status}, faults "
+        f"{rec.faults}, quarantined {ws['quarantined_lanes']}, warm "
+        f"fraction {rec.warm_fraction}, converged {int(conv.sum())}/"
+        f"{conv.size}, wall {rec_wall:.3f} s against the hit's "
+        f"{hit_wall:.3f}; mean_norm_throughput "
+        f"{rec.metrics['mean_norm_throughput']:.6f}, Gandiva "
+        f"{base['mean_norm_throughput']:.6f}")
+    for name, sv in zip(("warm solve", "retry"), solves):
+        log(f"[robust]   {name}: solve {sv['solve_s']:.3f} s, build "
+            f"{sv['build_s']:.3f} s, iterations per lane "
+            f"{sv['iterations']}, {sv['diverged']} lane(s) diverged, calls "
+            f"{sv['calls']}, CUDA launches {sv['cuda']}")
+    check(rec.status == "recovered", f"status {rec.status}")
+    check("divergence:1" in rec.faults, f"faults {rec.faults}")
+    check(ws["quarantined_lanes"] == 1, f"warm_stats {ws}")
+    check(0.0 < rec.warm_fraction < 1.0,
+          f"warm fraction {rec.warm_fraction}")
+    check(conv.all(), f"{int((~conv).sum())} lane(s) did not converge")
+    check(np.isfinite(rec.alloc).all(), "recovered allocation not finite")
+    check(rec.metrics["mean_norm_throughput"]
+          > base["mean_norm_throughput"],
+          "recovered allocation does not beat Gandiva's throughput")
+    check(len(solves) == 2 and solves[0]["diverged"] == 1
+          and solves[1]["diverged"] == 0, f"solves {solves}")
+    retry = solves[1]
+    for name, n in retry["calls"].items():
+        check(n > 0, f"{name} was not launched in the quarantine retry")
+        check(retry["cuda"][name] == n,
+              f"{name}: {retry['cuda'][name]} CUDA launches for {n} calls")
+    clean, _ = step(sess, drift)
+    check(clean.status == "ok" and clean.faults == (),
+          f"step after the quarantine: {clean.status} {clean.faults}")
+
+    # 3. the deadline ladder
+    loose, loose_wall = step(sess, drift, deadline_s=100.0)
+    check(loose.status == "ok" and loose.faults == (),
+          f"deadline 100 s: {loose.status} {loose.faults}")
+    tight_s = 2.0
+    service._overheads[key] = 0.0
+    service._rates[key] = tight_s / 1000      # a budget of ~1,000 iterations
+    tight, tight_wall = step(sess, drift, deadline_s=tight_s)
+    check(tight.status == "degraded"
+          and tight.faults in (("deadline:capped",),
+                               ("deadline:best-effort",)),
+          f"tight deadline: {tight.status} {tight.faults}")
+    check(np.isfinite(tight.alloc).all(), "degraded allocation not finite")
+    faults.inflate_rates(service, 1e6)
+    fallback_s = 0.5
+    fb, fb_wall = step(sess, drift, deadline_s=fallback_s)
+    for tag, a, wall, dl in (("loose", loose, loose_wall, 100.0),
+                             ("capped", tight, tight_wall, tight_s),
+                             ("fallback", fb, fb_wall, fallback_s)):
+        its = [] if a.raw is None else np.asarray(a.raw.iterations).tolist()
+        log(f"[robust] deadline {dl} s ({tag}): status {a.status}, faults "
+            f"{a.faults}, wall {wall:.4f} s, iterations per lane {its}, "
+            f"mean_norm_throughput {a.metrics['mean_norm_throughput']:.6f}")
+    check(fb.status == "fallback" and "deadline" in fb.faults,
+          f"inflated rates: {fb.status} {fb.faults}")
+    check(fb.metrics["fallback_source"] == "previous-allocation",
+          f"fallback source {fb.metrics['fallback_source']}")
+    check(fb_wall < 2 * fallback_s,
+          f"fallback wall {fb_wall:.3f} s over twice its deadline")
+
+    # 4. a checkpoint restored warm into a fresh service
+    t0 = time.perf_counter()
+    blob = service.checkpoint()
+    ckpt_s = time.perf_counter() - t0
+    fresh = PopService(device=device)
+    t0 = time.perf_counter()
+    report = fresh.restore(blob)
+    restore_s = time.perf_counter() - t0
+    check(report["restored"] == ["robust"], f"restore report {report}")
+    back = fresh.session("robust")
+    check(back._warm.x.is_cuda and back._warm.x.dtype == torch.float32,
+          "restored iterates are not float32 on the card")
+    a, _ = step(back, drift)
+    b, _ = step(sess, drift)
+    d_mean = abs(a.metrics["mean_norm_throughput"]
+                 - b.metrics["mean_norm_throughput"])
+    log(f"[robust] checkpoint {len(blob)} bytes in {ckpt_s:.4f} s, restore "
+        f"{restore_s:.4f} s; restored step {a.plan_cache} at warm fraction "
+        f"{a.warm_fraction}, lane-max {_lane_max(a)} iterations against "
+        f"the uninterrupted session's {_lane_max(b)}, |d mean_norm_"
+        f"throughput| {d_mean:.3g}")
+    check(a.plan_cache == "hit" and a.warm_fraction == 1.0,
+          f"restored step: {a.plan_cache} at {a.warm_fraction}")
+    check(abs(_lane_max(a) - _lane_max(b)) <= 40,
+          f"restored step's lane-max iterations {_lane_max(a)}, "
+          f"uninterrupted {_lane_max(b)}")
+    check(d_mean < 1e-4, f"restored quality differs by {d_mean:.3g}")
+
+    # 5. damaged checkpoints restore cold; the service still serves
+    for name in ("truncate-checkpoint", "corrupt-checkpoint"):
+        damaged = PopService(device=device)
+        report = damaged.restore(faults.FAULTS[name](blob))
+        served, _ = step(damaged.session("robust", domain="gavel"), drift)
+        failures = damaged.stats()["checkpoint_failures"]
+        log(f"[robust] {name}: restored {report['restored']}, "
+            f"checkpoint_failures {failures}; then {served.status} "
+            f"{served.plan_cache}")
+        check(report["restored"] == [] and failures == 1,
+              f"{name}: {report}")
+        check(served.status == "ok" and np.isfinite(served.alloc).all(),
+              f"{name}: the service does not serve")
+
+    # 6. paging: two tenants, one resident
+    pager = PopService(device=device, max_resident=1)
+    outs, ins, mems = [], [], []
+    page_out = pager._page_out
+
+    def paging_out(victim):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        done = _timed(outs, page_out)(victim)
+        mems.append((before, torch.cuda.memory_allocated()))
+        return done
+
+    pager._page_out = paging_out
+    pager._page_in = _timed(ins, pager._page_in)
+    step(pager.session("A", insts[0]), insts[0])
+    step(pager.session("B", insts[0]), insts[0])
+    blob_bytes = pager.stats()["paged_bytes"]
+    again, _ = step(pager.session("A"), drift)
+    st = pager.stats()
+    log(f"[robust] paging: paged_out {st['paged_out']}, paged_in "
+        f"{st['paged_in']}, A's blob {blob_bytes} bytes; page-out "
+        + ", ".join(f"{t:.4f} s" for t in outs) + "; page-in "
+        + ", ".join(f"{t:.4f} s" for t in ins) + "; memory_allocated "
+        "before/after each page-out "
+        + ", ".join(f"{m0}/{m1} B" for m0, m1 in mems)
+        + f"; A's step {again.plan_cache} at warm fraction "
+        f"{again.warm_fraction}")
+    check(st["paged_out"] >= 1 and st["paged_in"] == 1,
+          f"paging counters {st['paged_out']}/{st['paged_in']}")
+    check(again.plan_cache == "hit" and again.warm_fraction == 1.0,
+          f"paged-in step: {again.plan_cache} at {again.warm_fraction}")
+    kernel_mod.LAUNCHES.update(saved[0])
+    kernel_mod.CUDA_LAUNCHES.update(saved[1])
 
 
 # each wrapper's CUDA kernels: the tail type in their names, the kernels,
@@ -2081,6 +2309,7 @@ def main() -> int:
                                          device, TrafficProblem(*te_arrays))
         records.update(full_records)
         sess, insts, allocs, launches = phase("main", phase_main, device)
+        phase("robust", phase_robust, device, insts)
         profiled_ms = phase("profile", phase_profile, sess, insts[2])
         runs, full_paths = phase("full", phase_full, device, te_arrays)
         gavel_prob = gavel_full_problem()

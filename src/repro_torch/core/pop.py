@@ -296,12 +296,13 @@ def prepare_instance(
     replan: bool = False,
     partition_idx: Optional[np.ndarray] = None,
     entity_ids: Optional[np.ndarray] = None,
+    cold_lanes: Optional[np.ndarray] = None,
     device=None,
 ) -> PreparedSolve:
     """Everything :func:`solve_instance` does BEFORE the map-step launch:
     plan resolution (reuse / repair / fresh), sub-LP build + stack on the
-    device, warm start resolution and ``"auto"`` backend/engine
-    resolution."""
+    device, warm start resolution (remap, quarantine masking) and
+    ``"auto"`` backend/engine resolution."""
     device = backends_mod.resolve_device(device)
     k = (solve_cfg.k if solve_cfg.min_per_sub is None
          else solve_cfg.k_for(problem.n_entities))
@@ -359,6 +360,30 @@ def prepare_instance(
             warm_in = ws
             warm_stats = ws.stats
 
+    if cold_lanes is not None and warm_in is not None:
+        # divergence quarantine: poisoned lanes restart cold, survivors
+        # keep their iterates (the per-lane mask the backends blend on the
+        # solve's device)
+        cl = np.asarray(cold_lanes, bool).reshape(-1)
+        if cl.shape[0] != p.k:
+            raise ValueError(f"cold_lanes has {cl.shape[0]} entries for "
+                             f"k={p.k} lanes")
+        if isinstance(warm_in, WarmStart):
+            wx, wy = warm_in.x, warm_in.y
+            mask = np.asarray(warm_in.mask, bool) & ~cl
+            stats = dict(warm_in.stats or {})
+        else:
+            wx, wy = warm_in
+            mask = ~cl
+            stats = dict(warm_stats or {})
+        stats["quarantined_lanes"] = int(cl.sum())
+        stats["lanes_cold"] = int((~mask).sum())
+        stats["warm_fraction"] = float(
+            stats.get("warm_fraction", 1.0) * mask.mean()) if p.k else 0.0
+        stats["identity"] = False
+        warm_in = WarmStart(x=wx, y=wy, mask=mask, stats=stats)
+        warm_stats = stats
+
     backend_name, engine_run, opts = backends_mod.resolve_exec(
         ops, problem.K_mv, problem.KT_mv, exec_cfg.backend, exec_cfg.engine,
         exec_cfg.opts_dict())
@@ -397,15 +422,23 @@ def solve_instance(
     replan: bool = False,
     partition_idx: Optional[np.ndarray] = None,
     entity_ids: Optional[np.ndarray] = None,
+    cold_lanes: Optional[np.ndarray] = None,
     device=None,
 ) -> POPResult:
     """Run POP on ``problem``: plan -> build -> solve -> reduce, configured
     by :class:`SolveConfig` (how to split) and :class:`ExecConfig` (how to
     execute); ``warm`` re-solves an updated instance from a previous
-    :class:`POPResult` (see the module docstring)."""
+    :class:`POPResult` (see the module docstring).
+
+    ``cold_lanes`` ([k] bool) starts those lanes cold even when a warm
+    start is supplied — the divergence-quarantine retry:
+    ``PopSession.step`` re-solves with ``plan=prev.plan`` and
+    ``cold_lanes=prev.diverged`` so only the poisoned lanes restart while
+    healthy lanes keep their iterates."""
     prep = prepare_instance(
         problem, solve_cfg, exec_cfg, warm=warm, plan=plan, replan=replan,
-        partition_idx=partition_idx, entity_ids=entity_ids, device=device)
+        partition_idx=partition_idx, entity_ids=entity_ids,
+        cold_lanes=cold_lanes, device=device)
     t1 = time.perf_counter()
     res = solve(problem, prep.plan, prep.ops, backend=prep.backend,
                 engine=prep.engine, solver_kw=prep.solver_kw,

@@ -63,6 +63,10 @@ class DomainSpec:
     entity_ids: Optional[Callable[[Any], Optional[np.ndarray]]] = None
     round: Optional[Callable] = None          # (inst, alloc) -> allocation
     evaluate: Optional[Callable] = None       # (inst, alloc) -> metrics
+    # solver-free fallback allocation, (inst) -> alloc: the last rung of
+    # the serving ladder — what a session returns when the solve diverges
+    # or misses its deadline and there is no previous allocation to repeat
+    greedy: Optional[Callable] = None
     default_solve: SolveConfig = SolveConfig()
     default_exec: ExecConfig = ExecConfig()
     # full custom online step (domain-aware splits, e.g. load balancing):

@@ -1063,3 +1063,120 @@ def test_cuda_full_kernels_at_balance_shapes(cuda_device):
         op, structured_full_pdhg_step,
         pdhg.resolve_engine("fused_structured_full", op),
         pdhg.fused_structured_full_engine("ref", *plans))
+
+
+# --------------------------------------------------------------------------
+# the serving ladder on the card: quarantine retry and checkpoints
+# --------------------------------------------------------------------------
+
+# a fixed budget (no tolerance stop), so the kernels and their plain
+# versions make the same iterations and are held at 1e-5
+QUARANTINE_KW = dict(max_iters=400, tol_primal=0.0, tol_gap=0.0,
+                     equilibrate=True)
+
+
+def _quarantined_session(device, engine):
+    """A 256-job Gavel session (k=4): a cold step, lane 1 of the warm
+    state poisoned with NaN, a step on the drifted fleet.  Returns that
+    step and every solve it ran."""
+    from repro_torch.analysis import faults
+    svc = PopService(device=device)
+    sess = svc.session("t", domain="gavel",
+                       solve=SolveConfig(k=4, strategy="stratified",
+                                         min_per_sub=8),
+                       exec=ExecConfig(engine=engine,
+                                       solver_kw=QUARANTINE_KW))
+    solves = []
+    inner = svc._solve_instance
+
+    def recording(*args, **kw):
+        solves.append(inner(*args, **kw))
+        return solves[-1]
+
+    svc._solve_instance = recording
+    insts = testing.session_instances(256, (64, 64, 64), churn=0.05)
+    sess.step(insts[0])
+    faults.poison_warm(sess, lanes=[1])
+    del solves[:]
+    return sess.step(insts[1]), solves, svc.stats()
+
+
+@pytest.mark.cuda
+def test_cuda_quarantine_matches_plain_versions(cuda_device):
+    """The poisoned lane diverges through the lane kernels exactly as
+    through their plain versions, and the retry (lane 1 cold beside three
+    warm lanes) gives the same allocation within 1e-5."""
+    before = dict(structured_pdhg_step.CUDA_LAUNCHES)
+    got, got_solves, got_stats = _quarantined_session(cuda_device,
+                                                      "fused_structured")
+    launched = {name: n - before[name]
+                for name, n in structured_pdhg_step.CUDA_LAUNCHES.items()}
+    want, want_solves, want_stats = _quarantined_session(
+        cuda_device, pdhg.fused_structured_engine("ref"))
+    for a in (got, want):
+        assert a.status == "recovered"
+        assert a.faults == ("divergence:1",)
+        assert a.raw.warm_stats["quarantined_lanes"] == 1
+        assert a.raw.warm_stats["lanes_cold"] == 1
+        assert a.raw.warm_stats["warm_fraction"] == 0.75
+        assert np.isfinite(a.alloc).all()
+    assert len(got_solves) == len(want_solves) == 2
+    np.testing.assert_array_equal(got_solves[0].diverged,
+                                  want_solves[0].diverged)
+    np.testing.assert_array_equal(got_solves[0].diverged,
+                                  [False, True, False, False])
+    assert not got_solves[1].diverged.any()
+    np.testing.assert_array_equal(got.raw.iterations, want.raw.iterations)
+    np.testing.assert_allclose(got.alloc, want.alloc, rtol=1e-5, atol=1e-5)
+    assert got_stats["quarantined_lanes"] == want_stats["quarantined_lanes"]
+    assert min(launched.values()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_restores_onto_the_card(cuda_device):
+    """A checkpoint taken on the card restores its iterates onto the card
+    as float32, and the restored session's next step is a warm hit."""
+    insts = testing.session_instances(256, (64, 64, 64), churn=0.05)
+    cfg = SolveConfig(k=4, strategy="stratified", min_per_sub=8)
+    svc = PopService(device=cuda_device)
+    sess = svc.session("t", domain="gavel", solve=cfg)
+    sess.step(insts[0])
+    fresh = PopService(device=cuda_device)
+    assert fresh.restore(svc.checkpoint()) == {
+        "restored": ["t"], "cold": [], "errors": {}}
+    restored = fresh.session("t")
+    for it in (restored._warm.x, restored._warm.y):
+        assert it.is_cuda and it.dtype == torch.float32
+    a, b = restored.step(insts[1]), sess.step(insts[1])
+    assert a.plan_cache == "hit" and a.warm_fraction == 1.0
+    assert abs(a.metrics["mean_norm_throughput"]
+               - b.metrics["mean_norm_throughput"]) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 1], ids=["pop", "full"])
+def test_cuda_restores_a_reference_blob(cuda_device, k):
+    """A checkpoint the JAX package wrote (``tests/fixtures/session``: a
+    two-step traffic session, 24 demands) restores warm onto the card; the
+    next step equals the same restore's on the CPU within 1e-3."""
+    from pathlib import Path
+    from repro_torch.problems import traffic_engineering as te
+    blob = (Path(__file__).resolve().parent / "fixtures" / "session"
+            / f"reference_traffic24_k{k}.popses").read_bytes()
+    topo = te.make_topology(20, 40, seed=0)
+    pairs, dem = te.make_demands(topo, 24, seed=0)
+    paths = te.k_shortest_paths(topo, pairs, n_paths=2, max_len=10, seed=0)
+    nxt = te.TrafficProblem(topo, pairs, dem * 1.2, paths)
+    allocs = []
+    for device in (cuda_device, torch.device("cpu")):
+        svc = PopService(device=device)
+        assert svc.restore(blob, strict=True) == {
+            "restored": ["a"], "cold": [], "errors": {}}
+        sess = svc.session("a")
+        assert sess._warm.x.device.type == device.type
+        assert sess._warm.x.dtype == torch.float32
+        a = sess.step(nxt)
+        assert a.warm_fraction == 1.0
+        assert a.plan_cache == ("hit" if k > 1 else "full")
+        allocs.append(np.asarray(a.alloc, float))
+    np.testing.assert_allclose(allocs[0], allocs[1], atol=1e-3)

@@ -61,15 +61,19 @@ def _module_names():
 
 def test_new_modules_are_checked():
     """The dense and full-problem kernels, the LP containers, the traffic
-    and load-balancing domains, the rounding and max-min helpers and the
-    shared build are among the sources the import checks walk."""
+    and load-balancing domains, the rounding and max-min helpers, the
+    shared build, the session checkpoint codec, the page store and the
+    fault injectors are among the sources the import checks walk."""
     names = {str(p.relative_to(ROOT)) for p in _sources()}
     for rel in ("kernels/structured_full_pdhg_step.py", "kernels/build.py",
                 "kernels/pdhg_matvec.py", "kernels/fused_pdhg_step.py",
                 "core/problem.py", "problems/traffic_engineering.py",
                 "domains/traffic.py", "testing.py", "interop.py",
                 "problems/load_balancing.py", "domains/load_balance.py",
-                "core/rounding.py", "core/maxmin.py"):
+                "core/rounding.py", "core/maxmin.py",
+                "checkpoint/__init__.py", "checkpoint/session_state.py",
+                "checkpoint/paged.py", "analysis/__init__.py",
+                "analysis/faults.py"):
         assert f"src/repro_torch/{rel}" in names, rel
     assert "chip_smoke.py" in names
 

@@ -470,18 +470,44 @@ def test_domain_registered_with_reference_defaults():
 
 
 def test_step_override_that_returns_nan_raises(monkeypatch):
-    """No quarantine retry yet: a non-finite placement raises out of
-    ``step`` and leaves the warm state as it was."""
-    sess = PopService(device="cpu").session("lb", domain="load_balance")
-    spec = sess.spec
+    """The reference's quarantine of a ``step_override`` domain, in both
+    packages on the same instances: a first step whose every attempt
+    returns a non-finite placement has no warm state to drop and no
+    previous allocation or greedy hook to fall back on, so it raises;
+    with warm state, a broken warm attempt is retried cold
+    (``warm-quarantined``) and the step serves the cold placement."""
+    insts = (np.arange(1.0, 17.0), np.arange(1.0, 17.0) * 1.05)
 
-    def broken(inst, solve_cfg, exec_cfg, warm, *, device=None):
-        out = spec.step_override(inst, solve_cfg, exec_cfg, warm,
-                                 device=device)
-        return dataclasses.replace(out, alloc=np.full(out.alloc.shape,
-                                                      np.nan))
+    def broken_for(spec, when):
+        def broken(inst, solve_cfg, exec_cfg, warm, **kw):
+            out = spec.step_override(inst, solve_cfg, exec_cfg, warm, **kw)
+            if when == "always" or warm is not None:
+                out = dataclasses.replace(
+                    out, alloc=np.full(out.alloc.shape, np.nan))
+            return out
+        return broken
 
-    sess.spec = dataclasses.replace(spec, step_override=broken)
-    with pytest.raises(RuntimeError, match="non-finite"):
-        sess.step(BalanceInstance(np.arange(1.0, 17.0), 4))
-    assert sess.steps == 0 and sess._warm is None
+    got = {}
+    for name, svc, inst_type in (
+            ("reference", RefPopService(), RefBalanceInstance),
+            ("port", PopService(device="cpu"), BalanceInstance)):
+        sess = svc.session("lb", domain="load_balance")
+        spec = sess.spec
+        sess.spec = dataclasses.replace(
+            spec, step_override=broken_for(spec, "always"))
+        with pytest.raises(RuntimeError, match="no previous allocation"):
+            sess.step(inst_type(insts[0], 4))
+        assert sess.steps == 0 and sess._warm is None
+        sess.spec = dataclasses.replace(
+            spec, step_override=broken_for(spec, "warm"))
+        first = sess.step(inst_type(insts[0], 4))
+        second = sess.step(inst_type(insts[1], 4))
+        assert first.status == "ok" and first.faults == ()
+        assert second.status == "recovered"
+        assert second.faults == ("nonfinite-alloc", "warm-quarantined")
+        assert np.isfinite(second.alloc).all()
+        got[name] = (second.alloc, second.plan_cache, second.warm_fraction,
+                     svc.stats()["recovered_steps"], svc.stats()["faults"])
+    ref, port = got["reference"], got["port"]
+    np.testing.assert_array_equal(port[0], ref[0])
+    assert port[1:] == ref[1:] == ("miss", None, 1, 2)

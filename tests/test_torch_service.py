@@ -102,17 +102,29 @@ def test_small_instance_takes_full_path():
 
 
 def test_unported_options_raise():
+    """The dispatcher and the tuner still raise; paging and the deadline
+    ladder (item 10) are ported: a capped service pages its coldest
+    tenant out, and a deadline with no measured rate yet runs the full
+    solve."""
     with pytest.raises(NotImplementedError, match="item 11"):
         PopService(device="cpu", dispatch=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PopService(device="cpu", max_resident=4)
-    svc = PopService(device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        PopService(device="cpu", profile=object())
+    svc = PopService(device="cpu", max_resident=1)
+    assert svc.max_resident == 1
     with pytest.raises(NotImplementedError, match="item 12"):
         svc.session("t", domain="gavel", slo=object())
-    sess = svc.session("t", domain="gavel")
-    wl = make_cluster_workload(16, seed=0)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sess.step(GavelInstance(wl), deadline_s=1.0)
+    kw = dict(max_iters=250, tol_primal=1e-4, tol_gap=1e-4)
+    sess = svc.session("t", domain="gavel", solve=SolveConfig(**SESSION_KW),
+                       exec=ExecConfig(solver_kw=kw))
+    wl = make_cluster_workload(64, seed=0)
+    a = sess.step(GavelInstance(wl), deadline_s=1.0)
+    assert a.status == "ok" and a.faults == () and a.plan_cache == "miss"
+    svc.session("u", domain="gavel")
+    assert svc.stats()["paged_out"] == 1 and svc.tenants() == ("t", "u")
+    b = sess.step(GavelInstance(wl), deadline_s=100.0)
+    assert b.status == "ok" and b.plan_cache == "hit"
+    assert b.warm_fraction == 1.0 and svc.stats()["paged_in"] == 1
 
 
 def test_sessions_are_pinned_and_isolated():

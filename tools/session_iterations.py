@@ -2,7 +2,7 @@
 """Iteration counts of one three-step Gavel session, reference against port.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/session_iterations.py \
-        [--n-jobs 1024] [--churn 0.05] [--probe-keys 7 8 9]
+        [--n-jobs 1024] [--churn 0.05] [--probe-keys 7 8 9] [--resolves 2]
 
 Runs the session of ``chip_smoke.py``'s main path (cold, a +-3% throughput
 drift, then ``--churn`` of the jobs replaced under new ids; the ``gavel``
@@ -12,10 +12,14 @@ through the JAX reference and through the port on the CPU: with the
 reference's equilibration probes handed to the port (drawn from
 ``jax.random.PRNGKey(key)`` for each of ``--probe-keys``; the reference
 itself uses key 7), and with the port's own.  Prints each step's plan-cache
-verdict, lane-max and summed PDHG iterations, converged lanes and
-``mean_norm_throughput``: whether the reference itself takes more
-iterations on a repaired warm start than cold, and how far the iteration
-counts move with the probe draw.
+verdict, lane-max and summed PDHG iterations, the iterations of each lane,
+converged lanes and ``mean_norm_throughput``: whether the reference itself
+takes more iterations on a repaired warm start than cold, and how far the
+iteration counts move with the probe draw.  ``--resolves N`` runs the
+drifted instance N more times after the hit, each warm from the step
+before (what ``chip_smoke.py``'s ``robust`` phase does between its
+faults): how many iterations a warm re-solve of an unchanged instance
+takes from its own converged iterates.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ def run(name, session, make_instance, workloads):
     for a in steps:
         its = np.asarray(a.raw.iterations)
         print(f"{name:20s} {a.plan_cache:7s} lane max {int(its.max()):6d} "
-              f"sum {int(its.sum()):7d} converged "
+              f"sum {int(its.sum()):7d} lanes {its.tolist()} converged "
               f"{int(np.asarray(a.raw.converged).sum())}/{its.size} "
               f"mean_norm_throughput {a.metrics['mean_norm_throughput']:.6f}")
     print(f"{name:20s} {secs:.1f} s on the CPU", flush=True)
@@ -61,10 +65,13 @@ def main() -> None:
     ap.add_argument("--n-jobs", type=int, default=1024)
     ap.add_argument("--churn", type=float, default=0.05)
     ap.add_argument("--probe-keys", type=int, nargs="*", default=[7])
+    ap.add_argument("--resolves", type=int, default=0,
+                    help="re-solves of the drifted instance after the hit")
     args = ap.parse_args()
-    workloads = testing.session_workloads(
+    cold, drift, churn = testing.session_workloads(
         args.n_jobs, (args.n_jobs // 4,) * 3, args.churn,
         make_workload=ref_make_cluster_workload)
+    workloads = [cold, drift] + [drift] * args.resolves + [churn]
     run("reference", RefPopService().session("t", domain="gavel"),
         RefGavelInstance, workloads)
     own_probes = tpdhg.rademacher_probes
