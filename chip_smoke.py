@@ -42,9 +42,26 @@ Phases, each of which must pass:
              truncated and corrupted blobs restored cold; two tenants
              under ``max_resident=1``, the paged-in one a warm hit; the
              lane kernels' counts put back afterwards;
-6. profile   one more warm step under ``torch.profiler``: device time by
+6. async     async serving through ``PopService(dispatch=
+             DispatchConfig(max_lanes=32))``: four tenants of the main
+             path's size (seeds 0-3) step cold, then drifted, through
+             ``step_async`` under ``hold()``, each round one 32-lane launch
+             of the lane kernels (one CUDA launch a half-step, no group
+             fallback); three of them churned (24 lanes, padded to 32);
+             then a mixed round: two tenants share a 16-lane launch, an
+             8,192-job tenant launches on its own key, and a k=1 tenant of
+             512 jobs on the streaming engine launches inline on its own
+             thread (the full kernels).  Every step against the same step
+             run one after another without a dispatcher (equal per-lane
+             iterations, ``mean_norm_throughput`` within 1e-4), every lane
+             converged and the minimum above twice Gandiva's; then the
+             first two rounds through ``step_async`` without a dispatcher;
+             steps per second of the three ways, each round's prepare
+             share, ``side_pack`` per new operator, and a profiled round's
+             device busy share;
+7. profile   one more warm step under ``torch.profiler``: device time by
              kernel and the device's busy share;
-7. full      the unpartitioned traffic-engineering baseline at 20,000
+8. full      the unpartitioned traffic-engineering baseline at 20,000
              demands on the KDL-like topology through ``pop.solve_full_ex``
              (the ``fused_structured_full`` engine): the domain's
              defaults, then int8 coefficient storage (the same trajectory:
@@ -53,20 +70,20 @@ Phases, each of which must pass:
              30,000 iterations (the full-LP quality gate); then profiled
              fixed budgets of the full solve at the traffic shape (f32,
              int8) and at the Gavel full shape (f32, equilibrated);
-8. traffic   a POP session on the same instance (domain defaults: k=8
+9. traffic   a POP session on the same instance (domain defaults: k=8
              stratified): a cold step, every demand x 1.05 (a warm hit),
              and the CSPF heuristic beside POP and the full LP; a
              converged full LP must carry at least 99% of CSPF's flow;
-9. gavel-full the unpartitioned Gavel LP of the main path's fleet (Gavel
+10. gavel-full the unpartitioned Gavel LP of the main path's fleet (Gavel
              defaults, equilibrate), its fairness beside POP's;
-10. balance-kernels the lane and full kernels at load-balancing shapes
+11. balance-kernels the lane and full kernels at load-balancing shapes
              (1,024 shards on 64 servers): the stacked POP-4 relaxation and
              the single-lane full one with their ELL metadata, each solved
              at the conformance budget with the kernels, their plain
              versions on the card and the ``matvec`` engine (within 1e-5,
              equal iterations, one CUDA launch per half-step), their ELL
              fill and per-call times;
-11. balance  the paper's Fig. 5 (``benchmarks/bench_load_balancing.py``):
+12. balance  the paper's Fig. 5 (``benchmarks/bench_load_balancing.py``):
              the full relax-and-round, POP-k for k = 2, 4, 8, 16 and
              E-Store's greedy at 1,024 shards on 64 servers, held to the
              reference's gates (``tests/test_problems.py``); the matvec
@@ -74,13 +91,13 @@ Phases, each of which must pass:
              kernels per PDHG iteration of each run (two profiled fixed
              budgets); the host's relaxation build and repair, timed by
              wrapping them from here;
-12. balance-session the ``load_balance`` domain through
+13. balance-session the ``load_balance`` domain through
              ``PopService(device="cuda")`` at its defaults (k=4): 8,192
              shards on 256 servers, cold, a +-5% load drift (a hit), 5%
              shard churn (a repair, warm fraction 0.950), E-Store's greedy
              beside each step; valid placements within twice the load
              window;
-13. redesign the redesigned kernels' device times under the profiler:
+14. redesign the redesigned kernels' device times under the profiler:
              ``structured_forward_step`` and ``structured_backward_step``
              at 4, 8 and 16 blocks a lane (main-path shape),
              ``structured_full_forward_step`` in one launch and after a
@@ -88,7 +105,7 @@ Phases, each of which must pass:
              ``structured_full_backward_step`` at the traffic shape (f32,
              int8) and the Gavel full shape; run after the paths, since a
              profiler session slows every later host call;
-14. kernels-dense the four dense kernels (``bmatvec``, ``bmatvec_t``,
+15. kernels-dense the four dense kernels (``bmatvec``, ``bmatvec_t``,
              ``fused_forward_step``, ``fused_backward_step``) against their
              plain versions at the densified main-path stack [8, 4,099,
              6,145], the dense engine sweep's [32, 256, 256] and the
@@ -97,11 +114,11 @@ Phases, each of which must pass:
              plain version's, one ``torch.bmm`` of the same product (plus
              the tail in torch for the half-steps, timed in turns) and the
              bound;
-15. redesign-dense the redesigned matvecs' device times under the
+16. redesign-dense the redesigned matvecs' device times under the
              profiler at the densified stack, f32 and bf16 A, in turns
              with ``torch.bmm``, each one CUDA launch a call and
              bit-for-bit the same twice, beside the earlier design's;
-16. dense    the main path's k=8 Gavel stack densified
+17. dense    the main path's k=8 Gavel stack densified
              (``pdhg.structured_to_dense``) through ``backends.solve_map(
              engine="auto")``, which must take the ``fused`` engine: the
              launch counts against the count the code predicts, a fixed
@@ -110,17 +127,19 @@ Phases, each of which must pass:
              1e-3 of the structured path's solve of the same instance), and
              a profiled fixed budget; one CUDA launch a matvec call, and
              fairness within 1e-4 of the earlier design's;
-17. dense-sweep ``fused`` against ``matvec`` on random dense LP stacks
+18. dense-sweep ``fused`` against ``matvec`` on random dense LP stacks
              [k, 256, 256], k = 1..32 (the reference's engine sweep,
              ``benchmarks/bench_pop_scaling.py``), a fixed budget of 2,000
              iterations: equal iterations, times, the engines' distance;
-18. solve-dense ``pdhg.solve_dense`` at the reference's ``pdhg_vs_scipy``
+19. solve-dense ``pdhg.solve_dense`` at the reference's ``pdhg_vs_scipy``
              size against scipy's HiGHS, at the reference test's bounds.
 
 The kernels' launch counts (calls and, for the structured kernels and the
 matvecs, the CUDA launches the calls made, printed per call on the
 ``[launches]`` lines) are set to 0 just before each path and read just
-after it: the lane kernels' over the main path; the full kernels' over
+after it: the lane kernels' over the main path, and over each round of
+the async phase (with the full kernels'; put back afterwards); the full
+kernels' over
 each of the traffic f32 solve (the count the JSON line reports), the int8
 solve, the fixed-budget kernel run and the Gavel full solve; the lane and
 full kernels' again over each kernel solve of the balance-kernels phase;
@@ -267,6 +286,29 @@ SESSION_EPS, SESSION_CHURN = 0.15, 0.05
 # whose difference gives the kernels per PDHG iteration
 FORM_ITERS = 400
 LAUNCH_ITERS = (80, 160)
+# async serving: four Gavel tenants at the main path's size, coalesced
+ASYNC_SEEDS = (0, 1, 2, 3)
+ASYNC_LANES = 32
+# the mixed round's two tenants that cannot share the 16,384-job launch: a
+# Gavel tenant of 8,192 jobs (other lane shapes, its own key) and a k=1
+# tenant of 512 jobs on the streaming engine (no key: it launches inline;
+# converged in about 3,000 iterations on the CPU, where 1,024 jobs ran to
+# the 20,000-iteration cap)
+ASYNC_OTHER_JOBS = 8_192
+ASYNC_FULL_JOBS = 512
+ASYNC_FULL_WORKERS = (128, 128, 128)
+# the dispatcher's window: wide enough that a released round's last ticket
+# joins it; a full 32-lane group launches at once
+ASYNC_WAIT_MS = 20.0
+# each tenant against its synchronous step
+ASYNC_MEAN_TOL = 1e-4
+# the profiled round's fixed budget: its length does not hang on one lane
+ASYNC_PROFILE_ITERS = 2_000
+# a round of four 16,384-job tenants against PERF.md's step limit (printed)
+ASYNC_STEP_LIMIT_S = 2.0
+# the kernels on the async path's operators against their plain versions:
+# a conformance-budget solve's x and y (rtol = atol), as balance-kernels
+ASYNC_KERNEL_TOL = 1e-5
 
 
 class SmokeError(RuntimeError):
@@ -1216,6 +1258,418 @@ def phase_robust(device, insts):
           f"paged-in step: {again.plan_cache} at {again.warm_fraction}")
     kernel_mod.LAUNCHES.update(saved[0])
     kernel_mod.CUDA_LAUNCHES.update(saved[1])
+
+
+def _drifted(inst, seed):
+    """``inst`` with every throughput scaled by U(0.97, 1.03): a warm hit."""
+    from repro_torch.domains import GavelInstance
+    rng = np.random.default_rng(seed)
+    wl = dataclasses.replace(inst.wl, T=inst.wl.T * rng.uniform(
+        0.97, 1.03, inst.wl.T.shape))
+    return GavelInstance(wl, job_ids=inst.job_ids)
+
+
+def async_tenants():
+    """{tenant: (session kwargs, {round: instance})}: the four 16,384-job
+    tenants step cold ("C"), drifted ("D"), three of them churned ("P",
+    24 lanes), then "X" mixes tenant 3's churn and a fifth tenant's cold
+    step (one 16-lane launch) with the 8,192-job tenant and the k=1
+    tenant."""
+    from repro_torch import testing
+    from repro_torch.core.config import ExecConfig, SolveConfig
+    from repro_torch.domains import GavelInstance, get
+    from repro_torch.problems.cluster_scheduling import make_cluster_workload
+    gavel = get("gavel")
+    out = {}
+    for s in ASYNC_SEEDS:
+        cold, drift, churn = testing.session_instances(N_JOBS, NUM_WORKERS,
+                                                       CHURN, seed=s)
+        rounds = {"C": cold, "D": drift}
+        if s < 3:
+            rounds["P"] = churn
+        else:
+            rounds["X"] = churn
+        out[f"A{s}"] = ({}, rounds)
+    fifth = len(ASYNC_SEEDS)
+    out[f"A{fifth}"] = ({}, {"X": testing.session_instances(
+        N_JOBS, NUM_WORKERS, CHURN, seed=fifth)[0]})
+    other = testing.session_instances(ASYNC_OTHER_JOBS, NUM_WORKERS, CHURN,
+                                      seed=fifth + 1)[0]
+    out["B"] = ({}, {"X": other})
+    full = GavelInstance(make_cluster_workload(
+        ASYNC_FULL_JOBS, num_workers=ASYNC_FULL_WORKERS, seed=fifth + 2))
+    out["S"] = (dict(solve=SolveConfig(k=1), exec=ExecConfig(
+        engine="fused_structured_full",
+        solver_kw=gavel.default_exec.solver_dict())), {"X": full})
+    return out
+
+
+def _sessions(service, tenants):
+    return {name: service.session(name, next(iter(rounds.values())), **kw)
+            for name, (kw, rounds) in tenants.items()}
+
+
+def _wait_requests(disp, before: int, n: int, timeout: float = 120.0):
+    """Seconds until ``n`` requests past ``before`` reached the dispatcher
+    (each ticket is queued a few statements after it is counted)."""
+    t0 = time.perf_counter()
+    while disp.stats()["requests"] - before < n:
+        check(time.perf_counter() - t0 < timeout,
+              "requests did not reach the dispatcher")
+        time.sleep(0.001)
+    time.sleep(0.002)
+    return time.perf_counter() - t0
+
+
+def held_round(service, sessions, insts):
+    """Submit ``{tenant: instance}`` through ``step_async`` under
+    ``hold()``, release once every request reached the dispatcher, and
+    wait: ({tenant: Allocation}, round wall, seconds until the last request
+    reached the dispatcher)."""
+    disp = service.dispatcher
+    before = disp.stats()["requests"]
+    t0 = time.perf_counter()
+    with disp.hold():
+        futs = {name: sessions[name].step_async(inst)
+                for name, inst in insts.items()}
+        prep_s = _wait_requests(disp, before, len(futs))
+    allocs = {name: f.result(timeout=600) for name, f in futs.items()}
+    return allocs, time.perf_counter() - t0, prep_s
+
+
+def _lane_its(a):
+    return np.atleast_1d(np.asarray(a.raw.iterations if a.k > 1
+                                    else a.raw.res.iterations))
+
+
+def _against(tag, name, got, want):
+    """A tenant's step against its synchronous step: equal per-lane
+    iterations and mean_norm_throughput within ASYNC_MEAN_TOL (checked),
+    the largest allocation difference and bit equality (printed)."""
+    its_a, its_b = _lane_its(got), _lane_its(want)
+    d_mean = abs(got.metrics["mean_norm_throughput"]
+                 - want.metrics["mean_norm_throughput"])
+    d_alloc = float(np.max(np.abs(got.alloc - want.alloc)))
+    bits = bool(np.array_equal(got.alloc, want.alloc))
+    log(f"[async] {tag} {name}: {got.plan_cache}, iterations "
+        f"{its_a.tolist()} (sync {its_b.tolist()}), |d mean_norm_throughput|"
+        f" {d_mean:.3g}, max |d alloc| {d_alloc:.3g}, bit-identical {bits}; "
+        f"build_s {got.build_time_s:.4f} (sync {want.build_time_s:.4f}), "
+        f"solve_s {got.solve_time_s:.4f} (sync {want.solve_time_s:.4f})")
+    check(got.status == "ok" and got.plan_cache == want.plan_cache,
+          f"{tag} {name}: {got.status} {got.plan_cache}")
+    check(np.array_equal(its_a, its_b),
+          f"{tag} {name}: iterations {its_a.tolist()} against the "
+          f"synchronous step's {its_b.tolist()}")
+    check(d_mean < ASYNC_MEAN_TOL,
+          f"{tag} {name}: mean_norm_throughput differs by {d_mean:.3g}")
+    return bits
+
+
+def _fair(tag, name, a, inst, gandiva):
+    """Every lane converged and the minimum above twice Gandiva's."""
+    conv = np.atleast_1d(np.asarray(a.raw.converged if a.k > 1
+                                    else a.raw.res.converged))
+    base = gandiva.setdefault(id(inst), _gandiva(inst))
+    check(conv.all(), f"{tag} {name}: {int((~conv).sum())} lane(s) did "
+          "not converge")
+    check(np.isfinite(a.alloc).all(), f"{tag} {name}: allocation not finite")
+    check(a.metrics["min_norm_throughput"] > 2.0 * base,
+          f"{tag} {name}: min_norm_throughput "
+          f"{a.metrics['min_norm_throughput']:.5f} not above twice "
+          f"Gandiva's {base:.5f}")
+
+
+def _gandiva(inst) -> float:
+    from repro_torch.problems.cluster_scheduling import (GavelProblem,
+                                                         gandiva_heuristic)
+    return GavelProblem(inst.wl).evaluate(gandiva_heuristic(
+        inst.wl, space_sharing=False))["min_norm_throughput"]
+
+
+def _ms_per_iteration(allocs) -> float:
+    """A round's launch wall (the tenants' shares summed) over its lane
+    maximum of iterations, in ms."""
+    wall = sum(a.solve_time_s for a in allocs.values())
+    return wall * 1e3 / max(int(max(_lane_its(a).max()
+                                    for a in allocs.values())), 1)
+
+
+def hold_at_shape(tag, op, kernels, plain, calls_of, device):
+    """The kernels of ``kernels`` on one operator the async path launched,
+    against their plain versions on the same inputs: each half-step once
+    (tails exact, products within PRODUCT_RTOL) and a conformance-budget
+    solve through each engine (x and y within ASYNC_KERNEL_TOL, equal
+    iterations).  The caller puts the launch counts back."""
+    from repro_torch import testing
+    from repro_torch.core import pdhg
+    s = kernels.prep(op).data
+    errs = compare_case(calls_of(s, testing.step_tensors(s, device)))
+    got = pdhg.solve_stacked(op, engine=kernels, **CONFORMANCE_KW)
+    want = pdhg.solve_stacked(op, engine=plain, **CONFORMANCE_KW)
+    dx = float(np.abs(got.x - want.x).max())
+    dy = float(np.abs(got.y - want.y).max())
+    log(f"[async] kernels at {tag} ({op.c.shape[0]} lanes, N="
+        f"{op.c.shape[-1]}, M={op.q.shape[-1]}, narrow rows "
+        f"{tuple(s.row_idx.shape[1:])}, wide rows "
+        f"{tuple(s.wrow_idx.shape[1:])}): per call max abs err "
+        + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+        + f" (tails exact, products rtol=atol={PRODUCT_RTOL}); "
+        f"{kernels.name} against its plain versions at the conformance "
+        f"budget: max |dx| {dx:.3g}, max |dy| {dy:.3g} "
+        f"(rtol=atol={ASYNC_KERNEL_TOL})")
+    for name, a, b in (("x", got.x, want.x), ("y", got.y, want.y)):
+        check(np.allclose(a, b, rtol=ASYNC_KERNEL_TOL, atol=ASYNC_KERNEL_TOL),
+              f"{tag}: {name} of the kernels differs from the plain run's")
+    check(np.array_equal(got.iterations, want.iterations),
+          f"{tag}: iterations differ from the plain run's")
+
+
+def phase_async(device):
+    """Async serving: four 16,384-job Gavel tenants through
+    ``step_async`` on a ``PopService`` with a dispatcher, each held round
+    one 32-lane launch of the lane kernels, against the same steps run one
+    after another without a dispatcher and through ``step_async`` without
+    one; a 24-lane round padded to 32, a mixed round (two tenants sharing
+    16 lanes, an 8,192-job tenant on its own key, a k=1 tenant inline on
+    its own thread with the full kernels), the kernels held against their
+    plain versions on the operators these rounds launched, and a profiled
+    round.  The kernels' launch counts are put back as they were
+    afterwards."""
+    import threading
+    from repro_torch.core import backends as backends_mod
+    from repro_torch.core import pdhg
+    from repro_torch.core import pop as pop_mod
+    from repro_torch.core.config import ExecConfig
+    from repro_torch.domains import get
+    from repro_torch.kernels import structured_full_pdhg_step as full_mod
+    from repro_torch.kernels import structured_pdhg_step as kernel_mod
+    from repro_torch.service import DispatchConfig, PopService
+    saved = [(m, dict(m.LAUNCHES), dict(m.CUDA_LAUNCHES))
+             for m in (kernel_mod, full_mod)]
+    threads_before = threading.active_count()
+    t0 = time.perf_counter()
+    tenants = async_tenants()
+    log(f"[async] tenants: {len(tenants)} ({', '.join(tenants)}), "
+        f"instances drawn in {time.perf_counter() - t0:.2f} s")
+    order = ("C", "D", "P", "X")
+    gandiva: dict = {}
+
+    # 1. control: every step one after another, no dispatcher
+    sync = PopService(device=device)
+    ssess = _sessions(sync, tenants)
+    want, walls = {}, {}
+    for rnd in order:
+        for name, (_, rounds) in tenants.items():
+            if rnd in rounds:
+                t1 = time.perf_counter()
+                want[rnd, name] = ssess[name].step(rounds[rnd])
+                walls[rnd, name] = time.perf_counter() - t1
+    for rnd in order:
+        row = {n: (round(walls[rnd, n], 4),
+                   int(_lane_its(want[rnd, n]).max()))
+               for n in tenants if (rnd, n) in want}
+        log(f"[async] sync {rnd}: (wall s, lane-max iterations) {row}")
+
+    t_sync = time.perf_counter()
+
+    # 2. coalesced: held rounds through the dispatcher
+    service = PopService(device=device, dispatch=DispatchConfig(
+        max_lanes=ASYNC_LANES, max_wait_ms=ASYNC_WAIT_MS))
+    csess = _sessions(service, tenants)
+    disp = service.dispatcher
+    padded, stacks, full_preps = [], [], []
+    inner_pad = backends_mod.pad_lanes_pow2
+    inner_full = pop_mod.prepare_full
+
+    def recording_pad(batch):
+        out = inner_pad(batch)
+        padded.append(backends_mod.batch_size(out[0]))
+        stacks.append(out[0][0])
+        return out
+
+    def recording_full(*args, **kw):
+        prep = inner_full(*args, **kw)
+        full_preps.append(prep)
+        return prep
+
+    backends_mod.pad_lanes_pow2 = recording_pad
+    pop_mod.prepare_full = recording_full
+    packs = []
+    inner_pack = kernel_mod.side_pack
+
+    def timed_pack(name, side, v_len):
+        t1 = time.perf_counter()
+        had = kernel_mod._packs.get(id(side[0]))
+        p = inner_pack(name, side, v_len)
+        if p is not had:
+            packs.append((name, p.k, time.perf_counter() - t1))
+        return p
+
+    got, rounds_log, launched = {}, {}, {}
+    try:
+        for rnd in order:
+            insts = {n: r[rnd] for n, (_, r) in tenants.items() if rnd in r}
+            kernel_mod.side_pack = timed_pack if rnd in ("P", "X") \
+                else inner_pack
+            for mod, _, _ in saved:
+                zero_launches(mod)
+            del padded[:], stacks[:]
+            before = disp.stats()
+            allocs, wall, prep_s = held_round(service, csess, insts)
+            d = {k: v - before[k] for k, v in disp.stats().items()
+                 if k in before and k not in ("batching_ratio",
+                                              "lanes_per_launch", "max_group")}
+            lanes = {n: kernel_mod.LAUNCHES[n] for n in kernel_mod.LAUNCHES}
+            per_call = per_half_step(kernel_mod)
+            full_counts = dict(full_mod.LAUNCHES)
+            full_per = per_half_step(full_mod)
+            rounds_log[rnd] = (wall, prep_s, allocs)
+            launched[rnd] = stacks[0]
+            # the mixed round's launches overlap: no one launch wall there
+            launch = ("" if rnd == "X" else
+                      f", launch {sum(a.solve_time_s for a in allocs.values()):.4f}"
+                      f" s, {_ms_per_iteration(allocs):.4f} ms per iteration")
+            log(f"[async] round {rnd}: {len(insts)} tenants, wall "
+                f"{wall:.4f} s (the last request reached the dispatcher at "
+                f"{prep_s:.4f} s){launch}; "
+                f"dispatcher {d}; padded stacks {padded}; lane kernels "
+                f"{lanes} ({per_call} CUDA launches a call); full kernels "
+                f"{full_counts} ({full_per})")
+            for name, a in allocs.items():
+                got[rnd, name] = a
+                _against(rnd, name, a, want[rnd, name])
+                if name.startswith("A"):
+                    _fair(rnd, name, a, insts[name], gandiva)
+            check(d["group_fallbacks"] == 0,
+                  f"round {rnd}: {d['group_fallbacks']} group fallback(s)")
+            for n, c in lanes.items():
+                check(c > 0, f"round {rnd}: {n} was not launched")
+                check(per_call[n] == 1, f"round {rnd}: {n} made "
+                      f"{per_call[n]} CUDA launches a call")
+            if rnd in ("C", "D"):
+                check((d["launches"], d["coalesced_requests"], d["lanes"],
+                       padded) == (1, 4, ASYNC_LANES, [ASYNC_LANES]),
+                      f"round {rnd}: {d}, padded {padded}")
+            elif rnd == "P":
+                check((d["launches"], d["coalesced_requests"], d["lanes"],
+                       padded) == (1, 3, 24, [ASYNC_LANES]),
+                      f"round P: {d}, padded {padded}")
+            else:
+                # one coalesced launch of two tenants and one solo launch
+                # on the worker, and the k=1 tenant's inline launch
+                check((d["requests"], d["launches"], d["coalesced_launches"],
+                       d["coalesced_requests"], d["solo_launches"],
+                       padded) == (4, 3, 1, 2, 2, [16]),
+                      f"round X: {d}, padded {padded}")
+                for n, c in full_counts.items():
+                    check(c > 0 and full_per[n] == 1,
+                          f"round X: {n} {c} calls, {full_per[n]} CUDA "
+                          "launches a call")
+    finally:
+        backends_mod.pad_lanes_pow2 = inner_pad
+        pop_mod.prepare_full = inner_full
+        kernel_mod.side_pack = inner_pack
+    t_coalesced = time.perf_counter()
+    for name, k, s in packs:
+        log(f"[async] side_pack of a new {k}-lane operator ({name}): "
+            f"{s * 1e3:.3f} ms")
+
+    # the kernels at the shapes this path gave them, against their plain
+    # versions: round C's concatenated 32 lanes (ELL widths and bucket
+    # counts padded to the group maximum), round P's 24 lanes with 8
+    # replicas, round X's 16 lanes, and the k=1 tenant's full operator
+    lanes_eng = pdhg.fused_structured_engine()
+    for rnd in ("C", "P", "X"):
+        hold_at_shape(f"round {rnd}'s launch", launched[rnd], lanes_eng,
+                      pdhg.fused_structured_engine("ref"), lane_calls,
+                      device)
+    check(len(full_preps) == 1, f"round X: {len(full_preps)} full builds")
+    full = full_preps[0]
+    hold_at_shape("round X's k=1 tenant", full.ops, full.engine,
+                  pdhg.fused_structured_full_engine(
+                      "ref", *pdhg._wide_block_plans(full.ops.structured)),
+                  full_calls, device)
+    launched.clear()
+    t_held = time.perf_counter()
+
+    # 3. step_async without a dispatcher: four threads, four launches of
+    # round D, each tenant seeded with its synchronous cold step's result
+    four = [f"A{s}" for s in ASYNC_SEEDS]
+    plain = PopService(device=device)
+    psess = {n: plain.session(n, tenants[n][1]["C"]).seed(want["C", n].raw)
+             for n in four}
+    t1 = time.perf_counter()
+    futs = {n: psess[n].step_async(tenants[n][1]["D"]) for n in four}
+    allocs = {n: f.result(timeout=600) for n, f in futs.items()}
+    plain_wall = time.perf_counter() - t1
+    for name, a in allocs.items():
+        _against("plain D", name, a, want["D", name])
+    plain.close()
+
+    t_plain = time.perf_counter()
+
+    # 4. one coalesced round under the profiler (last: a finished profiler
+    # session slows later host calls): the four cold instances on fresh
+    # sessions at a fixed budget
+    capped = ExecConfig(solver_kw=dict(
+        get("gavel").default_exec.solver_dict(),
+        max_iters=ASYNC_PROFILE_ITERS))
+    insts = {f"{n}-profiled": tenants[n][1]["C"] for n in four}
+    fresh = {name: service.session(name, inst, exec=capped)
+             for name, inst in insts.items()}
+    before = disp.stats()
+    profiled("async-profile", lambda: held_round(service, fresh, insts),
+             lambda out: max(_lane_its(a).max() for a in out[0].values()))
+    d = {k: disp.stats()[k] - before[k] for k in ("launches", "lanes")}
+    check(d == {"launches": 1, "lanes": ASYNC_LANES},
+          f"profiled round: {d}")
+    t_profile = time.perf_counter()
+    service.close()
+    sync.close()
+    threads_after = threading.active_count()
+
+    members = {r: [n for n in tenants if (r, n) in want] for r in order}
+    sps = {("sync", r): len(members[r]) / sum(walls[r, n]
+                                              for n in members[r])
+           for r in order}
+    sps.update({("coalesced", r): len(members[r]) / rounds_log[r][0]
+                for r in order})
+    sps["plain", "D"] = len(four) / plain_wall
+    sync_ms = np.mean([want["D", n].solve_time_s * 1e3
+                       / _lane_its(want["D", n]).max() for n in four])
+    log("[async] steps per second: " + ", ".join(
+        f"{mode} {r} {v:.3f} ({v / sps['sync', r]:.3f}x sync)"
+        for (mode, r), v in sps.items())
+        + f"; rounds C and D together: sync "
+        f"{8 / sum(walls[r, n] for r in 'CD' for n in four):.3f}, coalesced "
+        f"{8 / (rounds_log['C'][0] + rounds_log['D'][0]):.3f}")
+    for r, (w, p, _) in rounds_log.items():
+        sync_sum = sum(walls[r, n] for n in members[r])
+        slowest = max(walls[r, n] for n in members[r])
+        log(f"[async] round {r} against the {ASYNC_STEP_LIMIT_S} s step "
+            f"limit: coalesced {w:.4f} s (prepare share {p / w:.3f}, "
+            f"within {w <= ASYNC_STEP_LIMIT_S}); sync {sync_sum:.4f} s one "
+            f"after another, slowest step {slowest:.4f} s (within "
+            f"{slowest <= ASYNC_STEP_LIMIT_S}); coalesced "
+            f"{sps['coalesced', r]:.3f} steps/s against sync "
+            f"{sps['sync', r]:.3f} (at least the sync rate "
+            f"{sps['coalesced', r] >= sps['sync', r]})")
+    log(f"[async] ms per iteration at 32 lanes "
+        f"{_ms_per_iteration(rounds_log['D'][2]):.4f} (round D) against "
+        f"{sync_ms:.4f} at 8 (the synchronous drift steps' mean)")
+    log(f"[async] phase parts: instances and control {t_sync - t0:.2f} s,"
+        f" coalesced rounds {t_coalesced - t_sync:.2f} s, the kernels held "
+        f"at their shapes {t_held - t_coalesced:.2f} s, step_async without "
+        f"a dispatcher {t_plain - t_held:.2f} s, the profiled round "
+        f"{t_profile - t_plain:.2f} s")
+    log(f"[async] threads: {threads_before} before the phase, "
+        f"{threads_after} after close(); dispatcher {disp.stats()}")
+    check(threads_after <= threads_before,
+          f"{threads_after - threads_before} thread(s) left running")
+    for mod, calls, cuda in saved:
+        mod.LAUNCHES.update(calls)
+        mod.CUDA_LAUNCHES.update(cuda)
 
 
 # each wrapper's CUDA kernels: the tail type in their names, the kernels,
@@ -2310,6 +2764,7 @@ def main() -> int:
         records.update(full_records)
         sess, insts, allocs, launches = phase("main", phase_main, device)
         phase("robust", phase_robust, device, insts)
+        phase("async", phase_async, device)
         profiled_ms = phase("profile", phase_profile, sess, insts[2])
         runs, full_paths = phase("full", phase_full, device, te_arrays)
         gavel_prob = gavel_full_problem()

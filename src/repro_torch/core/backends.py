@@ -27,6 +27,11 @@ Registered backends:
 ``backend="auto"`` picks by k and per-sub-problem size
 (:func:`select_backend`); the port drives one device per service, so the
 multi-device rule never fires.
+
+The serving dispatcher shares one launch across tenants through
+:func:`coalesce_key` (which prepared batches may share),
+:func:`concat_batches` / :func:`split_result` (lane concatenation and its
+undo) and :func:`pad_lanes_pow2`.
 """
 
 from __future__ import annotations
@@ -96,6 +101,15 @@ def cold_start(ops: OperatorLP) -> Tuple[torch.Tensor, torch.Tensor]:
     """x0 = clip(0, l, u), y0 = 0 — the solver's own cold start."""
     x0 = torch.minimum(torch.maximum(torch.zeros_like(ops.c), ops.l), ops.u)
     return x0, torch.zeros_like(ops.q)
+
+
+def _freeze_kw(solver_kw: dict):
+    """``(items, hashable)``: the solver keywords as a sorted tuple, and
+    whether they sort (unorderable keys keep insertion order, unhashable)."""
+    try:
+        return tuple(sorted(solver_kw.items())), True
+    except TypeError:
+        return tuple(solver_kw.items()), False
 
 
 def _solve_batch(batch, K_mv, KT_mv, solver_kw, engine) -> SolveResult:
@@ -261,3 +275,85 @@ def solve_one_ex(op: OperatorLP, K_mv, KT_mv,
                     engine=engine, warm=warm, **opts)
     return (map_arrays(lambda a: a[0], res), backend,
             pdhg.engine_name(engine))
+
+
+# --------------------------------------------------------------------------
+# cross-tenant coalescing: shared launches over concatenated batches
+# --------------------------------------------------------------------------
+
+def _dtype_name(a: torch.Tensor) -> str:
+    return str(a.dtype).removeprefix("torch.")
+
+
+def coalesce_key(ops: OperatorLP, K_mv, KT_mv, backend: str,
+                 engine: EngineSpec, solver_kw: dict, opts: dict):
+    """Hashable compatibility key for sharing one map-step launch across
+    prepared batches: two batches with EQUAL keys run the same solver
+    (matvecs, resolved backend and engine, solver keywords and options) on
+    the same device and may be lane-concatenated into one call without
+    changing any lane's trajectory.
+
+    Per-lane layouts must match exactly except the structured ELL widths
+    and wide-bucket counts, which :func:`~repro_torch.core.pdhg.
+    concat_stacks` pads to the group maximum (the key records only their
+    ndim and dtype).  Returns None, never coalesce, for the single-lane
+    streaming engine (``fused_structured_full`` takes one lane by design)
+    and for unhashable configs or matvecs.  The device is part of the key:
+    tenants on two devices never share a launch."""
+    kw_items, hashable = _freeze_kw(solver_kw)
+    if not hashable:
+        return None
+    try:
+        opt_items = tuple(sorted(opts.items()))
+        hash((kw_items, opt_items, K_mv, KT_mv, engine))
+    except TypeError:
+        return None
+    if isinstance(engine, StepEngine) and engine.name == "fused_structured_full":
+        return None
+    bare = ops._replace(structured=None)
+    leaves: list = []
+    map_arrays(leaves.append, bare)
+    lane_shapes = tuple((tuple(a.shape[1:]), _dtype_name(a)) for a in leaves)
+    s = ops.structured
+    skey = None if s is None else tuple(
+        None if v is None else (v.ndim, _dtype_name(v)) for v in s)
+    absent = tuple(f for f, v in zip(bare._fields, bare) if v is None)
+    return (absent, lane_shapes, skey, str(ops.c.device), K_mv,
+            KT_mv, backend, engine, kw_items, opt_items)
+
+
+def concat_batches(batches):
+    """Concatenate per-tenant ``(ops, warm_x, warm_y)`` batches on the lane
+    axis into one launch-sized batch (ops through :func:`~repro_torch.core.
+    pdhg.concat_stacks`, which pads structured ELL widths across tenants).
+    Returns ``(batch, sizes)``; :func:`split_result` undoes it."""
+    sizes = tuple(batch_size(b) for b in batches)
+    ops = pdhg.concat_stacks([b[0] for b in batches])
+    wx = torch.cat([b[1] for b in batches])
+    wy = torch.cat([b[2] for b in batches])
+    return (ops, wx, wy), sizes
+
+
+def split_result(res: SolveResult, sizes) -> list:
+    """A concatenated launch's :class:`SolveResult` cut back into
+    per-tenant results (lane ranges in submission order); each tenant's
+    arrays are its own copies, and None fields stay None."""
+    outs, start = [], 0
+    for s in sizes:
+        outs.append(map_arrays(
+            lambda a, i0=start, i1=start + s: a[i0:i1].copy(), res))
+        start += s
+    return outs
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def pad_lanes_pow2(batch):
+    """Pad a coalesced batch's lane count up to the next power of two by
+    repeating lane 0 (see :func:`pad_to_multiple`: replica lanes cannot
+    perturb real ones), so variable group sizes give O(log) distinct lane
+    counts.  Returns ``(padded, k)`` with the original k; slice results
+    ``[:k]``."""
+    return pad_to_multiple(batch, next_pow2(batch_size(batch)))

@@ -44,11 +44,13 @@ from __future__ import annotations
 
 import functools
 import inspect
+import threading
 from typing import Any, Callable, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from ..kernels.ref import norm_last, row_reduce, sum_last
 from .problem import BIG, LinearProgram
 
 
@@ -357,6 +359,41 @@ def stack_ops(subs: Sequence[OperatorLP]) -> OperatorLP:
     return ops._replace(structured=StructuredOperator(**stacked))
 
 
+def concat_stacks(stacks: Sequence[OperatorLP]) -> OperatorLP:
+    """Concatenate already-stacked OperatorLPs (leading ``[k_i]`` axes) into
+    one ``[sum k_i]`` stack: the cross-tenant analogue of :func:`stack_ops`,
+    used by the serving dispatcher to put concurrent tenants' stacks into
+    one launch.  The data-dependent trailing ELL widths and wide-bucket
+    counts pad to the maximum across stacks with ``idx 0, val 0.0``
+    entries; each lane's fold map keeps pointing at its own zero slot,
+    which stays a zero column of the widened wide arrays.  Lanes are
+    independent in :func:`solve_stacked`, so no lane's trajectory depends
+    on who shares its launch.  A stack without structured metadata drops
+    it from the result; mixed coefficient storage is dequantized to f32
+    first (both as :func:`stack_ops`)."""
+    stacks = list(stacks)
+    if len(stacks) == 1:
+        return stacks[0]
+    structs = [s.structured for s in stacks]
+    bare = [s._replace(structured=None) for s in stacks]
+    ops = zip_arrays(lambda *xs: torch.cat(xs), *bare)
+    if any(st is None for st in structs):
+        return ops
+    if len({st.coef_dtype for st in structs}) > 1:
+        structs = [dequantize_structured(st) for st in structs]
+    merged = {}
+    for f in StructuredOperator._fields:
+        vals = [getattr(st, f) for st in structs]
+        if any(v is None for v in vals):
+            merged[f] = None
+            continue
+        trail = tuple(max(v.shape[d] for v in vals)
+                      for d in range(1, vals[0].ndim))
+        merged[f] = torch.cat([_pad_to(v, (v.shape[0],) + trail)
+                               for v in vals])
+    return ops._replace(structured=StructuredOperator(**merged))
+
+
 class SolveResult(NamedTuple):
     """Solver outcome as numpy arrays (the reference's fields)."""
 
@@ -389,6 +426,26 @@ class StepEngine(NamedTuple):
     backward: Callable
     scale_data: Optional[Callable] = None
     prep: Optional[Callable] = None
+
+
+def _memoized(maxsize: int) -> Callable:
+    """``functools.lru_cache`` whose misses run one at a time: a step engine
+    is keyed by its identity (the serving dispatcher shares a launch only
+    between tenants whose engines are the same object), and two threads
+    that miss an unlocked cache together would each build their own."""
+    def deco(fn: Callable) -> Callable:
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+        lock = threading.Lock()
+
+        @functools.wraps(fn)
+        def memoized(*args, **kw):
+            with lock:
+                return cached(*args, **kw)
+
+        memoized.cache_clear = cached.cache_clear
+        memoized.cache_info = cached.cache_info
+        return memoized
+    return deco
 
 
 def _engine_from_matvecs(name: str, bK: Callable, bKT: Callable,
@@ -424,7 +481,7 @@ def _stacked(fn: Callable) -> Callable:
     return getattr(fn, "stacked", None) or _lanewise(fn)
 
 
-@functools.lru_cache(maxsize=64)
+@_memoized(maxsize=64)
 def matvec_engine(K_mv: Callable = dense_K_mv,
                   KT_mv: Callable = dense_KT_mv) -> StepEngine:
     """Generic operator engine over the problem's per-lane matvecs;
@@ -432,7 +489,7 @@ def matvec_engine(K_mv: Callable = dense_K_mv,
     return _engine_from_matvecs("matvec", _stacked(K_mv), _stacked(KT_mv))
 
 
-@functools.lru_cache(maxsize=16)
+@_memoized(maxsize=16)
 def fused_dense_engine(kernel_backend: Optional[str] = None) -> StepEngine:
     """Dense engine: ``op.data == (K,)`` with K ``[k, M, N]`` (f32 or bf16).
     ``K``/``KT`` (the power iteration, the equilibration probes, the final
@@ -465,7 +522,7 @@ def fused_dense_engine(kernel_backend: Optional[str] = None) -> StepEngine:
     return StepEngine("fused", K, KT, forward, backward, scale_data)
 
 
-@functools.lru_cache(maxsize=4)
+@_memoized(maxsize=4)
 def fused_structured_engine(kernel_backend: Optional[str] = None
                             ) -> StepEngine:
     """Structured engine: one ``kernels/ops.py`` call per half-step across
@@ -498,7 +555,7 @@ def fused_structured_engine(kernel_backend: Optional[str] = None
                       scale_structured, prep)
 
 
-@functools.lru_cache(maxsize=16)
+@_memoized(maxsize=16)
 def fused_structured_full_engine(kernel_backend: Optional[str] = None,
                                  row_plan: tuple = (),
                                  col_plan: tuple = ()) -> StepEngine:
@@ -731,8 +788,14 @@ def unscale_solution(x: torch.Tensor, y: torch.Tensor, d_r, d_c):
 # --------------------------------------------------------------------------
 
 def _vnorm(a: torch.Tensor) -> torch.Tensor:
-    """Per-sub-problem 2-norm: [k, n] -> [k]."""
-    return torch.linalg.vector_norm(a, dim=-1)
+    """Per-sub-problem 2-norm: [k, n] -> [k], each lane's the same whatever
+    the lane count (``kernels/ref.py:row_reduce``)."""
+    return row_reduce(norm_last, a)
+
+
+def _lane_sum(a: torch.Tensor) -> torch.Tensor:
+    """Per-sub-problem sum: [k, n] -> [k], as :func:`_vnorm`."""
+    return row_reduce(sum_last, a)
 
 
 def _bcast(cond: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -759,9 +822,9 @@ def _kkt_from_products(op: OperatorLP, x, y, kx, kty):
                         torch.zeros_like(op.q), op.q)
     prim_res = _vnorm(prim_viol) / (1.0 + _vnorm(q_eff))
     r = op.c + kty
-    p_obj = torch.sum(op.c * x, dim=-1)
-    d_obj = (-torch.sum(op.q * y, dim=-1)
-             + torch.sum(torch.minimum(op.l * r, op.u * r), dim=-1))
+    p_obj = _lane_sum(op.c * x)
+    d_obj = (-_lane_sum(op.q * y)
+             + _lane_sum(torch.minimum(op.l * r, op.u * r)))
     gap = torch.abs(p_obj - d_obj) / (1.0 + torch.abs(p_obj)
                                       + torch.abs(d_obj))
     return prim_res, gap, p_obj, d_obj

@@ -7,7 +7,11 @@ repository root and loaded with ``ctypes``.  The libraries are keyed on a
 hash of every file in ``csrc/`` (sources and shared headers) and the flags,
 and the first :func:`build` starts one ``nvcc`` per missing library, all at
 once, and waits for them together.  Nothing is built when this module is
-imported, and a failed build raises: there is no fallback.
+imported, and a failed build raises: there is no fallback.  One lock
+serialises :func:`build` and :func:`load` across the threads of a process
+(the serving dispatcher's worker and the callers' threads may touch the
+kernels first together), and each build writes a temporary file named by
+process and thread before it renames it into place.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -29,6 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # report) and how long it took, by source name
 build_info: dict = {}
 _libs: dict = {}
+# held by build() and load(): one thread builds, the others wait and find
+# the libraries built
+_lock = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -64,6 +72,11 @@ def library_path(name: str) -> Path:
 def build() -> dict:
     """Compile every library not built yet, one ``nvcc`` per source, all
     started together; returns ``{name: path}``."""
+    with _lock:
+        return _build()
+
+
+def _build() -> dict:
     paths = {src.stem: library_path(src.stem) for src in sources()}
     todo = {name: path for name, path in paths.items() if not path.exists()}
     if not todo:
@@ -73,7 +86,8 @@ def build() -> dict:
     t0 = time.perf_counter()
     procs = {}
     for name, out in todo.items():
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        tmp = out.with_name(
+            f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (cmd, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
@@ -95,6 +109,7 @@ def build() -> dict:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (building every missing
     library first)."""
-    if name not in _libs:
-        _libs[name] = ctypes.CDLL(str(build()[name]))
-    return _libs[name]
+    with _lock:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(build()[name]))
+        return _libs[name]

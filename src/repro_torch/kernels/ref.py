@@ -12,11 +12,52 @@ matvec directions are ``torch.gather`` + a sum over the nnz axis; the
 wide-bucket results are folded into their segments with ``index_add_``
 (the reference's one-hot accumulation: bucket ids are distinct, padded
 bucket columns add an exact 0.0 to segment 0).
+
+A lane's sums must not depend on how many lanes share its stack (the
+serving dispatcher stacks several tenants into one launch): every sum
+along a row runs through :func:`row_reduce` over at least
+:data:`LANE_ROWS` rows and in chunks of at most :data:`LANE_CHUNK`
+entries, and the wide-bucket sums run along rows of their own, where
+padding a bucket wider adds only zeros at a row's end.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+# the fewest rows a reduction along the last axis runs over.  CUDA's
+# reduction picks its block shape by the row count (each row summed 64
+# threads wide at 8 rows, 32 wide from 16 rows on), so without the padding
+# a lane's sum would change with the number of lanes in its stack
+LANE_ROWS = 16
+# the longest row reduced in one pass.  From about 131,000 entries a row
+# (256 values a thread of a 512-thread block) CUDA's reduction also splits
+# each row across blocks, as many as fill the card for the row count, so
+# longer rows are summed in chunks of this length first
+LANE_CHUNK = 65_536
+
+sum_last = functools.partial(torch.sum, dim=-1)
+norm_last = functools.partial(torch.linalg.vector_norm, dim=-1)
+
+
+def row_reduce(fn, a: torch.Tensor) -> torch.Tensor:
+    """``fn(a)`` for a sum or a 2-norm ``fn`` along the last axis of ``a``
+    ([rows, n]), each row's result the same whatever the number of rows:
+    it runs over at least :data:`LANE_ROWS` rows (zero rows appended,
+    their results dropped), and a row longer than :data:`LANE_CHUNK` is
+    reduced in zero-padded chunks of that length, then over its chunks'
+    results (a sum of sums, a norm of norms)."""
+    rows, n = a.shape
+    if n > LANE_CHUNK:
+        m = -(-n // LANE_CHUNK)
+        a = torch.nn.functional.pad(a, (0, m * LANE_CHUNK - n))
+        parts = row_reduce(fn, a.reshape(rows * m, LANE_CHUNK))
+        return row_reduce(fn, parts.reshape(rows, m))
+    if rows < LANE_ROWS:
+        a = torch.cat([a, a.new_zeros((LANE_ROWS - rows, n))])
+    return fn(a)[:rows]
 
 
 def bmatvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -44,8 +85,10 @@ def _gather_side(idx, val, widx, wval, wids, v, n_out):
         out += fold(wids, sum_w wval[:, w, :] * v[widx[:, w, :]])
     """
     out = torch.sum(val * _bgather(v, idx), dim=-2)          # [k, n_out]
-    wide = torch.sum(wval * _bgather(v, widx), dim=-2)       # [k, D]
-    k = wids.shape[0]
+    k, d = wids.shape
+    # each bucket column summed along a row of its own: [k * D, Ww]
+    prod = (wval * _bgather(v, widx)).transpose(1, 2).reshape(k * d, -1)
+    wide = row_reduce(sum_last, prod).reshape(k, d)          # [k, D]
     lane = torch.arange(k, device=wids.device)[:, None] * n_out
     flat = (wids.long() + lane).reshape(-1)
     return out.reshape(-1).index_add_(0, flat, wide.reshape(-1)).reshape(

@@ -37,19 +37,32 @@ by either package; corrupt or stale blobs degrade to cold starts.
 least recently stepped page out to a host-memory blob store and restore
 on ``session()`` re-entry or on a step through an old handle.
 
-Not ported yet (ROADMAP open items §1, items 11-12): the micro-batching
-dispatcher and ``step_async`` (``dispatch=``), and the SLO tuner
-(``profile=``, ``slo=``).  Their arguments raise ``NotImplementedError``.
+A service constructed with ``dispatch=`` (``True`` or a
+:class:`DispatchConfig`) runs every session's map-step launch through a
+**micro-batching dispatcher**: concurrent tenants' same-shape sub-problem
+stacks go to the device as ONE ``solve_stacked`` launch
+(``core/backends.py:coalesce_key`` decides which may share,
+``pdhg.concat_stacks`` pads structured ELL widths across tenants).
+``PopSession.step_async`` is the concurrent entry point (a
+``Future[Allocation]``); lanes are independent in the solver, so a
+tenant's result does not depend on who shared its launch.
+:meth:`PopService.close` stops the dispatcher and the ``step_async`` pool.
+
+Not ported yet (ROADMAP open items §1, item 12): the SLO tuner
+(``profile=``, ``slo=``); its arguments raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import json
+import queue
 import threading
 import time
 from collections import OrderedDict
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -63,7 +76,8 @@ from .core.pdhg import SolveResult
 from .core.plan import PopPlan, _host
 from .domains import DomainSpec, StepOutcome, registry as registry_mod
 
-__all__ = ["Allocation", "PopService", "PopSession"]
+__all__ = ["Allocation", "DispatchConfig", "MicroBatchDispatcher",
+           "PopService", "PopSession"]
 
 # default cap on the deadline ladder's per-(path, domain, config, shape)
 # rate/overhead EMA maps — a fleet churning through instance shapes would
@@ -201,6 +215,259 @@ def _count_diverged(res) -> int:
     return 0 if div is None else int(np.asarray(div).sum())
 
 
+# --------------------------------------------------------------------------
+# the micro-batching dispatcher: cross-tenant coalesced map-step launches
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DispatchConfig:
+    """Tuning for :class:`MicroBatchDispatcher`.
+
+    ``max_lanes`` caps a coalesced launch's lane count (the sum of the
+    grouped tenants' k); ``max_wait_ms`` is the micro-batch window: from the
+    first ticket's arrival the dispatcher collects company until the window
+    closes or ``max_lanes`` fills (a saturated queue fills the group with no
+    added wait); ``pad_pow2`` pads each coalesced launch's lane count up to
+    the next power of two with replica lanes, so variable group sizes give
+    O(log max_lanes) distinct stack shapes; ``workers`` sizes the service's
+    ``step_async`` thread pool."""
+
+    max_lanes: int = 64
+    max_wait_ms: float = 2.0
+    pad_pow2: bool = True
+    workers: int = 8
+
+
+class _Ticket:
+    """One tenant's prepared map-step launch, queued for dispatch."""
+
+    __slots__ = ("key", "batch", "prep", "K_mv", "KT_mv", "future")
+
+    def __init__(self, key, batch, prep, K_mv, KT_mv, future):
+        self.key = key
+        self.batch = batch
+        self.prep = prep
+        self.K_mv = K_mv
+        self.KT_mv = KT_mv
+        self.future = future
+
+
+def _on_device(device):
+    """A context that makes ``device`` the thread's current CUDA device
+    (nothing to do for the CPU)."""
+    if device is not None and torch.device(device).type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+class MicroBatchDispatcher:
+    """Coalesces concurrent tenants' prepared map-step launches.
+
+    Sessions prepare their solves on their own threads
+    (``pop.prepare_instance`` / ``pop.prepare_full``: plan, ELL packing,
+    the upload to the device) and submit the launch here; one worker thread
+    drains the queue, groups tickets by :func:`repro_torch.core.backends.
+    coalesce_key`, runs ONE map-backend call per group and slices the
+    per-tenant results back out.  Lanes are independent in
+    ``solve_stacked``, so a tenant's lanes follow the trajectory of a solo
+    launch; warm chains, plan provenance and the degradation ladder live in
+    the session layer above and never see the sharing.
+
+    The worker launches with ``device`` as its current CUDA device, on the
+    device's default stream, the stream the callers uploaded on.  A failed
+    group launch falls back to per-ticket solo launches, so one tenant's
+    pathological batch cannot fail its peers: only its own caller sees the
+    exception (which the session ladder then handles)."""
+
+    def __init__(self, cfg: Optional[DispatchConfig] = None, *, device=None):
+        self.cfg = cfg or DispatchConfig()
+        self.device = device
+        self._q: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._gate = threading.Event()
+        self._gate.set()
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._counts = {
+            "requests": 0, "launches": 0, "lanes": 0,
+            "coalesced_launches": 0, "coalesced_requests": 0,
+            "solo_launches": 0, "group_fallbacks": 0, "max_group": 0}
+        self._thread = threading.Thread(target=self._loop,
+                                        name="pop-dispatch", daemon=True)
+        self._thread.start()
+
+    # ------------------------------------------------------------- client --
+    def solve_prepared(self, prep, K_mv, KT_mv):
+        """Run one :class:`~repro_torch.core.pop.PreparedSolve`'s map-step
+        launch, blocking until its :class:`SolveResult` is ready.  Returns
+        ``(result, solve_time_s)``, the time being this tenant's
+        lane-weighted share of the launch's wall time.  Launches that
+        cannot share (the single-lane streaming engine, unhashable configs)
+        run inline on the calling thread, as do all launches once the
+        dispatcher is closed."""
+        batch = backends_mod.make_batch(prep.ops, prep.warm)
+        key = backends_mod.coalesce_key(prep.ops, K_mv, KT_mv, prep.backend,
+                                        prep.engine, prep.solver_kw,
+                                        prep.opts)
+        with self._lock:
+            self._counts["requests"] += 1
+        if key is None or not self._thread.is_alive():
+            tk = _Ticket(None, batch, prep, K_mv, KT_mv, None)
+            t1 = time.perf_counter()
+            res = self._launch(batch, tk)
+            wall = time.perf_counter() - t1
+            with self._lock:
+                self._counts["launches"] += 1
+                self._counts["solo_launches"] += 1
+                self._counts["lanes"] += backends_mod.batch_size(batch)
+            return res, wall
+        fut: "concurrent.futures.Future" = concurrent.futures.Future()
+        self._q.put(_Ticket(key, batch, prep, K_mv, KT_mv, fut))
+        return fut.result()
+
+    def hold(self):
+        """Context manager pausing batch collection: requests queue up
+        while held and dispatch in one sweep on release (deterministic
+        maximal coalescing for tests and benchmarks)."""
+        dispatcher = self
+
+        class _Hold:
+            def __enter__(self):
+                dispatcher._gate.clear()
+                return dispatcher
+
+            def __exit__(self, *exc):
+                dispatcher._gate.set()
+                return False
+
+        return _Hold()
+
+    def stats(self) -> dict:
+        """The counters and two ratios: ``batching_ratio``, requests served
+        per launch (above 1 when launches are shared), and
+        ``lanes_per_launch``, the mean stacked lane count (replica lanes
+        not counted)."""
+        with self._lock:
+            s = dict(self._counts)
+        served = s["coalesced_requests"] + s["solo_launches"]
+        s["batching_ratio"] = served / max(s["launches"], 1)
+        s["lanes_per_launch"] = s["lanes"] / max(s["launches"], 1)
+        return s
+
+    def close(self) -> None:
+        """Stop the worker thread and wait for it (idempotent); later
+        requests launch inline on their callers' threads."""
+        self._stop.set()
+        self._gate.set()
+        self._q.put(None)
+        self._thread.join(timeout=5.0)
+
+    # ------------------------------------------------------------- worker --
+    def _loop(self) -> None:
+        with _on_device(self.device):
+            while not self._stop.is_set():
+                self._gate.wait(timeout=0.25)
+                if not self._gate.is_set():
+                    continue
+                try:
+                    first = self._q.get(timeout=0.25)
+                except queue.Empty:
+                    continue
+                if first is None:
+                    continue
+                # a hold() that began while we were blocked in get(): keep
+                # the ticket and wait the hold out, so it joins the sweep
+                while not self._gate.is_set() and not self._stop.is_set():
+                    self._gate.wait(timeout=0.25)
+                tickets = [first]
+                lanes = self._drain(tickets,
+                                    backends_mod.batch_size(first.batch))
+                if lanes < self.cfg.max_lanes and self.cfg.max_wait_ms > 0:
+                    # the micro-batch window, from the first ticket's
+                    # arrival: it costs latency only under sparse traffic
+                    deadline = time.perf_counter() + self.cfg.max_wait_ms / 1e3
+                    while lanes < self.cfg.max_lanes:
+                        rem = deadline - time.perf_counter()
+                        if rem <= 0:
+                            break
+                        try:
+                            t = self._q.get(timeout=rem)
+                        except queue.Empty:
+                            break
+                        if t is None:
+                            continue
+                        tickets.append(t)
+                        lanes += backends_mod.batch_size(t.batch)
+                        lanes = self._drain(tickets, lanes)
+                groups: "OrderedDict[tuple, list]" = OrderedDict()
+                for t in tickets:
+                    groups.setdefault(t.key, []).append(t)
+                for grp in groups.values():
+                    self._run_group(grp)
+
+    def _drain(self, tickets: list, lanes: int) -> int:
+        while lanes < self.cfg.max_lanes:
+            try:
+                t = self._q.get_nowait()
+            except queue.Empty:
+                return lanes
+            if t is None:
+                continue
+            tickets.append(t)
+            lanes += backends_mod.batch_size(t.batch)
+        return lanes
+
+    def _launch(self, batch, tk) -> SolveResult:
+        """One map-backend call; its numpy result means the device is done
+        with it."""
+        prep = tk.prep
+        return backends_mod.get_backend(prep.backend)(
+            batch, tk.K_mv, tk.KT_mv, dict(prep.solver_kw),
+            engine=prep.engine, **prep.opts)
+
+    def _run_group(self, grp: list) -> None:
+        if len(grp) > 1:
+            t1 = time.perf_counter()
+            try:
+                batch, sizes = backends_mod.concat_batches(
+                    [t.batch for t in grp])
+                total = sum(sizes)
+                if self.cfg.pad_pow2:
+                    batch, _ = backends_mod.pad_lanes_pow2(batch)
+                res = self._launch(batch, grp[0])
+                parts = backends_mod.split_result(res, sizes)
+                wall = time.perf_counter() - t1
+                with self._lock:
+                    self._counts["launches"] += 1
+                    self._counts["lanes"] += total
+                    self._counts["coalesced_launches"] += 1
+                    self._counts["coalesced_requests"] += len(grp)
+                    self._counts["max_group"] = max(
+                        self._counts["max_group"], len(grp))
+                for tk, part, s in zip(grp, parts, sizes):
+                    tk.future.set_result((part, wall * (s / total)))
+                return
+            except Exception:
+                # a shared launch must not take its peers down with one bad
+                # tenant: every ticket retries solo, and only the bad
+                # tenant's caller sees its exception
+                with self._lock:
+                    self._counts["group_fallbacks"] += 1
+        for tk in grp:
+            t1 = time.perf_counter()
+            try:
+                res = self._launch(tk.batch, tk)
+                wall = time.perf_counter() - t1
+                with self._lock:
+                    self._counts["launches"] += 1
+                    self._counts["solo_launches"] += 1
+                    self._counts["lanes"] += backends_mod.batch_size(tk.batch)
+                tk.future.set_result((res, wall))
+            except BaseException as e:      # noqa: BLE001 — forwarded
+                tk.future.set_exception(e)
+                if not isinstance(e, Exception):
+                    raise
+
+
 class PopSession:
     """One tenant's stateful solving loop for one domain; create through
     :meth:`PopService.session`."""
@@ -311,6 +578,17 @@ class PopSession:
             self.last = alloc
         self.service._after_step(self)
         return alloc
+
+    def step_async(self, instance: Any, *,
+                   deadline_s: Optional[float] = None
+                   ) -> "concurrent.futures.Future":
+        """Submit :meth:`step` to the service's thread pool; returns a
+        ``Future[Allocation]``.  Steps of ONE session serialize on the
+        session lock (warm chains stay ordered); steps of different
+        sessions run concurrently, and when the service has a dispatcher
+        their map-step launches coalesce into shared device launches."""
+        return self.service._submit(self.step, instance,
+                                    deadline_s=deadline_s)
 
     # ------------------------------------------------- step_override domains --
     def _step_override(self, instance: Any, deadline_s: Optional[float],
@@ -766,19 +1044,20 @@ class PopService:
     constructor raises (pass ``device="cpu"`` to run on the CPU).  Shared
     state (the session table, stats, the ladder's rate maps, the LRU and
     pager bookkeeping) mutates under one service lock; per-tenant warm
-    state under that tenant's session lock.  ``max_resident=`` caps the
-    tenants that keep live warm state (the rest page out to host memory);
-    ``rate_cache_size`` bounds the ladder's rate maps."""
+    state under that tenant's session lock.  ``dispatch=`` (``True`` for
+    the :class:`DispatchConfig` defaults) turns on the cross-tenant
+    micro-batching dispatcher; ``max_resident=`` caps the tenants that keep
+    live warm state (the rest page out to host memory); ``rate_cache_size``
+    bounds the ladder's rate maps.  :meth:`close` (or leaving a ``with``
+    block) stops the dispatcher and the ``step_async`` pool."""
 
     def __init__(self, solve: Optional[SolveConfig] = None,
                  exec: Optional[ExecConfig] = None, *, device=None,
-                 dispatch=None, max_resident: Optional[int] = None,
+                 dispatch: Union[bool, DispatchConfig, None] = None,
+                 max_resident: Optional[int] = None,
                  rate_cache_size: int = RATE_CACHE_SIZE, profile=None):
-        for value, what, item in (
-                (dispatch, "dispatch= — the micro-batching dispatcher", "11"),
-                (profile, "profile= — the SLO tuner", "12")):
-            if value is not None:
-                raise _not_ported(what, item)
+        if profile is not None:
+            raise _not_ported("profile= — the SLO tuner", "12")
         self.device = backends_mod.resolve_device(device)
         # None means "not set" (domain defaults win)
         self._service_solve = solve
@@ -799,19 +1078,52 @@ class PopService:
         self._pager = paged_mod.PagedSessionStore()
         self.max_resident = (None if max_resident is None
                              else max(int(max_resident), 1))
+        self.dispatcher: Optional[MicroBatchDispatcher] = None
+        if dispatch:
+            cfg = dispatch if isinstance(dispatch, DispatchConfig) else None
+            self.dispatcher = MicroBatchDispatcher(cfg, device=self.device)
+        self._executor: \
+            Optional[concurrent.futures.ThreadPoolExecutor] = None
 
     # ------------------------------------------------------ solve funnels --
     def _solve_instance(self, problem, scfg, exec_cfg, *, warm,
                         entity_ids, **kw) -> "pop_mod.POPResult":
-        """Every session pop-path solve funnels through here."""
-        return pop_mod.solve_instance(problem, scfg, exec_cfg, warm=warm,
-                                      entity_ids=entity_ids,
-                                      device=self.device, **kw)
+        """Every session pop-path solve funnels through here: without a
+        dispatcher the one-call pipeline; with one, plan and build run on
+        the calling thread and only the map-step launch goes through the
+        dispatcher."""
+        if self.dispatcher is None:
+            return pop_mod.solve_instance(problem, scfg, exec_cfg, warm=warm,
+                                          entity_ids=entity_ids,
+                                          device=self.device, **kw)
+        prep = pop_mod.prepare_instance(problem, scfg, exec_cfg, warm=warm,
+                                        entity_ids=entity_ids,
+                                        device=self.device, **kw)
+        res, solve_s = self.dispatcher.solve_prepared(
+            prep, problem.K_mv, problem.KT_mv)
+        return pop_mod.finish_prepared(prep, res, solve_s)
 
     def _solve_full(self, problem, warm, exec_cfg) -> "pop_mod.FullResult":
         """The k=1 counterpart of :meth:`_solve_instance`."""
-        return pop_mod.solve_full_ex(problem, warm=warm, exec_cfg=exec_cfg,
-                                     device=self.device)
+        if self.dispatcher is None:
+            return pop_mod.solve_full_ex(problem, warm=warm,
+                                         exec_cfg=exec_cfg,
+                                         device=self.device)
+        prep = pop_mod.prepare_full(problem, warm=warm, exec_cfg=exec_cfg,
+                                    device=self.device)
+        res, solve_s = self.dispatcher.solve_prepared(
+            prep, problem.K_mv, problem.KT_mv)
+        return pop_mod.finish_full(prep, res, solve_s)
+
+    def _submit(self, fn, *args, **kw) -> "concurrent.futures.Future":
+        with self._lock:
+            if self._executor is None:
+                workers = (self.dispatcher.cfg.workers if self.dispatcher
+                           else DispatchConfig.workers)
+                self._executor = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=workers, thread_name_prefix="pop-step")
+            ex = self._executor
+        return ex.submit(fn, *args, **kw)
 
     def session(self, tenant: str, instance: Any = None, *,
                 domain: Optional[str] = None,
@@ -1145,7 +1457,8 @@ class PopService:
         (``resident_sessions``, ``paged_tenants``, ``paged_bytes`` and the
         ``paged_out``/``paged_in``/``page_restore_failures``/
         ``session_reentries`` traffic) and the bounded ladder caches
-        (``rate_evictions``, ``rate_keys``)."""
+        (``rate_evictions``, ``rate_keys``); with a dispatcher, its
+        counters under ``dispatch`` (:meth:`MicroBatchDispatcher.stats`)."""
         with self._lock:
             s = dict(self._stats)
             s["engines"] = dict(s["engines"])
@@ -1161,4 +1474,24 @@ class PopService:
         s["paged_tenants"] = len(self._pager)
         s["paged_bytes"] = self._pager.nbytes()
         s["n_sessions"] = resident + s["paged_tenants"]
+        if self.dispatcher is not None:
+            s["dispatch"] = self.dispatcher.stats()
         return s
+
+    def close(self) -> None:
+        """Shut down the ``step_async`` pool and the dispatcher thread
+        (idempotent).  Sessions, paged blobs and stats stay readable; later
+        synchronous steps launch inline."""
+        with self._lock:
+            ex, self._executor = self._executor, None
+        if ex is not None:
+            ex.shutdown(wait=True)
+        if self.dispatcher is not None:
+            self.dispatcher.close()
+
+    def __enter__(self) -> "PopService":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False

@@ -88,23 +88,26 @@ def step_tensors(s, device, seed: int = 1) -> dict:
 
 
 def session_workloads(n_jobs: int, num_workers, churn: float,
-                      make_workload=None):
+                      make_workload=None, seed: int = 0):
     """``[(workload, job_ids)]`` for three steps of one Gavel session: cold,
     a +-3% throughput drift on the same jobs, then ``churn`` of the jobs
     replaced by fresh ones under new ids (the rest keep theirs).
 
     ``make_workload`` defaults to the port's ``make_cluster_workload``; the
-    parity tests pass the reference's, which draws the same arrays."""
+    parity tests pass the reference's, which draws the same arrays.
+    ``seed`` draws another tenant: the workload from ``seed``, the drift
+    from ``seed + 1`` and the fresh jobs from ``seed + 2`` (0 gives the
+    arrays this function has always drawn)."""
     if make_workload is None:
         from .problems.cluster_scheduling import make_cluster_workload
         make_workload = make_cluster_workload
-    wl = make_workload(n_jobs, num_workers=num_workers, seed=0)
+    wl = make_workload(n_jobs, num_workers=num_workers, seed=seed)
     ids = np.arange(n_jobs)
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(seed + 1)
     wl2 = dataclasses.replace(wl, T=wl.T * rng.uniform(0.97, 1.03,
                                                       wl.T.shape))
     n_out = max(1, int(round(churn * n_jobs)))
-    fresh = make_workload(n_out, num_workers=num_workers, seed=2)
+    fresh = make_workload(n_out, num_workers=num_workers, seed=seed + 2)
     keep = np.arange(n_out, n_jobs)
 
     def cat(a, b):
@@ -119,11 +122,13 @@ def session_workloads(n_jobs: int, num_workers, churn: float,
     return [(wl, ids), (wl2, ids), (wl3, ids3)]
 
 
-def session_instances(n_jobs: int, num_workers, churn: float):
+def session_instances(n_jobs: int, num_workers, churn: float,
+                      seed: int = 0):
     """:func:`session_workloads` as the port's ``GavelInstance`` list."""
     from .domains import GavelInstance
     return [GavelInstance(wl, job_ids=ids)
-            for wl, ids in session_workloads(n_jobs, num_workers, churn)]
+            for wl, ids in session_workloads(n_jobs, num_workers, churn,
+                                             seed=seed)]
 
 
 def balance_ops(prob, k: int, device, structured: bool = False):

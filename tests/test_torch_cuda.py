@@ -1180,3 +1180,76 @@ def test_cuda_restores_a_reference_blob(cuda_device, k):
         assert a.plan_cache == ("hit" if k > 1 else "full")
         allocs.append(np.asarray(a.alloc, float))
     np.testing.assert_allclose(allocs[0], allocs[1], atol=1e-3)
+
+
+# --------------------------------------------------------------------------
+# async serving on the card: a coalesced round through the lane kernels
+# --------------------------------------------------------------------------
+
+def _coalesced_round(device, engine):
+    """Four 256-job Gavel tenants (k=4, a fixed budget) stepped cold through
+    ``step_async`` under a held dispatcher: one 16-lane launch.  Returns
+    ({tenant: Allocation}, the dispatcher's counters)."""
+    import time
+    from repro_torch.service import DispatchConfig
+    svc = PopService(device=device, dispatch=DispatchConfig(max_wait_ms=20))
+    cfg = dict(domain="gavel",
+               solve=SolveConfig(k=4, strategy="stratified", min_per_sub=8),
+               exec=ExecConfig(engine=engine, solver_kw=QUARANTINE_KW))
+    insts = {s: testing.session_instances(256, (64, 64, 64), churn=0.05,
+                                          seed=s)[0] for s in range(4)}
+    sessions = {s: svc.session(f"t{s}", **cfg) for s in insts}
+    try:
+        with svc.dispatcher.hold():
+            futs = {s: sessions[s].step_async(insts[s]) for s in insts}
+            t_end = time.monotonic() + 120
+            while (svc.dispatcher.stats()["requests"] < len(futs)
+                   and time.monotonic() < t_end):
+                time.sleep(0.01)
+        allocs = {s: f.result(timeout=300) for s, f in futs.items()}
+        return allocs, svc.dispatcher.stats()
+    finally:
+        svc.close()
+
+
+@pytest.mark.cuda
+def test_cuda_coalesced_round_matches_plain_versions(cuda_device):
+    """One held round of four tenants is one 16-lane launch of the lane
+    kernels, one CUDA launch a half-step, and every tenant's allocation is
+    the plain versions' coalesced round's within 1e-5 at equal
+    iterations."""
+    calls = dict(structured_pdhg_step.LAUNCHES)
+    before = dict(structured_pdhg_step.CUDA_LAUNCHES)
+    got, got_stats = _coalesced_round(cuda_device, "fused_structured")
+    n_calls = {name: n - calls[name]
+               for name, n in structured_pdhg_step.LAUNCHES.items()}
+    launched = {name: n - before[name]
+                for name, n in structured_pdhg_step.CUDA_LAUNCHES.items()}
+    want, want_stats = _coalesced_round(cuda_device,
+                                        pdhg.fused_structured_engine("ref"))
+    for stats in (got_stats, want_stats):
+        assert (stats["launches"], stats["coalesced_requests"],
+                stats["lanes"], stats["group_fallbacks"]) == (1, 4, 16, 0)
+    assert n_calls == launched and min(n_calls.values()) > 0
+    for s, a in got.items():
+        b = want[s]
+        assert a.status == b.status == "ok"
+        np.testing.assert_array_equal(a.raw.iterations, b.raw.iterations)
+        np.testing.assert_allclose(a.alloc, b.alloc, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [6_145, 136_000])
+@pytest.mark.parametrize("fn", ["sum", "norm"])
+def test_cuda_row_reduce_independent_of_row_count(cuda_device, n, fn):
+    """``kernels/ref.py:row_reduce`` on the card: a lane's sum (2-norm)
+    keeps its bits from a stack of 4 or 8 rows to one of 64, at the main
+    path's lane width and at load balancing's (whose rows CUDA's reduction
+    would split across blocks by the row count)."""
+    from repro_torch.kernels import ref
+    red = {"sum": ref.sum_last, "norm": ref.norm_last}[fn]
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    a = torch.randn(64, n, generator=gen, device=cuda_device)
+    whole = ref.row_reduce(red, a)
+    for rows in (4, 8):
+        assert torch.equal(ref.row_reduce(red, a[:rows]), whole[:rows])

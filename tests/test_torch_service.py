@@ -25,7 +25,7 @@ from repro_torch.core import plan as tplan, pop as tpop, reduce as treduce
 from repro_torch.core.config import ExecConfig, SolveConfig
 from repro_torch.domains import GavelInstance
 from repro_torch.problems.cluster_scheduling import GavelProblem
-from repro_torch.service import PopService
+from repro_torch.service import DispatchConfig, PopService
 
 from test_torch_pdhg import reference_probes
 
@@ -102,12 +102,18 @@ def test_small_instance_takes_full_path():
 
 
 def test_unported_options_raise():
-    """The dispatcher and the tuner still raise; paging and the deadline
-    ladder (item 10) are ported: a capped service pages its coldest
+    """The tuner still raises; the dispatcher (item 11), paging and the
+    deadline ladder (item 10) are ported: ``dispatch=True`` starts a
+    dispatcher that ``close()`` stops, a capped service pages its coldest
     tenant out, and a deadline with no measured rate yet runs the full
     solve."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PopService(device="cpu", dispatch=object())
+    import threading
+    with PopService(device="cpu", dispatch=True) as disp:
+        assert disp.dispatcher is not None
+        assert disp.dispatcher.cfg == DispatchConfig()
+        assert disp.stats()["dispatch"]["requests"] == 0
+    assert not disp.dispatcher._thread.is_alive()
+    assert not any(t.name == "pop-dispatch" for t in threading.enumerate())
     with pytest.raises(NotImplementedError, match="item 12"):
         PopService(device="cpu", profile=object())
     svc = PopService(device="cpu", max_resident=1)
