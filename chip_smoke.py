@@ -27,7 +27,29 @@ Phases, each of which must pass:
              stable ids); every lane converges and the allocation beats
              the Gandiva heuristic's fairness twice over, as the
              reference's own test holds it (``tests/test_problems.py``);
-5. robust    the serving ladder on the main path's instances through its
+5. tune      the tuner: ``tuning.build_profile`` over the gavel, traffic
+             and moe_placement probes at ``fast=False`` on the card, with
+             no other thread running (its curves, launch line,
+             ``launch_defaults``, thresholds, the engines its solves ran
+             and its wall); its seal through ``save_profile`` /
+             ``load_profile``; a session on the main path's fleet planned
+             from it at ``SLOTarget(max_quality_loss=0.02)`` (cold, drift,
+             churn: the planned k, predicted against measured step, every
+             lane converged, above twice Gandiva's fairness, the quality
+             against the untuned k=8 steps); a session under an impossible
+             deadline stepped until the online tuner doubles k (the next
+             steps warm); the lane kernels against their plain versions at
+             both sessions' stacks; ``dispatch=True`` sized by the launch
+             line;
+6. moe       MoE expert placement: ``benchmarks/bench_moe_placement.py``'s
+             defaults (512 experts on 16 devices: full, POP-4, POP-8, the
+             greedy) held to ``tests/test_domains.py``'s gates; a
+             ``moe_placement`` session at 4,096 experts on 64 devices
+             (cold, a +3% drift, 10% churn) with the greedy beside each
+             step; ``expert_gate_load`` at DeepSeek-V3's router width
+             (7,168 x 256, top-8, bf16, 16,384 tokens) fed to
+             ``plan_expert_placement`` onto 64 devices;
+7. robust    the serving ladder on the main path's instances through its
              own ``PopService`` (``main``'s session untouched): a cold
              step and a hit to measure the ladder's rates; NaN in warm
              lane 3 and a step on the drifted fleet, which must come back
@@ -42,7 +64,7 @@ Phases, each of which must pass:
              truncated and corrupted blobs restored cold; two tenants
              under ``max_resident=1``, the paged-in one a warm hit; the
              lane kernels' counts put back afterwards;
-6. async     async serving through ``PopService(dispatch=
+8. async     async serving through ``PopService(dispatch=
              DispatchConfig(max_lanes=32))``: four tenants of the main
              path's size (seeds 0-3) step cold, then drifted, through
              ``step_async`` under ``hold()``, each round one 32-lane launch
@@ -59,9 +81,9 @@ Phases, each of which must pass:
              steps per second of the three ways, each round's prepare
              share, ``side_pack`` per new operator, and a profiled round's
              device busy share;
-7. profile   one more warm step under ``torch.profiler``: device time by
+9. profile   one more warm step under ``torch.profiler``: device time by
              kernel and the device's busy share;
-8. full      the unpartitioned traffic-engineering baseline at 20,000
+10. full      the unpartitioned traffic-engineering baseline at 20,000
              demands on the KDL-like topology through ``pop.solve_full_ex``
              (the ``fused_structured_full`` engine): the domain's
              defaults, then int8 coefficient storage (the same trajectory:
@@ -70,20 +92,20 @@ Phases, each of which must pass:
              30,000 iterations (the full-LP quality gate); then profiled
              fixed budgets of the full solve at the traffic shape (f32,
              int8) and at the Gavel full shape (f32, equilibrated);
-9. traffic   a POP session on the same instance (domain defaults: k=8
+11. traffic   a POP session on the same instance (domain defaults: k=8
              stratified): a cold step, every demand x 1.05 (a warm hit),
              and the CSPF heuristic beside POP and the full LP; a
              converged full LP must carry at least 99% of CSPF's flow;
-10. gavel-full the unpartitioned Gavel LP of the main path's fleet (Gavel
+12. gavel-full the unpartitioned Gavel LP of the main path's fleet (Gavel
              defaults, equilibrate), its fairness beside POP's;
-11. balance-kernels the lane and full kernels at load-balancing shapes
+13. balance-kernels the lane and full kernels at load-balancing shapes
              (1,024 shards on 64 servers): the stacked POP-4 relaxation and
              the single-lane full one with their ELL metadata, each solved
              at the conformance budget with the kernels, their plain
              versions on the card and the ``matvec`` engine (within 1e-5,
              equal iterations, one CUDA launch per half-step), their ELL
              fill and per-call times;
-12. balance  the paper's Fig. 5 (``benchmarks/bench_load_balancing.py``):
+14. balance  the paper's Fig. 5 (``benchmarks/bench_load_balancing.py``):
              the full relax-and-round, POP-k for k = 2, 4, 8, 16 and
              E-Store's greedy at 1,024 shards on 64 servers, held to the
              reference's gates (``tests/test_problems.py``); the matvec
@@ -91,13 +113,15 @@ Phases, each of which must pass:
              kernels per PDHG iteration of each run (two profiled fixed
              budgets); the host's relaxation build and repair, timed by
              wrapping them from here;
-13. balance-session the ``load_balance`` domain through
+15. balance-session the ``load_balance`` domain through
              ``PopService(device="cuda")`` at its defaults (k=4): 8,192
              shards on 256 servers, cold, a +-5% load drift (a hit), 5%
              shard churn (a repair, warm fraction 0.950), E-Store's greedy
              beside each step; valid placements within twice the load
              window;
-14. redesign the redesigned kernels' device times under the profiler:
+16. moe-profile one more step of the MoE session (a hit) under the
+             profiler: kernels and device time per PDHG iteration;
+17. redesign the redesigned kernels' device times under the profiler:
              ``structured_forward_step`` and ``structured_backward_step``
              at 4, 8 and 16 blocks a lane (main-path shape),
              ``structured_full_forward_step`` in one launch and after a
@@ -105,7 +129,7 @@ Phases, each of which must pass:
              ``structured_full_backward_step`` at the traffic shape (f32,
              int8) and the Gavel full shape; run after the paths, since a
              profiler session slows every later host call;
-15. kernels-dense the four dense kernels (``bmatvec``, ``bmatvec_t``,
+18. kernels-dense the four dense kernels (``bmatvec``, ``bmatvec_t``,
              ``fused_forward_step``, ``fused_backward_step``) against their
              plain versions at the densified main-path stack [8, 4,099,
              6,145], the dense engine sweep's [32, 256, 256] and the
@@ -114,11 +138,11 @@ Phases, each of which must pass:
              plain version's, one ``torch.bmm`` of the same product (plus
              the tail in torch for the half-steps, timed in turns) and the
              bound;
-16. redesign-dense the redesigned matvecs' device times under the
+19. redesign-dense the redesigned matvecs' device times under the
              profiler at the densified stack, f32 and bf16 A, in turns
              with ``torch.bmm``, each one CUDA launch a call and
              bit-for-bit the same twice, beside the earlier design's;
-17. dense    the main path's k=8 Gavel stack densified
+20. dense    the main path's k=8 Gavel stack densified
              (``pdhg.structured_to_dense``) through ``backends.solve_map(
              engine="auto")``, which must take the ``fused`` engine: the
              launch counts against the count the code predicts, a fixed
@@ -127,18 +151,19 @@ Phases, each of which must pass:
              1e-3 of the structured path's solve of the same instance), and
              a profiled fixed budget; one CUDA launch a matvec call, and
              fairness within 1e-4 of the earlier design's;
-18. dense-sweep ``fused`` against ``matvec`` on random dense LP stacks
+21. dense-sweep ``fused`` against ``matvec`` on random dense LP stacks
              [k, 256, 256], k = 1..32 (the reference's engine sweep,
              ``benchmarks/bench_pop_scaling.py``), a fixed budget of 2,000
              iterations: equal iterations, times, the engines' distance;
-19. solve-dense ``pdhg.solve_dense`` at the reference's ``pdhg_vs_scipy``
+22. solve-dense ``pdhg.solve_dense`` at the reference's ``pdhg_vs_scipy``
              size against scipy's HiGHS, at the reference test's bounds.
 
 The kernels' launch counts (calls and, for the structured kernels and the
 matvecs, the CUDA launches the calls made, printed per call on the
 ``[launches]`` lines) are set to 0 just before each path and read just
-after it: the lane kernels' over the main path, and over each round of
-the async phase (with the full kernels'; put back afterwards); the full
+after it: the lane kernels' over the main path, over the tune phase's
+profile and its tuned session, and over each round of the async phase
+(with the full kernels'; put back afterwards); the full
 kernels' over
 each of the traffic f32 solve (the count the JSON line reports), the int8
 solve, the fixed-budget kernel run and the Gavel full solve; the lane and
@@ -153,6 +178,7 @@ device or outside the repository.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -309,6 +335,34 @@ ASYNC_STEP_LIMIT_S = 2.0
 # the kernels on the async path's operators against their plain versions:
 # a conformance-budget solve's x and y (rtol = atol), as balance-kernels
 ASYNC_KERNEL_TOL = 1e-5
+# the tuner: build_profile over the generic domains at fast=False (what
+# scripts/tune.py writes by default), a session on the main path's fleet
+# at a 2% quality loss, and a session under tests/test_tuning.py's
+# impossible deadline, stepped until the online tuner retunes k
+TUNE_DOMAINS = ("gavel", "traffic", "moe_placement")
+TUNE_SLO_LOSS = 0.02
+TUNE_DEADLINE_S = 1e-4
+TUNE_MAX_STEPS = 4
+# MoE expert placement: benchmarks/bench_moe_placement.py's defaults, held
+# to tests/test_domains.py's gates; a session of 16 DeepSeek-V3 MoE layers'
+# 256 routed experts placed together on a 64-GPU expert-parallel group
+# (domain defaults: k=4, min_per_sub=8, 8,000 iterations), a +3% load
+# drift, then 10% of the experts replaced; the router statistics at
+# DeepSeek-V3's width (d_model 7,168, 256 routed experts, top-8) over
+# 16,384 tokens of seeded random bf16 weights and activations
+MOE_BENCH_EXPERTS, MOE_BENCH_DEVICES = 512, 16
+MOE_BENCH_KS = (4, 8)
+MOE_SESSION_EXPERTS, MOE_SESSION_DEVICES = 4_096, 64
+MOE_DRIFT, MOE_CHURN = 1.03, 0.10
+GATE_D, GATE_E, GATE_TOP_K, GATE_TOKENS = 7_168, 256, 8, 16_384
+GATE_DEVICES = 64
+GATE_SUM_RTOL = 1e-3
+# each expert's load against its plain host version on the same inputs:
+# in f32 within GATE_F32_RTOL; in bf16 a top-8 cut tied within one bf16
+# step may go either way, so an expert may differ by its mass in such ties
+# (printed) plus GATE_BF16_RTOL of its load
+GATE_F32_RTOL = 1e-2
+GATE_BF16_RTOL = 1e-3
 
 
 class SmokeError(RuntimeError):
@@ -1047,6 +1101,446 @@ def phase_main(device, n_jobs=N_JOBS, num_workers=NUM_WORKERS):
     return sess, insts, allocs, launches
 
 
+# --------------------------------------------------------------------------
+# the tuner and MoE expert placement
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _observing(module, name: str, on_result):
+    """Within the block, ``module.name`` also hands every result it
+    returns to ``on_result``; the original is put back on leaving."""
+    inner = getattr(module, name)
+
+    def observed(*args, **kw):
+        out = inner(*args, **kw)
+        on_result(out)
+        return out
+
+    setattr(module, name, observed)
+    try:
+        yield
+    finally:
+        setattr(module, name, inner)
+
+
+def _log_profile(profile, wall: float) -> None:
+    from repro_torch import tuning
+    log(f"[tune] profile: platform {profile.platform}, device_count "
+        f"{profile.device_count}, {profile.jax_version}, built in "
+        f"{wall:.2f} s")
+    for name, c in profile.domains.items():
+        quality = [(int(k), round(q, 6)) for k, q in c.quality_vs_k]
+        latency = [(int(k), round(t, 5), int(i))
+                   for k, t, i in c.latency_vs_k]
+        replication = [(int(k), th, round(q, 6), round(t, 5))
+                       for k, th, q, t in c.replication]
+        log(f"[tune] {name}: probe_n {c.probe_n}, n_exponent "
+            f"{c.n_exponent:.4f}; quality_vs_k (k, rel) {quality}")
+        log(f"[tune] {name}: latency_vs_k (k, solve_s, iterations) "
+            f"{latency}")
+        log(f"[tune] {name}: replication (k, threshold, rel, solve_s) "
+            f"{replication}")
+    lc = profile.launch_cost
+    log(f"[tune] launch line: overhead_s {lc.get('overhead_s')}, per_lane_s "
+        f"{lc.get('per_lane_s')}, rows (lanes, s) {lc.get('rows')}; "
+        f"launch_defaults {tuning.launch_defaults(profile)}")
+    log(f"[tune] backend thresholds {profile.backend_thresholds}")
+
+
+def phase_tune(device, insts, main_allocs):
+    """The tuner on the card: ``build_profile`` over the three generic
+    domains at ``fast=False`` (what ``scripts/tune.py`` writes by default)
+    with nothing else running, its seal through ``save_profile`` /
+    ``load_profile``; a session on the main path's fleet at a 2% quality
+    loss (cold, drift, churn) against the untuned k=8 steps and Gandiva's;
+    a second session under an impossible deadline until the online tuner
+    retunes k; the lane kernels held against their plain versions at both
+    sessions' stacks; ``dispatch=True`` sized by the launch line.  The
+    installed thresholds are cleared and the launch counts put back
+    afterwards."""
+    import threading
+    from repro_torch import tuning
+    from repro_torch.core import backends as backends_mod
+    from repro_torch.core import pdhg
+    from repro_torch.core import pop as pop_mod
+    from repro_torch.kernels import structured_full_pdhg_step as full_mod
+    from repro_torch.kernels import structured_pdhg_step as kernel_mod
+    from repro_torch.service import DispatchConfig, PopService
+    saved = [(m, dict(m.LAUNCHES), dict(m.CUDA_LAUNCHES))
+             for m in (kernel_mod, full_mod)]
+    others = [t.name for t in threading.enumerate()
+              if t is not threading.current_thread()]
+    log(f"[tune] other threads before the profile: {others}")
+    check(not any(n.startswith("pop-") for n in others),
+          f"service threads running beside the profiler: {others}")
+    engines: dict = {}
+
+    def count(path):
+        def seen(res):
+            engines[path, res.engine] = engines.get((path, res.engine), 0) + 1
+        return seen
+
+    for mod, _, _ in saved:
+        zero_launches(mod)
+    with _observing(pop_mod, "solve_full_ex", count("k=1")), \
+            _observing(pop_mod, "solve_instance", count("k>1")):
+        t0 = time.perf_counter()
+        profile = tuning.build_profile(
+            domains=TUNE_DOMAINS, fast=False, device=device,
+            log=lambda m: log(f"[tune] {m.strip()}"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _log_profile(profile, wall)
+    log(f"[tune] the profile's solves by (path, engine): {engines}; lane "
+        f"kernels {dict(kernel_mod.LAUNCHES)}, full kernels "
+        f"{dict(full_mod.LAUNCHES)}")
+    check(set(profile.domains) == set(TUNE_DOMAINS),
+          f"profiled domains {sorted(profile.domains)}")
+    check(profile.platform == "cuda" and
+          profile.jax_version == "torch-" + torch.__version__,
+          f"platform {profile.platform}, version {profile.jax_version}")
+    check(profile.launch_cost and profile.backend_thresholds.get("cuda"),
+          "no launch line or thresholds measured")
+    path = ROOT / "build" / "TUNING_profile.smoke.json"
+    path.parent.mkdir(exist_ok=True)
+    tuning.save_profile(profile, path)
+    loaded = tuning.check_profile(tuning.load_profile(path),
+                                  platform="cuda")
+    check(loaded.digest == profile.digest
+          and tuning.profile_digest(loaded) == profile.digest,
+          "the seal did not survive save_profile / load_profile")
+    log(f"[tune] sealed {profile.digest[:23]}..., read back from "
+        f"{path.relative_to(ROOT)} and checked")
+
+    stacks: list = []
+    with _observing(pop_mod, "build", stacks.append):
+        # 3. a session planned from the profile at a 2% quality loss
+        service = PopService(device=device, profile=profile)
+        sess = service.session("tuned", insts[0], slo=tuning.SLOTarget(
+            max_quality_loss=TUNE_SLO_LOSS))
+        plan = sess._tuner.plan
+        log(f"[tune] plan for {insts[0].n_jobs} jobs at max_quality_loss "
+            f"{TUNE_SLO_LOSS}: k {plan.solve.k}, source {plan.source}, "
+            f"predicted_quality_loss {plan.predicted_quality_loss:.6f}, "
+            f"predicted_step_s {plan.predicted_step_s}")
+        zero_launches(kernel_mod)
+        del stacks[:]
+        allocs = []
+        for inst, untuned in zip(insts, main_allocs):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            a = sess.step(inst)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t1
+            allocs.append(a)
+            its = np.asarray(a.raw.iterations)
+            conv = np.asarray(a.raw.converged)
+            base = _gandiva(inst)
+            m = a.metrics
+            log("[tune] tuned " + json.dumps(dict(
+                plan_cache=a.plan_cache, k=a.k, engine=a.engine,
+                backend=a.backend, warm_fraction=a.warm_fraction,
+                iterations_sum=int(its.sum()),
+                iterations_max=int(its.max()),
+                converged=f"{int(conv.sum())}/{conv.size}",
+                build_s=a.build_time_s, solve_s=a.solve_time_s,
+                wall_s=wall_s, predicted_step_s=plan.predicted_step_s,
+                mean_norm_throughput=m["mean_norm_throughput"],
+                min_norm_throughput=m["min_norm_throughput"],
+                untuned_k8_mean=untuned.metrics["mean_norm_throughput"],
+                loss_against_untuned=1.0 - m["mean_norm_throughput"]
+                / untuned.metrics["mean_norm_throughput"],
+                predicted_quality_loss=plan.predicted_quality_loss,
+                gandiva_mean=base["mean_norm_throughput"],
+                gandiva_min=base["min_norm_throughput"])))
+            check(a.status == "ok" and a.k == plan.solve.k,
+                  f"tuned step: {a.status}, k {a.k}")
+            check(conv.all(), f"tuned step: {int((~conv).sum())} lane(s) "
+                  "did not converge")
+            check(m["min_norm_throughput"]
+                  > 2.0 * base["min_norm_throughput"],
+                  "tuned step does not beat Gandiva's fairness twice over")
+        verdicts = [a.plan_cache for a in allocs]
+        check(verdicts == ["miss", "hit", "repair"], f"verdicts {verdicts}")
+        per_call = per_half_step(kernel_mod)
+        log(f"[launches] tuned session: calls {dict(kernel_mod.LAUNCHES)}, "
+            f"per half-step {per_call}")
+        for name, n in kernel_mod.LAUNCHES.items():
+            check(n > 0 and per_call[name] == 1,
+                  f"tuned session: {name} {n} calls, {per_call[name]} CUDA "
+                  "launches a call")
+        tuned_stack = stacks[0]
+        st = service.stats()
+        log(f"[tune] tuned service: slo_violations {st['slo_violations']}, "
+            f"retunes {st['retunes']}")
+
+        # 4. an impossible deadline: the online tuner doubles k
+        svc2 = PopService(device=device, profile=profile)
+        s2 = svc2.session("retune", insts[0], slo=tuning.SLOTarget(
+            max_quality_loss=0.5, step_deadline_s=TUNE_DEADLINE_S))
+        seq, ks = [], []
+        for inst in [insts[0]] + [insts[1]] * TUNE_MAX_STEPS:
+            seq.append(s2.step(inst))
+            ks.append(seq[-1].k)
+            if s2.stats["retunes"]:
+                break
+        k_before = ks[-1]
+        del stacks[:]
+        after = s2.step(insts[1])
+        retuned_stack = stacks[0]
+        churned = s2.step(insts[2])
+        for a in seq + [after, churned]:
+            log(f"[tune] retune session: k {a.k}, {a.plan_cache}, warm "
+                f"fraction {a.warm_fraction}, solve_s {a.solve_time_s:.4f},"
+                f" status {a.status}")
+        st2 = svc2.stats()
+        log(f"[tune] retune session: ks {ks + [after.k, churned.k]}, "
+            f"slo_violations {st2['slo_violations']}, retunes "
+            f"{st2['retunes']}, solve_cfg {s2.solve_cfg}")
+        check(s2.stats["retunes"] > 0, f"no retune in {len(seq)} steps")
+        check(after.k == 2 * k_before,
+              f"retuned k {after.k}, not twice {k_before}")
+        check(after.status == "ok" and after.warm_fraction is not None
+              and after.warm_fraction > 0,
+              f"the first step at the new k: {after.status}, warm fraction "
+              f"{after.warm_fraction}")
+        check(churned.plan_cache in ("repair", "hit")
+              and churned.warm_fraction is not None
+              and churned.warm_fraction > 0,
+              f"the churn step at the new k: {churned.plan_cache}, warm "
+              f"fraction {churned.warm_fraction}")
+        check(st2["slo_violations"] > 0 and st2["retunes"] > 0,
+              f"counters {st2['slo_violations']}, {st2['retunes']}")
+
+    # the lane kernels at the two sessions' stacks, against their plain
+    # versions
+    lanes_eng = pdhg.fused_structured_engine()
+    for tag, op in (("the tuned session's cold stack", tuned_stack),
+                    ("the retuned session's stack", retuned_stack)):
+        hold_at_shape(tag, op, lanes_eng, pdhg.fused_structured_engine("ref"),
+                      lane_calls, device, prefix="tune")
+
+    # 5. dispatch=True sized by the launch line
+    tuned = tuning.launch_defaults(profile)
+    with PopService(device=device, profile=profile, dispatch=True) as svc3:
+        cfg = svc3.dispatcher.cfg
+    log(f"[tune] PopService(profile=..., dispatch=True): {cfg}")
+    check(cfg == (DispatchConfig(**tuned) if tuned else DispatchConfig()),
+          f"dispatch config {cfg} against launch_defaults {tuned}")
+    backends_mod.install_tuned_thresholds(None)
+    for mod, calls, cuda in saved:
+        mod.LAUNCHES.update(calls)
+        mod.CUDA_LAUNCHES.update(cuda)
+    return profile
+
+
+def _moe_row(name, ev, res=None, wall=None) -> dict:
+    row = {"run": name}
+    if res is not None:
+        raw = res.res if hasattr(res, "res") else res
+        its = np.atleast_1d(np.asarray(raw.iterations))
+        conv = np.atleast_1d(np.asarray(raw.converged))
+        row.update(engine=res.engine, backend=res.backend,
+                   solve_s=res.solve_time_s, build_s=res.build_time_s,
+                   wall_s=wall, iterations_sum=int(its.sum()),
+                   iterations_max=int(its.max()),
+                   converged=f"{int(conv.sum())}/{conv.size}")
+    row.update({k: ev[k] for k in ("served", "served_fraction", "objective",
+                                   "n_moved", "movement", "mem_feasible")})
+    return row
+
+
+def phase_moe(device):
+    """MoE expert placement on the card: ``benchmarks/
+    bench_moe_placement.py``'s defaults (full, POP-4, POP-8, the greedy)
+    held to ``tests/test_domains.py``'s gates; a ``moe_placement``
+    session at 4,096 experts on 64 devices (cold, drift, churn) with the
+    greedy beside each step; ``expert_gate_load`` at DeepSeek-V3's router
+    width over 16,384 tokens, fed to ``plan_expert_placement``.  Returns
+    the session and its last instance for the profiled step later."""
+    from repro_torch import testing
+    from repro_torch.core.config import SolveConfig
+    from repro_torch.domains import (greedy_placement,
+                                     make_placement_instance, place_experts)
+    from repro_torch.domains.moe_placement import (MoEPlacementInstance,
+                                                   _evaluate)
+    from repro_torch.models.moe import (expert_gate_load,
+                                        plan_expert_placement)
+    from repro_torch.service import PopService
+
+    # 1. the bench's row
+    inst = make_placement_instance(MOE_BENCH_EXPERTS, MOE_BENCH_DEVICES,
+                                   seed=0)
+    runs = {}
+    for name, cfg in [("full", SolveConfig(k=1))] + [
+            (f"pop{k}", SolveConfig(k=k, strategy="stratified"))
+            for k in MOE_BENCH_KS]:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, res, ev = place_experts(inst, solve_cfg=cfg, device=device)
+        torch.cuda.synchronize()
+        runs[name] = ev
+        log("[moe] bench " + json.dumps(_moe_row(
+            name, ev, res, time.perf_counter() - t1)))
+        check(res.engine == "matvec", f"{name}: engine {res.engine}")
+    ev_g = _evaluate(inst, greedy_placement(inst))
+    log("[moe] bench " + json.dumps(_moe_row("greedy", ev_g)))
+    full = runs["full"]
+    for k in MOE_BENCH_KS:
+        ev = runs[f"pop{k}"]
+        ratio = ev["objective"] / full["objective"]
+        log(f"[moe] POP-{k}: objective {ratio:.6f} of the full one's, "
+            f"n_moved {ev['n_moved']} against the greedy's "
+            f"{ev_g['n_moved']}")
+        check(ev["objective"] >= 0.985 * full["objective"],
+              f"POP-{k} objective below 0.985 of the full one's")
+        check(ev["mem_feasible"], f"POP-{k} placement over memory")
+        check(ev["objective"] > ev_g["objective"],
+              f"POP-{k} objective not above the greedy's")
+        check(ev["n_moved"] < 0.5 * ev_g["n_moved"],
+              f"POP-{k} moved {ev['n_moved']}, not below half the greedy's")
+
+    # 2. a session of 16 DeepSeek-V3 layers' experts on 64 GPUs
+    sess = PopService(device=device).session("moe", domain="moe_placement")
+
+    def step(inst):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        a = sess.step(inst)
+        torch.cuda.synchronize()
+        g = _evaluate(inst, greedy_placement(inst))
+        row = _moe_row(f"step {a.step} {a.plan_cache}", a.metrics, a.raw,
+                       time.perf_counter() - t1)
+        row.update(k=a.k, warm_fraction=a.warm_fraction,
+                   greedy_served=g["served"], greedy_objective=g["objective"],
+                   greedy_n_moved=g["n_moved"])
+        log("[moe] session " + json.dumps(row))
+        check(a.status == "ok" and a.engine == "matvec",
+              f"session step: {a.status}, engine {a.engine}")
+        check(a.alloc.shape == (inst.n_experts,)
+              and ((a.alloc >= 0) & (a.alloc < inst.n_devices)).all()
+              and a.metrics["mem_feasible"],
+              f"session step {a.step}: the placement is not valid")
+        return a
+
+    insts, allocs = testing.moe_session(
+        step, MOE_SESSION_EXPERTS, MOE_SESSION_DEVICES, MOE_DRIFT,
+        MOE_CHURN)
+    verdicts = [a.plan_cache for a in allocs]
+    check(verdicts == ["miss", "hit", "repair"], f"verdicts {verdicts}")
+    check(allocs[1].warm_fraction == 1.0
+          and 0 < allocs[2].warm_fraction < 1.0,
+          f"warm fractions {[a.warm_fraction for a in allocs]}")
+
+    # 3. the router statistics at DeepSeek-V3's width, fed to the placer
+    gen = torch.Generator(device=device).manual_seed(0)
+    router = (torch.randn(GATE_D, GATE_E, generator=gen, device=device)
+              / GATE_D ** 0.5).to(torch.bfloat16)
+    x = torch.randn(1, GATE_TOKENS, GATE_D, generator=gen,
+                    device=device).to(torch.bfloat16)
+    gate_s = []
+    for _ in range(2):          # the first call sets up the bf16 GEMM
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        load = expert_gate_load({"router": router}, x, top_k=GATE_TOP_K)
+        gate_s.append(time.perf_counter() - t1)
+    rel = abs(load.sum() - GATE_TOKENS) / GATE_TOKENS
+    log(f"[moe] expert_gate_load D={GATE_D}, E={GATE_E}, top-{GATE_TOP_K}, "
+        f"{GATE_TOKENS} tokens, bf16: first call {gate_s[0] * 1e3:.2f} ms,"
+        f" second {gate_s[1] * 1e3:.2f} ms (with the copy to the host), "
+        f"load sum "
+        f"{load.sum():.6f} (relative error {rel:.3g}), min {load.min():.3f},"
+        f" max {load.max():.3f}")
+    check(load.shape == (GATE_E,) and (load >= 0).all(),
+          f"gate load shape {load.shape}")
+    check(rel < GATE_SUM_RTOL, f"gate load sums to {load.sum()}, not "
+          f"{GATE_TOKENS} within {GATE_SUM_RTOL}")
+    # against the plain version: in f32 on f32 copies of the same inputs,
+    # then the bf16 load itself
+    load32 = expert_gate_load({"router": router.float()}, x.float(),
+                              top_k=GATE_TOP_K)
+    plain32, _, _ = _plain_gate_load(router.float(), x.float(), GATE_TOP_K)
+    rel32 = np.abs(load32 - plain32) / plain32
+    plain, tied_mass, n_tied = _plain_gate_load(router, x, GATE_TOP_K)
+    diff = np.abs(load - plain)
+    allowed = tied_mass + GATE_BF16_RTOL * plain
+    log(f"[moe] expert_gate_load against its plain host version: f32 "
+        f"per-expert relative difference max {rel32.max():.3g} (limit "
+        f"{GATE_F32_RTOL}); bf16 max {(diff / plain).max():.3g}, median "
+        f"{np.median(diff / plain):.3g}, {n_tied} of {GATE_TOKENS} tokens "
+        f"with a top-{GATE_TOP_K} cut tied within one bf16 step, tied mass "
+        f"per expert up to {(tied_mass / plain).max():.3g} of its load, "
+        f"difference at most {(diff / allowed).max():.3g} of the allowed "
+        f"(tied mass + {GATE_BF16_RTOL} of the load)")
+    check(rel32.max() < GATE_F32_RTOL,
+          f"f32 expert_gate_load differs from its plain version by "
+          f"{rel32.max():.3g} relative (expert {int(rel32.argmax())})")
+    check((diff <= allowed).all(),
+          f"bf16 expert_gate_load differs from its plain version beyond "
+          f"the tied mass (expert {int((diff / allowed).argmax())}: "
+          f"{diff.max():.3g})")
+    t1 = time.perf_counter()
+    placement = plan_expert_placement(load, GATE_DEVICES, device=device)
+    place_s = time.perf_counter() - t1
+    # the instance plan_expert_placement builds
+    E = load.shape[0]
+    pinst = MoEPlacementInstance(
+        load=load, mem=np.ones(E), current=np.arange(E) % GATE_DEVICES,
+        cap=np.full(GATE_DEVICES, np.ceil(2.0 * E / GATE_DEVICES)),
+        compute=np.full(GATE_DEVICES, load.sum() / GATE_DEVICES))
+    ev = _evaluate(pinst, placement)
+    ev_g = _evaluate(pinst, greedy_placement(pinst))
+    ev_c = _evaluate(pinst, pinst.current)
+    log(f"[moe] plan_expert_placement onto {GATE_DEVICES} devices in "
+        f"{place_s:.3f} s: " + json.dumps(dict(
+            served=ev["served"], objective=ev["objective"],
+            n_moved=ev["n_moved"], mem_feasible=ev["mem_feasible"],
+            greedy_served=ev_g["served"], greedy_objective=ev_g["objective"],
+            greedy_n_moved=ev_g["n_moved"], current_served=ev_c["served"],
+            served_at_least_greedy=ev["served"] >= ev_g["served"])))
+    check(ev["mem_feasible"], "the gate-load placement is over memory")
+    check(ev["served"] > ev_c["served"],
+          "the gate-load placement serves no more than the current one")
+    check(ev["n_moved"] < ev_g["n_moved"],
+          "the gate-load placement moves as many experts as the greedy")
+    return sess, insts[-1]
+
+
+def _plain_gate_load(router, x, top_k: int):
+    """``expert_gate_load``'s plain version on the host: the logits in f32
+    numpy from the same values, rounded to ``x``'s dtype as the port
+    computes them, an f32 softmax, the top-k by argsort, the normalised
+    gates summed per expert by a weighted bincount.  Also returns each
+    expert's gate mass in tokens whose top-k cut it ties within one step
+    of ``x``'s dtype (inside the top-k or just outside it): the mass a
+    different tie-break or a logit rounded the other way can move."""
+    xs = x.reshape(-1, x.shape[-1]).float().cpu().numpy()
+    logits = torch.from_numpy(xs @ router.float().cpu().numpy())
+    logits = logits.to(x.dtype).float().numpy()
+    z = np.exp(logits - logits.max(-1, keepdims=True))
+    probs = z / z.sum(-1, keepdims=True)
+    top = np.argsort(-logits, axis=-1, kind="stable")[:, :top_k]
+    top_sum = np.take_along_axis(probs, top, -1).sum(-1, keepdims=True)
+    gates = np.take_along_axis(probs, top, -1) / (top_sum + 1e-9)
+    E = router.shape[1]
+    load = np.bincount(top.ravel(), weights=gates.ravel(), minlength=E)
+    cut = np.take_along_axis(logits, top[:, -1:], -1)
+    step = torch.finfo(x.dtype).eps * np.abs(cut)
+    tied = np.abs(logits - cut) <= step
+    tied_mass = (np.where(tied, probs, 0.0) / (top_sum + 1e-9)).sum(0)
+    return load, tied_mass, int((tied.sum(-1) > 1).sum())
+
+
+def phase_moe_profile(sess, inst):
+    """One more step of the MoE session (a hit) under the profiler:
+    kernels and device time per PDHG iteration."""
+    per_call, a = profiled("moe-profile", lambda: sess.step(inst),
+                           lambda a: np.max(a.raw.iterations))
+    check(a.plan_cache == "hit" and a.engine == "matvec",
+          f"profiled MoE step: {a.plan_cache}, {a.engine}")
+    return per_call
+
+
 def _timed(record: list, fn):
     """``fn`` wrapped to append its wall seconds to ``record``."""
     def run(*args, **kw):
@@ -1370,7 +1864,8 @@ def _fair(tag, name, a, inst, gandiva):
     """Every lane converged and the minimum above twice Gandiva's."""
     conv = np.atleast_1d(np.asarray(a.raw.converged if a.k > 1
                                     else a.raw.res.converged))
-    base = gandiva.setdefault(id(inst), _gandiva(inst))
+    base = gandiva.setdefault(id(inst),
+                              _gandiva(inst)["min_norm_throughput"])
     check(conv.all(), f"{tag} {name}: {int((~conv).sum())} lane(s) did "
           "not converge")
     check(np.isfinite(a.alloc).all(), f"{tag} {name}: allocation not finite")
@@ -1380,11 +1875,12 @@ def _fair(tag, name, a, inst, gandiva):
           f"Gandiva's {base:.5f}")
 
 
-def _gandiva(inst) -> float:
+def _gandiva(inst) -> dict:
+    """Gandiva's allocation of ``inst``, evaluated."""
     from repro_torch.problems.cluster_scheduling import (GavelProblem,
                                                          gandiva_heuristic)
     return GavelProblem(inst.wl).evaluate(gandiva_heuristic(
-        inst.wl, space_sharing=False))["min_norm_throughput"]
+        inst.wl, space_sharing=False))
 
 
 def _ms_per_iteration(allocs) -> float:
@@ -1395,8 +1891,9 @@ def _ms_per_iteration(allocs) -> float:
                                     for a in allocs.values())), 1)
 
 
-def hold_at_shape(tag, op, kernels, plain, calls_of, device):
-    """The kernels of ``kernels`` on one operator the async path launched,
+def hold_at_shape(tag, op, kernels, plain, calls_of, device,
+                  prefix="async"):
+    """The kernels of ``kernels`` on one operator a path launched,
     against their plain versions on the same inputs: each half-step once
     (tails exact, products within PRODUCT_RTOL) and a conformance-budget
     solve through each engine (x and y within ASYNC_KERNEL_TOL, equal
@@ -1409,7 +1906,7 @@ def hold_at_shape(tag, op, kernels, plain, calls_of, device):
     want = pdhg.solve_stacked(op, engine=plain, **CONFORMANCE_KW)
     dx = float(np.abs(got.x - want.x).max())
     dy = float(np.abs(got.y - want.y).max())
-    log(f"[async] kernels at {tag} ({op.c.shape[0]} lanes, N="
+    log(f"[{prefix}] kernels at {tag} ({op.c.shape[0]} lanes, N="
         f"{op.c.shape[-1]}, M={op.q.shape[-1]}, narrow rows "
         f"{tuple(s.row_idx.shape[1:])}, wide rows "
         f"{tuple(s.wrow_idx.shape[1:])}): per call max abs err "
@@ -1479,22 +1976,11 @@ def phase_async(device):
     csess = _sessions(service, tenants)
     disp = service.dispatcher
     padded, stacks, full_preps = [], [], []
-    inner_pad = backends_mod.pad_lanes_pow2
-    inner_full = pop_mod.prepare_full
 
-    def recording_pad(batch):
-        out = inner_pad(batch)
+    def on_pad(out):
         padded.append(backends_mod.batch_size(out[0]))
         stacks.append(out[0][0])
-        return out
 
-    def recording_full(*args, **kw):
-        prep = inner_full(*args, **kw)
-        full_preps.append(prep)
-        return prep
-
-    backends_mod.pad_lanes_pow2 = recording_pad
-    pop_mod.prepare_full = recording_full
     packs = []
     inner_pack = kernel_mod.side_pack
 
@@ -1507,69 +1993,72 @@ def phase_async(device):
         return p
 
     got, rounds_log, launched = {}, {}, {}
-    try:
-        for rnd in order:
-            insts = {n: r[rnd] for n, (_, r) in tenants.items() if rnd in r}
-            kernel_mod.side_pack = timed_pack if rnd in ("P", "X") \
-                else inner_pack
-            for mod, _, _ in saved:
-                zero_launches(mod)
-            del padded[:], stacks[:]
-            before = disp.stats()
-            allocs, wall, prep_s = held_round(service, csess, insts)
-            d = {k: v - before[k] for k, v in disp.stats().items()
-                 if k in before and k not in ("batching_ratio",
-                                              "lanes_per_launch", "max_group")}
-            lanes = {n: kernel_mod.LAUNCHES[n] for n in kernel_mod.LAUNCHES}
-            per_call = per_half_step(kernel_mod)
-            full_counts = dict(full_mod.LAUNCHES)
-            full_per = per_half_step(full_mod)
-            rounds_log[rnd] = (wall, prep_s, allocs)
-            launched[rnd] = stacks[0]
-            # the mixed round's launches overlap: no one launch wall there
-            launch = ("" if rnd == "X" else
-                      f", launch {sum(a.solve_time_s for a in allocs.values()):.4f}"
-                      f" s, {_ms_per_iteration(allocs):.4f} ms per iteration")
-            log(f"[async] round {rnd}: {len(insts)} tenants, wall "
-                f"{wall:.4f} s (the last request reached the dispatcher at "
-                f"{prep_s:.4f} s){launch}; "
-                f"dispatcher {d}; padded stacks {padded}; lane kernels "
-                f"{lanes} ({per_call} CUDA launches a call); full kernels "
-                f"{full_counts} ({full_per})")
-            for name, a in allocs.items():
-                got[rnd, name] = a
-                _against(rnd, name, a, want[rnd, name])
-                if name.startswith("A"):
-                    _fair(rnd, name, a, insts[name], gandiva)
-            check(d["group_fallbacks"] == 0,
-                  f"round {rnd}: {d['group_fallbacks']} group fallback(s)")
-            for n, c in lanes.items():
-                check(c > 0, f"round {rnd}: {n} was not launched")
-                check(per_call[n] == 1, f"round {rnd}: {n} made "
-                      f"{per_call[n]} CUDA launches a call")
-            if rnd in ("C", "D"):
-                check((d["launches"], d["coalesced_requests"], d["lanes"],
-                       padded) == (1, 4, ASYNC_LANES, [ASYNC_LANES]),
-                      f"round {rnd}: {d}, padded {padded}")
-            elif rnd == "P":
-                check((d["launches"], d["coalesced_requests"], d["lanes"],
-                       padded) == (1, 3, 24, [ASYNC_LANES]),
-                      f"round P: {d}, padded {padded}")
-            else:
-                # one coalesced launch of two tenants and one solo launch
-                # on the worker, and the k=1 tenant's inline launch
-                check((d["requests"], d["launches"], d["coalesced_launches"],
-                       d["coalesced_requests"], d["solo_launches"],
-                       padded) == (4, 3, 1, 2, 2, [16]),
-                      f"round X: {d}, padded {padded}")
-                for n, c in full_counts.items():
-                    check(c > 0 and full_per[n] == 1,
-                          f"round X: {n} {c} calls, {full_per[n]} CUDA "
-                          "launches a call")
-    finally:
-        backends_mod.pad_lanes_pow2 = inner_pad
-        pop_mod.prepare_full = inner_full
-        kernel_mod.side_pack = inner_pack
+    with _observing(backends_mod, "pad_lanes_pow2", on_pad), \
+            _observing(pop_mod, "prepare_full", full_preps.append):
+        try:
+            for rnd in order:
+                insts = {n: r[rnd] for n, (_, r) in tenants.items()
+                         if rnd in r}
+                kernel_mod.side_pack = timed_pack if rnd in ("P", "X") \
+                    else inner_pack
+                for mod, _, _ in saved:
+                    zero_launches(mod)
+                del padded[:], stacks[:]
+                before = disp.stats()
+                allocs, wall, prep_s = held_round(service, csess, insts)
+                d = {k: v - before[k] for k, v in disp.stats().items()
+                     if k in before and k not in (
+                         "batching_ratio", "lanes_per_launch", "max_group")}
+                lanes = dict(kernel_mod.LAUNCHES)
+                per_call = per_half_step(kernel_mod)
+                full_counts = dict(full_mod.LAUNCHES)
+                full_per = per_half_step(full_mod)
+                rounds_log[rnd] = (wall, prep_s, allocs)
+                launched[rnd] = stacks[0]
+                # the mixed round's launches overlap: no one launch wall there
+                launch_s = sum(a.solve_time_s for a in allocs.values())
+                launch = ("" if rnd == "X" else
+                          f", launch {launch_s:.4f} s, "
+                          f"{_ms_per_iteration(allocs):.4f} ms per iteration")
+                log(f"[async] round {rnd}: {len(insts)} tenants, wall "
+                    f"{wall:.4f} s (the last request reached the dispatcher "
+                    f"at {prep_s:.4f} s){launch}; "
+                    f"dispatcher {d}; padded stacks {padded}; lane kernels "
+                    f"{lanes} ({per_call} CUDA launches a call); full kernels "
+                    f"{full_counts} ({full_per})")
+                for name, a in allocs.items():
+                    got[rnd, name] = a
+                    _against(rnd, name, a, want[rnd, name])
+                    if name.startswith("A"):
+                        _fair(rnd, name, a, insts[name], gandiva)
+                check(d["group_fallbacks"] == 0,
+                      f"round {rnd}: {d['group_fallbacks']} group fallback(s)")
+                for n, c in lanes.items():
+                    check(c > 0, f"round {rnd}: {n} was not launched")
+                    check(per_call[n] == 1, f"round {rnd}: {n} made "
+                          f"{per_call[n]} CUDA launches a call")
+                if rnd in ("C", "D"):
+                    check((d["launches"], d["coalesced_requests"], d["lanes"],
+                           padded) == (1, 4, ASYNC_LANES, [ASYNC_LANES]),
+                          f"round {rnd}: {d}, padded {padded}")
+                elif rnd == "P":
+                    check((d["launches"], d["coalesced_requests"], d["lanes"],
+                           padded) == (1, 3, 24, [ASYNC_LANES]),
+                          f"round P: {d}, padded {padded}")
+                else:
+                    # one coalesced launch of two tenants and one solo launch
+                    # on the worker, and the k=1 tenant's inline launch
+                    check((d["requests"], d["launches"],
+                           d["coalesced_launches"], d["coalesced_requests"],
+                           d["solo_launches"],
+                           padded) == (4, 3, 1, 2, 2, [16]),
+                          f"round X: {d}, padded {padded}")
+                    for n, c in full_counts.items():
+                        check(c > 0 and full_per[n] == 1,
+                              f"round X: {n} {c} calls, {full_per[n]} CUDA "
+                              "launches a call")
+        finally:
+            kernel_mod.side_pack = inner_pack
     t_coalesced = time.perf_counter()
     for name, k, s in packs:
         log(f"[async] side_pack of a new {k}-lane operator ({name}): "
@@ -2763,6 +3252,8 @@ def main() -> int:
                                          device, TrafficProblem(*te_arrays))
         records.update(full_records)
         sess, insts, allocs, launches = phase("main", phase_main, device)
+        phase("tune", phase_tune, device, insts, allocs)
+        moe_sess, moe_inst = phase("moe", phase_moe, device)
         phase("robust", phase_robust, device, insts)
         phase("async", phase_async, device)
         profiled_ms = phase("profile", phase_profile, sess, insts[2])
@@ -2778,6 +3269,7 @@ def main() -> int:
         phase("balance-kernels", phase_balance_kernels, device)
         phase("balance", phase_balance, device)
         phase("balance-session", phase_balance_session, device)
+        phase("moe-profile", phase_moe_profile, moe_sess, moe_inst)
         phase("redesign", phase_redesign, lane_case, full_cases, records)
         prob, prep, dense_ops = phase("dense-instance", dense_instance,
                                       device)

@@ -25,8 +25,10 @@ Registered backends:
     ``NotImplementedError`` until the multi-GPU item of the ROADMAP.
 
 ``backend="auto"`` picks by k and per-sub-problem size
-(:func:`select_backend`); the port drives one device per service, so the
-multi-device rule never fires.
+(:func:`select_backend`), with the thresholds a tuning profile measured
+for the operator's device type when one is installed
+(:func:`install_tuned_thresholds`); the port drives one device per
+service, so the multi-device rule never fires.
 
 The serving dispatcher shares one launch across tenants through
 :func:`coalesce_key` (which prepared batches may share),
@@ -52,6 +54,37 @@ MAP_BACKENDS: Dict[str, MapBackend] = {}
 DEFAULT_CHUNK = 16
 AUTO_VMAP_MAX_K = 64
 AUTO_VMAP_MAX_ELEMS = 64_000_000
+
+# per-device-type MEASURED overrides of the auto-selection constants above,
+# installed from a TuningProfile (``PopService(profile=...)`` /
+# install_tuned_thresholds); empty = the constants decide.  Process-wide
+# by design, as in the reference: the thresholds describe the hardware,
+# not one service.  Keyed by the operator's device type ("cuda", "cpu"),
+# so a CPU profile's thresholds never apply on the card.
+_TUNED_THRESHOLDS: Dict[str, dict] = {}
+
+
+def install_tuned_thresholds(per_platform: Optional[dict]) -> None:
+    """Install measured ``backend="auto"`` thresholds keyed by device type
+    (``{"cuda": {"vmap_max_k": ..., "vmap_max_elems": ...}}`` — the
+    ``backend_thresholds`` table of a validated
+    :class:`repro_torch.tuning.TuningProfile`).  ``None``/empty clears
+    back to the constants."""
+    _TUNED_THRESHOLDS.clear()
+    for platform, t in (per_platform or {}).items():
+        if isinstance(t, dict):
+            _TUNED_THRESHOLDS[str(platform)] = dict(t)
+
+
+def _auto_thresholds(device_type: str) -> Tuple[int, int]:
+    """(vmap_max_k, vmap_max_elems) for operators on ``device_type``: the
+    installed measured values when a profile provided them, else the
+    constants."""
+    t = _TUNED_THRESHOLDS.get(device_type)
+    if not t:
+        return AUTO_VMAP_MAX_K, AUTO_VMAP_MAX_ELEMS
+    return (int(t.get("vmap_max_k", AUTO_VMAP_MAX_K)),
+            int(t.get("vmap_max_elems", AUTO_VMAP_MAX_ELEMS)))
 
 EngineSpec = Union[str, StepEngine]
 
@@ -171,13 +204,16 @@ register_backend("pmap")(_multi_device("pmap"))
 # --------------------------------------------------------------------------
 
 def select_backend(k: int, n_elems_per_sub: int = 0,
-                   n_dev: int = 1) -> str:
+                   n_dev: int = 1, *, device_type: str) -> str:
     """The reference's rule: several devices and enough lanes ->
     ``shard_map``; one device -> ``vmap`` until the stack gets large, then
-    ``chunked_vmap``.  A service drives one device, so ``n_dev`` is 1."""
+    ``chunked_vmap``.  A service drives one device, so ``n_dev`` is 1.
+    The crossover thresholds are the constants unless a profile installed
+    measured ones for ``device_type`` (:func:`install_tuned_thresholds`)."""
     if n_dev > 1 and k >= n_dev:
         return "shard_map"
-    if k > AUTO_VMAP_MAX_K or k * max(n_elems_per_sub, 1) > AUTO_VMAP_MAX_ELEMS:
+    max_k, max_elems = _auto_thresholds(device_type)
+    if k > max_k or k * max(n_elems_per_sub, 1) > max_elems:
         return "chunked_vmap"
     return "vmap"
 
@@ -235,7 +271,8 @@ def resolve_exec(ops: OperatorLP, K_mv, KT_mv, backend: str = "auto",
         engine = pdhg.resolve_engine(engine, ops, K_mv, KT_mv)
     opts = dict(opts or {})
     if backend == "auto":
-        backend = select_backend(batch_size(ops), _n_elems_per_sub(ops))
+        backend = select_backend(batch_size(ops), _n_elems_per_sub(ops),
+                                 device_type=ops.c.device.type)
         if opts:
             import inspect
             accepted = inspect.signature(get_backend(backend)).parameters

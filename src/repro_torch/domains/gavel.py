@@ -51,6 +51,9 @@ SPEC = register(DomainSpec(
     problem=_problem,
     entity_ids=lambda inst: inst.job_ids,
     evaluate=_evaluate,
+    # the SLO tuner's quality scalar (repro_torch.tuning): the paper's
+    # headline objective for this domain
+    quality=lambda m: m["mean_norm_throughput"],
     default_solve=SolveConfig(k=8, strategy="stratified", min_per_sub=8),
     default_exec=ExecConfig(solver_kw=dict(
         max_iters=20_000, tol_primal=1e-4, tol_gap=1e-4, equilibrate=True)),

@@ -20,6 +20,8 @@ SPEC = register(DomainSpec(
     instance_types=(TrafficProblem,),
     describe="max-total-flow WAN TE (commodities onto k-shortest paths)",
     problem=lambda inst: inst,
+    # the SLO tuner's quality scalar (repro_torch.tuning)
+    quality=lambda m: m["total_flow"],
     default_solve=SolveConfig(k=8, strategy="stratified"),
     default_exec=ExecConfig(solver_kw=dict(
         max_iters=8_000, tol_primal=1e-4, tol_gap=1e-4)),

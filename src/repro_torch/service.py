@@ -48,8 +48,13 @@ stacks go to the device as ONE ``solve_stacked`` launch
 tenant's result does not depend on who shared its launch.
 :meth:`PopService.close` stops the dispatcher and the ``step_async`` pool.
 
-Not ported yet (ROADMAP open items §1, item 12): the SLO tuner
-(``profile=``, ``slo=``); its arguments raise ``NotImplementedError``.
+``PopService(profile=...)`` takes a measured
+:class:`~repro_torch.tuning.TuningProfile` (or its path): validated at the
+door, it installs the measured ``backend="auto"`` thresholds, sizes
+``dispatch=True``'s :class:`DispatchConfig` from its launch-cost line and
+plans ``session(..., slo=SLOTarget(...))`` sessions, whose
+:class:`~repro_torch.tuning.OnlineTuner` re-plans k on violated or newly
+slack SLOs (``stats()["slo_violations"]``/``["retunes"]``).
 """
 
 from __future__ import annotations
@@ -75,6 +80,8 @@ from .core.config import ExecConfig, SolveConfig
 from .core.pdhg import SolveResult
 from .core.plan import PopPlan, _host
 from .domains import DomainSpec, StepOutcome, registry as registry_mod
+from .tuning import (OnlineTuner, SLOTarget, TuningProfile, check_profile,
+                     launch_defaults, load_profile)
 
 __all__ = ["Allocation", "DispatchConfig", "MicroBatchDispatcher",
            "PopService", "PopSession"]
@@ -158,6 +165,10 @@ def _zeros() -> dict:
             "degraded_steps": 0, "recovered_steps": 0, "fallback_steps": 0,
             "quarantined_lanes": 0, "faults": 0,
             "checkpoint_restores": 0, "checkpoint_failures": 0,
+            # SLO tuning counters: steps whose measured latency or quality
+            # breached the session's SLOTarget, and the config moves the
+            # online tuner made in response
+            "slo_violations": 0, "retunes": 0,
             "engines": {}}
 
 
@@ -177,11 +188,6 @@ def _tally(stats: dict, alloc: Allocation) -> None:
     if alloc.warm_fraction is not None:
         stats["warm_fraction_sum"] += alloc.warm_fraction
         stats["warm_steps"] += 1
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP open items §1, item {item})")
 
 
 def _finite(alloc) -> bool:
@@ -473,12 +479,20 @@ class PopSession:
     :meth:`PopService.session`."""
 
     def __init__(self, service: "PopService", tenant: str, spec: DomainSpec,
-                 solve_cfg: SolveConfig, exec_cfg: ExecConfig):
+                 solve_cfg: SolveConfig, exec_cfg: ExecConfig,
+                 slo: Optional[SLOTarget] = None,
+                 tuner: Optional[OnlineTuner] = None):
         self.service = service
         self.tenant = tenant
         self.spec = spec
         self.solve_cfg = solve_cfg
         self.exec_cfg = exec_cfg
+        # the SLO contract + online tuner (None = untuned).  The tuner
+        # retunes by REPLACING solve_cfg between steps; the change flows
+        # through prepare_instance's repair/remap path so warm state
+        # survives
+        self.slo = slo
+        self._tuner = tuner
         self.steps = 0
         self.last: Optional[Allocation] = None
         self.stats = _zeros()
@@ -572,6 +586,8 @@ class PopSession:
                 alloc = self._step_generic(instance, deadline_s, t0)
             self.steps += 1
             self._last_wall = time.perf_counter() - t0
+            if self._tuner is not None and alloc.status != "fallback":
+                self._observe_tuned(alloc)
             _tally(self.stats, alloc)
             with self.service._lock:
                 _tally(self.service._stats, alloc)
@@ -635,6 +651,12 @@ class PopSession:
                       t0: float) -> Allocation:
         problem = self.spec.make_problem(instance)
         eids = self.spec.ids_of(instance)
+        if self._tuner is not None:
+            # sessions created without an instance plan on first step
+            cfg = self._tuner.ensure_planned(problem.n_entities,
+                                             self.solve_cfg)
+            if cfg is not None:
+                self.solve_cfg = cfg
         k = self.solve_cfg.k_for(problem.n_entities)
         if k > 1:
             return self._step_pop(instance, problem, eids, k, deadline_s, t0)
@@ -845,6 +867,24 @@ class PopSession:
         with self.service._lock:
             self.service._stats["quarantined_lanes"] += n
 
+    # ------------------------------------------------- SLO online refiner --
+    def _observe_tuned(self, alloc: Allocation) -> None:
+        """Feed one step that solved into the session's OnlineTuner; count
+        SLO violations and apply a retuned SolveConfig for the NEXT step
+        (this step's allocation is already final).  Called under the
+        session lock."""
+        quality = self.spec.quality_of(alloc.metrics)
+        ev = self._tuner.observe(alloc.k, alloc.solve_time_s, quality)
+        if ev.violation is not None:
+            self.stats["slo_violations"] += 1
+            with self.service._lock:
+                self.service._stats["slo_violations"] += 1
+        if ev.new_solve is not None and ev.new_solve != self.solve_cfg:
+            self.solve_cfg = ev.new_solve
+            self.stats["retunes"] += 1
+            with self.service._lock:
+                self.service._stats["retunes"] += 1
+
     def _fallback(self, instance, faults: list, t0: float,
                   problem=None) -> Allocation:
         """The ladder's last rung: repeat the previous allocation, else ask
@@ -1048,20 +1088,34 @@ class PopService:
     the :class:`DispatchConfig` defaults) turns on the cross-tenant
     micro-batching dispatcher; ``max_resident=`` caps the tenants that keep
     live warm state (the rest page out to host memory); ``rate_cache_size``
-    bounds the ladder's rate maps.  :meth:`close` (or leaving a ``with``
-    block) stops the dispatcher and the ``step_async`` pool."""
+    bounds the ladder's rate maps.  ``profile=`` (a
+    :class:`~repro_torch.tuning.TuningProfile` or the path of one) is
+    validated here (version, digest seal, and that it was measured on
+    this service's device type), installs its measured
+    ``backend="auto"`` thresholds (process-wide, keyed by device type),
+    sizes ``dispatch=True``'s window and lane cap from its launch-cost line
+    and plans ``session(slo=)`` sessions.  :meth:`close` (or leaving a
+    ``with`` block) stops the dispatcher and the ``step_async`` pool."""
 
     def __init__(self, solve: Optional[SolveConfig] = None,
                  exec: Optional[ExecConfig] = None, *, device=None,
                  dispatch: Union[bool, DispatchConfig, None] = None,
                  max_resident: Optional[int] = None,
-                 rate_cache_size: int = RATE_CACHE_SIZE, profile=None):
-        if profile is not None:
-            raise _not_ported("profile= — the SLO tuner", "12")
+                 rate_cache_size: int = RATE_CACHE_SIZE,
+                 profile: Union[TuningProfile, str, None] = None):
         self.device = backends_mod.resolve_device(device)
         # None means "not set" (domain defaults win)
         self._service_solve = solve
         self._service_exec = exec
+        if profile is not None and not isinstance(profile, TuningProfile):
+            profile = load_profile(profile)
+        if profile is not None:
+            # a profile measured on another device type (the committed
+            # CPU profile on the card) would plan k from curves that do
+            # not transfer
+            check_profile(profile, platform=self.device.type)
+            backends_mod.install_tuned_thresholds(profile.backend_thresholds)
+        self.profile = profile
         self._lock = threading.RLock()
         self._sessions: Dict[str, PopSession] = {}
         # tenant -> None, oldest-stepped first: the page-out victim order
@@ -1080,7 +1134,14 @@ class PopService:
                              else max(int(max_resident), 1))
         self.dispatcher: Optional[MicroBatchDispatcher] = None
         if dispatch:
-            cfg = dispatch if isinstance(dispatch, DispatchConfig) else None
+            if isinstance(dispatch, DispatchConfig):
+                cfg = dispatch
+            else:
+                # dispatch=True with a profile: batching window + lane cap
+                # from the measured launch-cost line
+                tuned = (launch_defaults(profile)
+                         if profile is not None else None)
+                cfg = DispatchConfig(**tuned) if tuned else None
             self.dispatcher = MicroBatchDispatcher(cfg, device=self.device)
         self._executor: \
             Optional[concurrent.futures.ThreadPoolExecutor] = None
@@ -1129,16 +1190,24 @@ class PopService:
                 domain: Optional[str] = None,
                 solve: Optional[SolveConfig] = None,
                 exec: Optional[ExecConfig] = None,
-                slo=None) -> PopSession:
+                slo: Optional[SLOTarget] = None) -> PopSession:
         """The session for ``tenant``, created on first use.  The domain
         comes from ``domain=`` or is inferred from ``instance``'s type;
         configs default to the domain's registered defaults, overridden by
         the service-level configs, then by ``solve=`` / ``exec=``.  An
         existing session keeps the configs it was created with.  A tenant
         paged out to host memory (``max_resident=``) is restored here with
-        its warm state and step counter."""
-        if slo is not None:
-            raise _not_ported("session(slo=) — the SLO tuner", "12")
+        its warm state and step counter.
+
+        ``slo=`` (a :class:`~repro_torch.tuning.SLOTarget`) makes the
+        session auto-tuned: the service's ``profile=`` plans the initial
+        ``SolveConfig`` for the instance (``solve=`` then only sets the
+        strategy/seed baseline the planner starts from) and an online
+        refiner re-plans on violated or newly slack SLOs.  The SLO is
+        pinned like the configs."""
+        if slo is not None and not isinstance(slo, SLOTarget):
+            raise TypeError(f"slo= takes a repro_torch.tuning.SLOTarget, "
+                            f"got {type(slo).__name__}")
         with self._lock:
             sess = self._sessions.get(tenant)
             if sess is None and tenant in self._pager:
@@ -1146,10 +1215,20 @@ class PopService:
                 if sess is not None:
                     self._stats["session_reentries"] += 1
             if sess is not None:
-                if solve is not None and solve != sess.solve_cfg:
+                if slo is not None and slo != sess.slo:
+                    raise ValueError(
+                        f"tenant {tenant!r} session is pinned to SLO "
+                        f"{sess.slo}; end_session() it to re-create with "
+                        f"{slo} (the SLO is set at session creation)")
+                # a tuned session's solve_cfg drifts by design: the pin to
+                # compare against is the baseline the planner started from
+                pinned_solve = (sess._tuner.base_solve
+                                if sess._tuner is not None
+                                else sess.solve_cfg)
+                if solve is not None and solve != pinned_solve:
                     raise ValueError(
                         f"tenant {tenant!r} session is pinned to "
-                        f"{sess.solve_cfg}; end_session() it to re-create "
+                        f"{pinned_solve}; end_session() it to re-create "
                         f"with {solve} (configs are set at session creation)")
                 if exec is not None and exec != sess.exec_cfg:
                     raise ValueError(
@@ -1178,7 +1257,17 @@ class PopService:
                 return sess
             solve_cfg = solve or self._service_solve or spec.default_solve
             exec_cfg = exec or self._service_exec or spec.default_exec
-            sess = PopSession(self, tenant, spec, solve_cfg, exec_cfg)
+            tuner = None
+            if slo is not None:
+                tuner = OnlineTuner(self.profile, spec.name, slo, solve_cfg,
+                                    exec_cfg)
+                if instance is not None and spec.step_override is None:
+                    n = spec.make_problem(instance).n_entities
+                    solve_cfg = tuner.plan_initial(n)
+                # no instance yet: the first generic step plans
+                # (ensure_planned) once it knows the entity count
+            sess = PopSession(self, tenant, spec, solve_cfg, exec_cfg,
+                              slo=slo, tuner=tuner)
             self._sessions[tenant] = sess
             self._lru[tenant] = None
         self._maybe_evict(keep=tenant)
@@ -1456,7 +1545,8 @@ class PopService:
         quarantined lanes, checkpoint restore outcomes), the paging tier
         (``resident_sessions``, ``paged_tenants``, ``paged_bytes`` and the
         ``paged_out``/``paged_in``/``page_restore_failures``/
-        ``session_reentries`` traffic) and the bounded ladder caches
+        ``session_reentries`` traffic), the SLO tuning counters
+        (``slo_violations``, ``retunes``) and the bounded ladder caches
         (``rate_evictions``, ``rate_keys``); with a dispatcher, its
         counters under ``dispatch`` (:meth:`MicroBatchDispatcher.stats`)."""
         with self._lock:

@@ -14,6 +14,9 @@ and by ``chip_smoke.py``.
   metadata; :func:`balance_session`: a three-step load-balancing session
   (cold, a +-5% load drift on the previous placement, then shard churn
   under stable ids);
+* :func:`moe_session`: a three-step MoE expert-placement session (cold, a
+  load drift on the previous placement, then expert churn under stable
+  ids);
 * :func:`traffic_arrays` / :func:`traffic_problem`: a traffic-engineering
   instance (topology, demands, k-shortest paths) from three seeds;
 * :func:`ragged_coo` / :func:`ragged_operator`: a single-lane K whose wide
@@ -196,6 +199,42 @@ def balance_session(step, n_shards: int, n_servers: int, churn: float, *,
                                 rng.integers(0, n_servers, n_out)]),
         eps_frac=eps_frac,
         ids=np.concatenate([ids[keep], n_shards + np.arange(n_out)])))
+    allocs.append(step(insts[-1]))
+    return insts, allocs
+
+
+def moe_session(step, n_experts: int, n_devices: int, drift: float,
+                churn: float):
+    """Drive three ticks of an MoE expert-placement session through
+    ``step(inst) -> Allocation`` and return ``(instances, allocations)``:
+
+    1. cold: ``make_placement_instance(n_experts, n_devices, seed=0)``
+       on its own load-oblivious placement, ids ``arange(n_experts)``;
+    2. drift: every load x ``drift``, the previous step's placement as the
+       current one, the same ids;
+    3. churn: ``int(churn * n_experts)`` experts retire, as many arrive
+       from a pool of ``2 * n_experts`` (seed 9) onto uniformly drawn
+       devices with fresh ids; survivors keep their ids and placement."""
+    from .domains import make_placement_instance
+    inst = make_placement_instance(n_experts, n_devices, seed=0)
+    pool = make_placement_instance(2 * n_experts, n_devices, seed=9)
+    rng = np.random.default_rng(2_000)
+    ids = np.arange(n_experts)
+    insts = [dataclasses.replace(inst, ids=ids)]
+    allocs = [step(insts[-1])]
+    insts.append(dataclasses.replace(insts[-1], load=inst.load * drift,
+                                     current=allocs[-1].alloc))
+    allocs.append(step(insts[-1]))
+    n_out = int(churn * n_experts)
+    keep = np.sort(rng.choice(n_experts, n_experts - n_out, replace=False))
+    new = rng.choice(2 * n_experts, n_out, replace=False)
+    prev = insts[-1]
+    insts.append(dataclasses.replace(
+        prev, load=np.concatenate([prev.load[keep], pool.load[new]]),
+        mem=np.concatenate([prev.mem[keep], pool.mem[new]]),
+        current=np.concatenate([allocs[-1].alloc[keep],
+                                rng.integers(0, n_devices, n_out)]),
+        ids=np.concatenate([ids[keep], n_experts + np.arange(n_out)])))
     allocs.append(step(insts[-1]))
     return insts, allocs
 

@@ -1253,3 +1253,63 @@ def test_cuda_row_reduce_independent_of_row_count(cuda_device, n, fn):
     whole = ref.row_reduce(red, a)
     for rows in (4, 8):
         assert torch.equal(ref.row_reduce(red, a[:rows]), whole[:rows])
+
+
+@pytest.mark.cuda
+def test_cuda_build_profile_seals(cuda_device, tmp_path):
+    """A tiny profile measured on the card (gavel, fast probes, the launch
+    line): it names the card's device type, its thresholds apply there
+    only, and its seal survives save_profile / load_profile."""
+    from repro_torch import tuning
+    profile = tuning.build_profile(domains=("gavel",), fast=True,
+                                   measure_backends=False,
+                                   device=cuda_device)
+    assert profile.platform == "cuda"
+    assert profile.jax_version == "torch-" + torch.__version__
+    rows = dict(profile.domains["gavel"].quality_vs_k)
+    assert rows[1.0] == 1.0 and len(rows) > 1
+    assert all(isinstance(v, float) for v in rows.values())
+    assert profile.launch_cost["overhead_s"] >= 0.0
+    path = tuning.save_profile(profile, tmp_path / "card.json")
+    loaded = tuning.check_profile(tuning.load_profile(path),
+                                  platform="cuda")
+    assert loaded.digest == profile.digest
+    with pytest.raises(tuning.ProfileError, match="measured on"):
+        tuning.check_profile(loaded, platform="cpu")
+
+
+@pytest.mark.cuda
+def test_cuda_service_rejects_cpu_profile(cuda_device):
+    """The committed ``TUNING_profile.json`` was measured on the CPU: a
+    service on the card refuses it at the door instead of planning k from
+    CPU curves."""
+    from pathlib import Path
+    from repro_torch import tuning
+    committed = Path(__file__).resolve().parents[1] / "TUNING_profile.json"
+    assert tuning.load_profile(committed).platform == "cpu"
+    with pytest.raises(tuning.ProfileError, match="measured on 'cpu'"):
+        PopService(device=cuda_device, profile=str(committed))
+
+
+@pytest.mark.cuda
+def test_cuda_moe_session_matches_cpu_session(cuda_device):
+    """Cold, drift, then 10% expert churn at 96 experts on 8 devices
+    (``testing.moe_session``) through ``PopService`` on the card and on the
+    CPU at a fixed budget: the same verdicts, warm fractions and
+    placements, served load and objective within 1e-3."""
+    cfg = ExecConfig(solver_kw=dict(max_iters=300, tol_primal=0.0,
+                                    tol_gap=0.0))
+    runs = {}
+    for device in (cuda_device, "cpu"):
+        sess = PopService(device=device).session(
+            "moe", domain="moe_placement", exec=cfg)
+        runs[str(device)] = testing.moe_session(sess.step, 96, 8, 1.03,
+                                                0.1)[1]
+    got, want = runs[str(cuda_device)], runs["cpu"]
+    assert [a.plan_cache for a in got] == ["miss", "hit", "repair"]
+    for a, b in zip(got, want):
+        assert a.plan_cache == b.plan_cache and a.engine == "matvec"
+        assert a.warm_fraction == b.warm_fraction
+        np.testing.assert_array_equal(a.alloc, b.alloc)
+        for key in ("served", "objective"):
+            assert abs(a.metrics[key] - b.metrics[key]) < 1e-3

@@ -19,12 +19,14 @@ import repro_torch
 from repro_torch import domains
 from repro_torch.core import pop
 from repro_torch.core.problem import LinearProgram
+from repro_torch.models.moe import plan_expert_placement
 from repro_torch.problems.cluster_scheduling import (GavelProblem,
                                                      make_cluster_workload)
 from repro_torch.problems.load_balancing import (LoadBalanceProblem,
                                                  balance_placement,
                                                  make_shard_workload)
 from repro_torch.service import PopService
+from repro_torch.tuning import build_profile
 
 PKG = Path(next(iter(repro_torch.__path__)))
 ROOT = PKG.parents[1]
@@ -60,10 +62,11 @@ def _module_names():
 
 
 def test_new_modules_are_checked():
-    """The dense and full-problem kernels, the LP containers, the traffic
-    and load-balancing domains, the rounding and max-min helpers, the
-    shared build, the session checkpoint codec, the page store and the
-    fault injectors are among the sources the import checks walk."""
+    """The dense and full-problem kernels, the LP containers, the traffic,
+    load-balancing and MoE placement domains, the rounding and max-min
+    helpers, the shared build, the session checkpoint codec, the page
+    store, the fault injectors, the tuner and the MoE routing statistics
+    are among the sources the import checks walk."""
     names = {str(p.relative_to(ROOT)) for p in _sources()}
     for rel in ("kernels/structured_full_pdhg_step.py", "kernels/build.py",
                 "kernels/pdhg_matvec.py", "kernels/fused_pdhg_step.py",
@@ -73,7 +76,10 @@ def test_new_modules_are_checked():
                 "core/rounding.py", "core/maxmin.py",
                 "checkpoint/__init__.py", "checkpoint/session_state.py",
                 "checkpoint/paged.py", "analysis/__init__.py",
-                "analysis/faults.py"):
+                "analysis/faults.py", "tuning/__init__.py",
+                "tuning/profile.py", "tuning/slo.py", "tuning/online.py",
+                "models/__init__.py", "models/moe.py",
+                "domains/moe_placement.py"):
         assert f"src/repro_torch/{rel}" in names, rel
     assert "chip_smoke.py" in names
 
@@ -107,11 +113,16 @@ def test_every_module_imports_without_jax():
 
 
 def test_registered_domains():
-    """The three paper domains register on import, load balancing with
-    its ``step_override``."""
-    assert domains.names() == ("gavel", "load_balance", "traffic")
+    """The three paper domains and MoE placement register on import, load
+    balancing with its ``step_override``, MoE placement through the
+    declarative hooks alone."""
+    assert domains.names() == ("gavel", "load_balance", "moe_placement",
+                               "traffic")
     sess = PopService(device="cpu").session("t", domain="load_balance")
     assert sess.spec.step_override is not None
+    moe = domains.get("moe_placement")
+    assert moe.problem is None and moe.step_override is None
+    assert moe.build_sub is not None and moe.quality is not None
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
@@ -136,6 +147,12 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
                   lambda: balance_placement(wl.load, 4)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             solve()
+    moe = domains.make_placement_instance(16, 4, seed=0)
+    for entry in (lambda: build_profile(domains=("gavel",)),
+                  lambda: domains.place_experts(moe),
+                  lambda: plan_expert_placement(moe.load, 4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
     assert PopService(device="cpu").device.type == "cpu"
 
 

@@ -101,25 +101,37 @@ def test_small_instance_takes_full_path():
                    - b.metrics["mean_norm_throughput"]) < QUALITY_TOL
 
 
-def test_unported_options_raise():
-    """The tuner still raises; the dispatcher (item 11), paging and the
-    deadline ladder (item 10) are ported: ``dispatch=True`` starts a
-    dispatcher that ``close()`` stops, a capped service pages its coldest
-    tenant out, and a deadline with no measured rate yet runs the full
-    solve."""
+def test_unported_options_raise(tmp_path):
+    """Every service option is ported now; the tuner's arguments reject
+    bad input as the reference's do (a tampered profile raises
+    ``ProfileError``, a non-``SLOTarget`` SLO ``TypeError``).  The
+    dispatcher (item 11), paging and the deadline ladder (item 10):
+    ``dispatch=True`` without a profile starts a dispatcher on the
+    ``DispatchConfig()`` defaults that ``close()`` stops, a capped service
+    pages its coldest tenant out, and a deadline with no measured rate yet
+    runs the full solve."""
+    import json
     import threading
+    from pathlib import Path
+    from repro_torch.tuning import ProfileError
     with PopService(device="cpu", dispatch=True) as disp:
         assert disp.dispatcher is not None
         assert disp.dispatcher.cfg == DispatchConfig()
         assert disp.stats()["dispatch"]["requests"] == 0
     assert not disp.dispatcher._thread.is_alive()
     assert not any(t.name == "pop-dispatch" for t in threading.enumerate())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PopService(device="cpu", profile=object())
+    fixture = (Path(__file__).resolve().parent / "fixtures" / "tuning"
+               / "profile_fixture.json")
+    obj = json.loads(fixture.read_text())
+    obj["launch_cost"]["overhead_s"] = 1.0
+    tampered = tmp_path / "tampered.json"
+    tampered.write_text(json.dumps(obj))
+    with pytest.raises(ProfileError, match="digest mismatch"):
+        PopService(device="cpu", profile=str(tampered))
     svc = PopService(device="cpu", max_resident=1)
     assert svc.max_resident == 1
-    with pytest.raises(NotImplementedError, match="item 12"):
-        svc.session("t", domain="gavel", slo=object())
+    with pytest.raises(TypeError, match="SLOTarget"):
+        svc.session("t", domain="gavel", slo=0.02)
     kw = dict(max_iters=250, tol_primal=1e-4, tol_gap=1e-4)
     sess = svc.session("t", domain="gavel", solve=SolveConfig(**SESSION_KW),
                        exec=ExecConfig(solver_kw=kw))
