@@ -190,7 +190,7 @@ def _multi_device(name: str) -> MapBackend:
     def backend(batch, K_mv, KT_mv, solver_kw, engine="matvec", **opts):
         raise NotImplementedError(
             f"map backend {name!r} needs the multi-GPU port (ROADMAP open "
-            "items §1, item 14); use 'vmap', 'chunked_vmap' or 'serial'")
+            "items §1, item 14.5); use 'vmap', 'chunked_vmap' or 'serial'")
     backend.__name__ = f"solve_{name}"
     return backend
 

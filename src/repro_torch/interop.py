@@ -1,9 +1,10 @@
 """Carry state between the reference package and the port through numpy.
 
 The tests feed both packages identical LPs, ELL payloads (f32, bf16 or
-int8 coefficients with their dequant scales) and warm iterates:
-they convert the reference's leaves to numpy, and these helpers build the
-port's containers from them.  Nothing here imports the reference.
+int8 coefficients with their dequant scales), warm iterates, language-model
+parameters and decode caches: they convert the reference's leaves to
+numpy, and these helpers build the port's containers from them.  Nothing
+here imports the reference.
 """
 
 from __future__ import annotations
@@ -97,3 +98,112 @@ def warm_from_numpy(x, y, mask=None, *, device):
     if mask is None:
         return tx, ty
     return WarmStart(x=tx, y=ty, mask=np.asarray(mask, bool), stats={})
+
+
+# ---------------------------------------------------------------------------
+# language models: parameters and decode caches
+# ---------------------------------------------------------------------------
+
+def _float_tensor(a, device) -> torch.Tensor:
+    """A float leaf as it is (f32, or bf16 through f32, which is exact);
+    anything else f32."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32),
+                            device=device).to(torch.bfloat16)
+    return torch.tensor(a.astype(np.float32), device=device)
+
+
+def _paths(tree, prefix=""):
+    """``{path: leaf}`` of a nested dict/list tree (``a.0.b``)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_paths(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def _rebuild(like, leaf_of, prefix=""):
+    if isinstance(like, dict):
+        return {k: _rebuild(v, leaf_of, f"{prefix}.{k}" if prefix else k)
+                for k, v in like.items()}
+    if isinstance(like, list):
+        return [_rebuild(v, leaf_of, f"{prefix}.{i}" if prefix else str(i))
+                for i, v in enumerate(like)]
+    return leaf_of(prefix, like)
+
+
+def params_from_numpy(tree: dict, cfg, device) -> dict:
+    """The port's LM parameters for ``cfg`` from the reference's
+    ``init_params`` tree with every leaf converted to numpy.  Leaf paths
+    map one to one (``segments.0.b0.mixer.wq``); stacked period leaves stay
+    stacked.  A missing or extra leaf, or a leaf of another shape, raises
+    ``ValueError``."""
+    from .models.transformer import init_params
+    device = torch.device(device)
+    like = init_params(None, cfg)
+    want, got = _paths(like), _paths(tree)
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    if missing or extra:
+        raise ValueError(f"parameter tree mismatch: missing {missing}, "
+                         f"extra {extra}")
+    for path, t in want.items():
+        if tuple(np.shape(got[path])) != tuple(t.shape):
+            raise ValueError(f"{path}: shape {np.shape(got[path])}, "
+                             f"expected {tuple(t.shape)}")
+    return _rebuild(like, lambda path, _: _float_tensor(got[path], device))
+
+
+def cache_from_numpy(tree: dict, cfg, device) -> dict:
+    """The port's decode cache for ``cfg`` from the reference's
+    ``init_cache`` tree (after decode steps or not) with every leaf
+    converted to numpy: KV caches ``(k, v)`` of ``[n_periods, B, L, Kv,
+    hd]`` become the port's ``[n_periods, B, Kv, L, hd]`` ring buffers, the
+    mamba2/mlstm/slstm states keep their shapes and ``pos`` becomes a 0-d
+    int64 tensor.  A missing or extra segment, block or state leaf raises
+    ``ValueError``."""
+    from .models.attention import KVCache
+    device = torch.device(device)
+    segs = tree["seg_caches"]
+    if set(tree) != {"seg_caches", "pos"} or len(segs) != len(cfg.segments):
+        raise ValueError("cache tree mismatch: expected seg_caches for "
+                         f"{len(cfg.segments)} segments and pos")
+    like = [
+        {f"b{i}": _state_keys(cfg, b) for i, b in enumerate(seg.period)}
+        for seg in cfg.segments]
+    out = []
+    for seg_tree, seg_like in zip(segs, like):
+        if set(seg_tree) != set(seg_like):
+            raise ValueError(f"cache blocks {sorted(seg_tree)}, expected "
+                             f"{sorted(seg_like)}")
+        seg_out = {}
+        for name, keys in seg_like.items():
+            leaf = seg_tree[name]
+            if keys is None:                  # a KV cache (k, v)
+                k, v = leaf
+                seg_out[name] = KVCache(
+                    *(_float_tensor(np.swapaxes(np.asarray(a), -3, -2),
+                                    device).contiguous() for a in (k, v)))
+                continue
+            if set(leaf) != keys:
+                raise ValueError(f"{name}: state {sorted(leaf)}, expected "
+                                 f"{sorted(keys)}")
+            seg_out[name] = {k: _float_tensor(leaf[k], device)
+                             for k in leaf}
+        out.append(seg_out)
+    return {"seg_caches": out,
+            "pos": torch.tensor(int(np.asarray(tree["pos"])),
+                                dtype=torch.int64, device=device)}
+
+
+def _state_keys(cfg, bcfg):
+    """The state leaves of a block's decode cache (None: a KV cache)."""
+    if bcfg.mixer in ("attn", "shared_attn"):
+        return None
+    return {"mamba2": {"ssm", "conv"}, "mlstm": {"C", "n", "m"},
+            "slstm": {"h", "c", "n", "m"}}[bcfg.mixer]

@@ -1,23 +1,94 @@
-"""MoE routing statistics and POP expert placement — the port of
-``repro/models/moe.py:95-138``.
+"""Mixture-of-Experts FFN and POP expert placement — the port of
+``repro/models/moe.py``.
 
-``expert_gate_load`` runs the router's top-k over a batch of activations
-and sums each expert's normalised gate mass: the demand vector of the
-registered ``moe_placement`` domain.  ``plan_expert_placement`` places the
-experts onto devices through that domain (the paper's technique, fourth
-scenario).  Both run on an explicit torch device; the MoE layer itself
-(``init_moe``, ``moe``) belongs to the LM substrate (ROADMAP open items
-§1, item 14).
+``moe`` is the reference's capacity-bounded top-k dispatch (Mesh-TF
+style): each expert takes at most ``C = min(ceil(cf * S * top_k / E), S)``
+tokens a sequence, a token's queue position in its expert is a cumulative
+sum in f32, overflow drops the choice, and the renormalised gates combine
+the experts' outputs; an always-on shared expert (Qwen-MoE) is added on
+top.  ``expert_gate_load`` runs the same routing over a batch of
+activations and sums each expert's normalised gate mass: the demand vector
+of the registered ``moe_placement`` domain.  ``plan_expert_placement``
+places the experts onto devices through that domain (the paper's
+technique, fourth scenario).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.problem import resolve_device
+from .layers import activation_fn, init_mlp, mlp, normal
+
+
+def init_moe(gen, d: int, d_ff_expert: int, n_experts: int,
+             n_shared: int = 0, d_ff_shared: int = 0):
+    s_in = 1.0 / math.sqrt(d)
+    s_out = 1.0 / math.sqrt(d_ff_expert)
+    p = {
+        "router": normal(gen, (d, n_experts), s_in),
+        "w_gate": normal(gen, (n_experts, d, d_ff_expert), s_in),
+        "w_up": normal(gen, (n_experts, d, d_ff_expert), s_in),
+        "w_down": normal(gen, (n_experts, d_ff_expert, d), s_out),
+    }
+    if n_shared > 0:
+        p["shared"] = init_mlp(gen, d, d_ff_shared)
+    return p
+
+
+def _route(router, x, top_k: int):
+    """The router's top-k: logits in ``x``'s dtype, softmax in f32, the
+    chosen gates renormalised.  Returns ``(gate_vals, experts)``, each
+    ``[B, S, top_k]``, highest gate first."""
+    logits = torch.matmul(x, router.to(x.dtype))
+    probs = torch.softmax(logits.float(), dim=-1)
+    gate_vals, experts = torch.topk(probs, top_k, dim=-1)
+    return gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9), experts
+
+
+def moe(p, x, *, top_k: int, capacity_factor: float = 1.25,
+        activation: str = "silu"):
+    """x: [B, S, D] -> [B, S, D].
+
+    Capacity-bounded top-k dispatch: each expert processes at most
+    ``C = ceil(cf * S * top_k / E)`` tokens a sequence (and never more than
+    ``S``; 1 at decode); a choice past its expert's capacity is dropped.
+    """
+    B, S, D = x.shape
+    E = p["router"].shape[1]
+    C = min(int(np.ceil(capacity_factor * S * top_k / E)), S)
+    dt = x.dtype
+
+    gate_vals, experts = _route(p["router"], x, top_k)        # [B,S,k]
+    # position of each (token, choice) in its expert's queue
+    onehot = F.one_hot(experts, E).float()                    # [B,S,k,E]
+    flat = onehot.reshape(B, S * top_k, E)
+    pos_in_e = (torch.cumsum(flat, dim=1) * flat - 1.0).reshape(
+        B, S, top_k, E)
+    keep = (pos_in_e >= 0) & (pos_in_e < C)
+
+    # dispatch / combine tensors [B, S, E, C]
+    slot = torch.where(keep, pos_in_e, -1.0).long()
+    cap_oh = F.one_hot(slot.clamp(min=0), C).float() * keep[..., None]
+    kept = onehot * keep
+    dispatch = torch.einsum("bske,bskec->bsec", kept, cap_oh)
+    combine = torch.einsum("bsk,bske,bskec->bsec", gate_vals, kept, cap_oh)
+
+    xe = torch.einsum("bsec,bsd->becd", dispatch.to(dt), x)   # [B,E,C,D]
+    g = torch.einsum("becd,edf->becf", xe, p["w_gate"].to(dt))
+    u = torch.einsum("becd,edf->becf", xe, p["w_up"].to(dt))
+    ye = torch.einsum("becf,efd->becd", activation_fn(activation)(g) * u,
+                      p["w_down"].to(dt))
+    y = torch.einsum("bsec,becd->bsd", combine.to(dt), ye)
+
+    if "shared" in p:
+        y = y + mlp(p["shared"], x, activation)
+    return y
 
 
 def expert_gate_load(p, x, *, top_k: int, device=None) -> np.ndarray:
@@ -39,10 +110,7 @@ def expert_gate_load(p, x, *, top_k: int, device=None) -> np.ndarray:
     x = torch.as_tensor(x, device=device)
     router = torch.as_tensor(p["router"], device=device)
     E = router.shape[1]
-    logits = torch.einsum("bsd,de->bse", x, router.to(x.dtype))
-    probs = torch.softmax(logits.float(), dim=-1)
-    gate_vals, experts = torch.topk(probs, top_k, dim=-1)      # [B,S,k]
-    gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+    gate_vals, experts = _route(router, x, top_k)             # [B,S,k]
     load = torch.zeros(E, dtype=torch.float64, device=device).index_add_(
         0, experts.reshape(-1), gate_vals.reshape(-1).double())
     return load.cpu().numpy()

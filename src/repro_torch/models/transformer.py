@@ -1,0 +1,474 @@
+"""Composable decoder and encoder-decoder stacks over heterogeneous blocks —
+the port of ``repro/models/transformer.py``.
+
+The unit of composition is a **period**, a short sequence of blocks (e.g.
+gemma3's [local x5, global], gemma2's [local, global], zamba2's
+[mamba x6, shared-attn]); a **segment** stacks ``n_periods`` identical
+periods.  Parameters are nested dicts of tensors whose leaf paths are the
+reference's (``segments.0.b0.mixer.wq``, ...), and a segment's leaves carry
+a leading ``[n_periods]`` axis, as the reference's scanned stacks do; a
+loop over the periods takes the place of ``lax.scan`` (each period reads a
+view of the stacked leaves).
+
+Weight-shared blocks (zamba2's shared attention) live outside the stacked
+parameters and are applied once a period with the same weights, while
+their KV caches stay per application (stacked on the period axis).
+
+Decode caches are written in place: the KV ring buffers by
+``attention_decode``, the recurrent states by copying each block's new
+state into its period's slot.  ``init_cache``'s ``kv_dtype`` must match
+the compute dtype (see its docstring).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from ..core.problem import resolve_device
+from . import attention as attn_mod
+from . import moe as moe_mod
+from . import ssm as ssm_mod
+from . import xlstm as xlstm_mod
+from .attention import KVCache
+from .layers import (dense, embed, init_dense, init_embedding, init_mlp,
+                     init_rmsnorm, mlp, rmsnorm, unembed)
+
+ROADMAP_MESH = ("a device mesh (ModelOpts.mesh) is not ported: sharded "
+                "serving and training are ROADMAP item 14.5")
+
+# leaves the reference reads in f32 whatever the compute dtype: norm
+# scales and biases, Mamba2's decay, step bias, skip and gate-norm scale,
+# and sLSTM's recurrent weights (multiplied with its f32 state)
+F32_LEAVES = frozenset({"scale", "bias", "a_log", "dt_bias", "d_skip",
+                        "norm_scale", "r"})
+
+
+# ---------------------------------------------------------------------------
+# configuration
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BlockCfg:
+    mixer: str = "attn"          # attn | mamba2 | mlstm | slstm | shared_attn
+    ffn: str = "dense"           # dense | moe | none
+    window: Optional[int] = None  # None = full attention (SWA band otherwise)
+    cross_attn: bool = False     # decoder block with encoder cross-attention
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    period: tuple                # tuple[BlockCfg, ...]
+    n_periods: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelOpts:
+    """The reference's sharding knobs (sequence-parallel residual, bf16
+    barriers, gather-once, flash-decode cache layout).  Each acts only
+    through a device mesh; with ``mesh=None`` every one is a no-op, as in
+    the reference.  A mesh is refused: sharded serving is ROADMAP item
+    14.5."""
+    sp_residual: bool = False
+    bf16_barrier: bool = False
+    gather_once: bool = False
+    cache_seq_on_model: bool = False
+    mesh: object = None
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise NotImplementedError(ROADMAP_MESH)
+
+
+DEFAULT_OPTS = ModelOpts()
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0
+    d_ff_shared: int = 0
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchCfg:
+    name: str
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    segments: tuple               # decoder/main stack
+    enc_segments: tuple = ()      # encoder stack (enc-dec archs)
+    softcap: float = 0.0
+    rope_theta: float = 10_000.0
+    act: str = "silu"
+    tied_embeddings: bool = True
+    moe: Optional[MoECfg] = None
+    ssm_state: int = 64
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    frontend: Optional[str] = None   # None | "audio" | "vision"
+    family: str = "dense"            # dense | moe | hybrid | ssm | audio | vlm
+    # which shapes are runnable (long_500k needs sub-quadratic attention)
+    supports_long: bool = False
+
+    @property
+    def n_layers(self) -> int:
+        return sum(len(s.period) * s.n_periods for s in self.segments)
+
+    def param_count(self) -> int:
+        """Parameter count from the shapes ``init_params`` gives (drawn on
+        the meta device: no memory, no random numbers)."""
+        return sum(t.numel() for t in leaves(init_params(None, self)))
+
+
+def leaves(tree):
+    """The tensors of a nested dict/list/tuple, in insertion order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def serving_params(params, compute_dtype=torch.bfloat16):
+    """``params`` with every leaf the reference casts at its use cast to
+    ``compute_dtype`` once, and the ``F32_LEAVES`` kept f32 (the reference
+    reads those as f32, so casting them would change the result).  Leaves
+    are replaced one at a time, so a caller that drops its own reference to
+    ``params`` holds at most one f32 leaf beside the cast tree."""
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            for k in list(tree):
+                tree[k] = walk(tree[k], k)
+            return tree
+        if isinstance(tree, list):
+            for i, v in enumerate(tree):
+                tree[i] = walk(v, name)
+            return tree
+        return tree if name in F32_LEAVES else tree.to(compute_dtype)
+    return walk(params)
+
+
+# ---------------------------------------------------------------------------
+# per-block init/apply
+# ---------------------------------------------------------------------------
+
+def _init_block(gen, cfg: ArchCfg, bcfg: BlockCfg):
+    p = {"norm1": init_rmsnorm(gen, cfg.d_model)}
+    if bcfg.mixer == "attn":
+        p["mixer"] = attn_mod.init_attention(
+            gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim)
+    elif bcfg.mixer == "mamba2":
+        p["mixer"] = ssm_mod.init_mamba2(
+            gen, cfg.d_model, cfg.ssm_state, cfg.ssm_expand,
+            cfg.ssm_head_dim)
+    elif bcfg.mixer == "mlstm":
+        p["mixer"] = xlstm_mod.init_mlstm(gen, cfg.d_model, cfg.n_heads)
+    elif bcfg.mixer == "slstm":
+        p["mixer"] = xlstm_mod.init_slstm(gen, cfg.d_model, cfg.n_heads)
+    elif bcfg.mixer != "shared_attn":      # shared weights live outside
+        raise ValueError(bcfg.mixer)
+
+    if bcfg.cross_attn:
+        p["norm_cross"] = init_rmsnorm(gen, cfg.d_model)
+        p["cross"] = attn_mod.init_attention(
+            gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim)
+
+    if bcfg.ffn == "dense":
+        p["norm2"] = init_rmsnorm(gen, cfg.d_model)
+        p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff)
+    elif bcfg.ffn == "moe":
+        m = cfg.moe
+        p["norm2"] = init_rmsnorm(gen, cfg.d_model)
+        p["ffn"] = moe_mod.init_moe(gen, cfg.d_model, m.d_ff_expert,
+                                    m.n_experts, m.n_shared, m.d_ff_shared)
+    return p
+
+
+def _mixer_cache_init(cfg: ArchCfg, bcfg: BlockCfg, batch: int, seq: int,
+                      periods: int, kv_dtype, device):
+    """Zero cache for one block position of a segment, stacked over its
+    periods.  SWA layers get window-sized ring buffers."""
+    if bcfg.mixer in ("attn", "shared_attn"):
+        cache_len = min(seq, bcfg.window) if bcfg.window else seq
+        return KVCache.zeros(batch, cache_len, cfg.n_kv, cfg.head_dim,
+                             dtype=kv_dtype, device=device, periods=periods)
+    if bcfg.mixer == "mamba2":
+        shapes = ssm_mod.init_mamba2(None, cfg.d_model, cfg.ssm_state,
+                                     cfg.ssm_expand, cfg.ssm_head_dim)
+        state = ssm_mod.mamba2_init_state(shapes, batch, device=device)
+    elif bcfg.mixer == "mlstm":
+        shapes = xlstm_mod.init_mlstm(None, cfg.d_model, cfg.n_heads)
+        state = xlstm_mod.mlstm_init_state(shapes, batch, device=device)
+    elif bcfg.mixer == "slstm":
+        shapes = xlstm_mod.init_slstm(None, cfg.d_model, cfg.n_heads)
+        state = xlstm_mod.slstm_init_state(shapes, batch, device=device)
+    else:
+        raise ValueError(bcfg.mixer)
+    return {k: v.expand(periods, *v.shape).clone() for k, v in state.items()}
+
+
+def _mixer_train(p, cfg, bcfg, h, shared_attn_params, window, causal):
+    if bcfg.mixer in ("attn", "shared_attn"):
+        mp = p["mixer"] if bcfg.mixer == "attn" else shared_attn_params
+        return attn_mod.attention_train(
+            mp, h, window=window, softcap=cfg.softcap,
+            rope_theta=cfg.rope_theta, causal=causal)
+    if bcfg.mixer == "mamba2":
+        return ssm_mod.mamba2_train(p["mixer"], h)
+    if bcfg.mixer == "mlstm":
+        return xlstm_mod.mlstm_train(p["mixer"], h)
+    return xlstm_mod.slstm_train(p["mixer"], h)
+
+
+def _ffn(p, cfg: ArchCfg, bcfg: BlockCfg, x):
+    if bcfg.ffn == "dense":
+        return x + mlp(p["ffn"], rmsnorm(p["norm2"], x), cfg.act)
+    if bcfg.ffn == "moe":
+        return x + moe_mod.moe(p["ffn"], rmsnorm(p["norm2"], x),
+                               top_k=cfg.moe.top_k,
+                               capacity_factor=cfg.moe.capacity_factor,
+                               activation=cfg.act)
+    return x
+
+
+def _apply_block_train(p, cfg: ArchCfg, bcfg: BlockCfg, x,
+                       shared_attn_params, memory=None, causal=True):
+    window = float(bcfg.window) if bcfg.window else float(x.shape[1] + 1)
+    h = rmsnorm(p["norm1"], x)
+    x = x + _mixer_train(p, cfg, bcfg, h, shared_attn_params, window, causal)
+    if bcfg.cross_attn:
+        h = rmsnorm(p["norm_cross"], x)
+        x = x + attn_mod.attention_train(
+            p["cross"], h, window=float(memory.shape[1] + 1),
+            softcap=cfg.softcap, rope_theta=cfg.rope_theta,
+            causal=False, memory=memory)
+    return _ffn(p, cfg, bcfg, x)
+
+
+def _apply_block_decode(p, cfg: ArchCfg, bcfg: BlockCfg, x, cache, pos,
+                        shared_attn_params, memory=None):
+    """One block at one position.  A KV cache is written in place; a
+    recurrent state comes back new.  Returns ``(x, cache)``."""
+    window = float(bcfg.window) if bcfg.window else 2.0 ** 31
+    h = rmsnorm(p["norm1"], x)
+    if bcfg.mixer in ("attn", "shared_attn"):
+        mp = p["mixer"] if bcfg.mixer == "attn" else shared_attn_params
+        h, cache = attn_mod.attention_decode(
+            mp, h, cache, pos, window=window, softcap=cfg.softcap,
+            rope_theta=cfg.rope_theta)
+    elif bcfg.mixer == "mamba2":
+        h, cache = ssm_mod.mamba2_decode(p["mixer"], h, cache)
+    elif bcfg.mixer == "mlstm":
+        h, cache = xlstm_mod.mlstm_decode(p["mixer"], h, cache)
+    elif bcfg.mixer == "slstm":
+        h, cache = xlstm_mod.slstm_decode(p["mixer"], h, cache)
+    x = x + h
+
+    if bcfg.cross_attn:
+        h = rmsnorm(p["norm_cross"], x)
+        h, _ = attn_mod.attention_decode(
+            p["cross"], h, cache=None, pos=pos, window=2.0 ** 31,
+            softcap=cfg.softcap, rope_theta=cfg.rope_theta, memory=memory)
+        x = x + h
+    return _ffn(p, cfg, bcfg, x), cache
+
+
+# ---------------------------------------------------------------------------
+# segments (a loop over stacked periods)
+# ---------------------------------------------------------------------------
+
+def _period(tree, i: int):
+    """The ``i``-th period's view of a stacked tree."""
+    if isinstance(tree, dict):
+        return {k: _period(v, i) for k, v in tree.items()}
+    if isinstance(tree, KVCache):
+        return KVCache(tree.k[i], tree.v[i])
+    return tree[i]
+
+
+def _stacked_like(tree, n: int):
+    if isinstance(tree, dict):
+        return {k: _stacked_like(v, n) for k, v in tree.items()}
+    return tree.new_empty((n,) + tuple(tree.shape))
+
+
+def _set_period(stacked, tree, i: int):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _set_period(stacked[k], v, i)
+    else:
+        stacked[i].copy_(tree)
+
+
+def _init_segment(gen, cfg: ArchCfg, seg: Segment):
+    """Stacked period params: leaves get a leading [n_periods] axis.  Each
+    period is drawn and copied into its slot in turn, so at most one
+    period's draws live beside the stack."""
+    def one_period():
+        return {f"b{i}": _init_block(gen, cfg, b)
+                for i, b in enumerate(seg.period)}
+    first = one_period()
+    stacked = _stacked_like(first, seg.n_periods)
+    _set_period(stacked, first, 0)
+    del first
+    for n in range(1, seg.n_periods):
+        _set_period(stacked, one_period(), n)
+    return stacked
+
+
+def _segment_train(seg_params, cfg: ArchCfg, seg: Segment, x,
+                   shared_attn_params, memory=None, causal=True):
+    for n in range(seg.n_periods):
+        pp = _period(seg_params, n)
+        for i, b in enumerate(seg.period):
+            x = _apply_block_train(pp[f"b{i}"], cfg, b, x,
+                                   shared_attn_params, memory, causal)
+    return x
+
+
+def _segment_decode(seg_params, cfg: ArchCfg, seg: Segment, x, seg_cache,
+                    pos, shared_attn_params, memory=None):
+    for n in range(seg.n_periods):
+        pp = _period(seg_params, n)
+        for i, b in enumerate(seg.period):
+            stacked = seg_cache[f"b{i}"]
+            x, c = _apply_block_decode(pp[f"b{i}"], cfg, b, x,
+                                       _period(stacked, n), pos,
+                                       shared_attn_params, memory)
+            if not isinstance(stacked, KVCache):
+                for key, v in c.items():
+                    stacked[key][n].copy_(v)
+    return x
+
+
+def _init_segment_cache(cfg: ArchCfg, seg: Segment, batch: int, seq: int,
+                        kv_dtype, device):
+    return {f"b{i}": _mixer_cache_init(cfg, b, batch, seq, seg.n_periods,
+                                       kv_dtype, device)
+            for i, b in enumerate(seg.period)}
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+
+def _has_shared_attn(cfg: ArchCfg) -> bool:
+    return any(b.mixer == "shared_attn"
+               for s in cfg.segments for b in s.period)
+
+
+def init_params(gen: Optional[torch.Generator], cfg: ArchCfg):
+    """f32 parameters drawn from ``gen`` on its device (``gen=None``:
+    shapes only, on the meta device).  The draws are the port's own; the
+    tests carry the reference's parameters across with
+    ``interop.params_from_numpy``."""
+    p = {
+        "embed": init_embedding(gen, cfg.vocab, cfg.d_model),
+        "final_norm": init_rmsnorm(gen, cfg.d_model),
+        "segments": [_init_segment(gen, cfg, s) for s in cfg.segments],
+    }
+    if not cfg.tied_embeddings:
+        p["unembed"] = init_dense(gen, cfg.d_model, cfg.vocab)
+    if _has_shared_attn(cfg):
+        p["shared_attn"] = attn_mod.init_attention(
+            gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim)
+    if cfg.enc_segments:
+        p["enc_segments"] = [_init_segment(gen, cfg, s)
+                             for s in cfg.enc_segments]
+        p["enc_norm"] = init_rmsnorm(gen, cfg.d_model)
+    if cfg.frontend is not None:
+        # modality stub: a linear adapter over precomputed frame/patch
+        # embeddings, as in the reference
+        p["frontend"] = init_dense(gen, cfg.d_model, cfg.d_model)
+    return p
+
+
+def _encode(params, cfg: ArchCfg, enc_embeddings):
+    x = (dense(params["frontend"], enc_embeddings) if cfg.frontend
+         else enc_embeddings)
+    for seg_p, seg in zip(params["enc_segments"], cfg.enc_segments):
+        x = _segment_train(seg_p, cfg, seg, x, None, causal=False)
+    return rmsnorm(params["enc_norm"], x)
+
+
+def _embed_scaled(params, cfg: ArchCfg, tokens, compute_dtype):
+    x = embed(params["embed"], tokens, compute_dtype)
+    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype)
+
+
+def _logits(params, cfg: ArchCfg, x):
+    x = rmsnorm(params["final_norm"], x)
+    if cfg.tied_embeddings:
+        return unembed(params["embed"], x)
+    return dense(params["unembed"], x)
+
+
+def forward_train(params, cfg: ArchCfg, tokens, enc_embeddings=None,
+                  compute_dtype=torch.bfloat16, opts=DEFAULT_OPTS):
+    """Logits for next-token prediction.  tokens: [B, S] integers.  The
+    forward pass only: rematerialisation belongs to the training slice."""
+    del opts                              # mesh-free: every knob a no-op
+    memory = None
+    if cfg.enc_segments:
+        memory = _encode(params, cfg, enc_embeddings.to(compute_dtype))
+    x = _embed_scaled(params, cfg, tokens, compute_dtype)
+    shared = params.get("shared_attn")
+    for seg_p, seg in zip(params["segments"], cfg.segments):
+        x = _segment_train(seg_p, cfg, seg, x, shared, memory=memory)
+    return _logits(params, cfg, x)
+
+
+def init_cache(cfg: ArchCfg, batch: int, seq: int, kv_dtype=torch.bfloat16,
+               device=None):
+    """Decode cache for a maximum context of ``seq`` on ``device`` (the
+    card unless the caller names another; no card and no ``device``
+    raises).
+
+    ``kv_dtype`` is the KV-cache storage dtype.  It must match the serving
+    compute dtype: a bf16 cache under float32 decode truncates the KV
+    history every step, so decode drifts ~1e-3 relative from the
+    teacher-forcing forward (amplified further by MoE gate
+    renormalisation).  Recurrent states are f32, as in the reference."""
+    device = resolve_device(device)
+    return {
+        "seg_caches": [_init_segment_cache(cfg, s, batch, seq, kv_dtype,
+                                           device)
+                       for s in cfg.segments],
+        "pos": torch.zeros((), dtype=torch.int64, device=device),
+    }
+
+
+def forward_decode(params, cfg: ArchCfg, token, cache, enc_memory=None,
+                   compute_dtype=torch.bfloat16, opts=DEFAULT_OPTS):
+    """One decode step.  token: [B, 1] integers -> ``(logits [B, 1, V],
+    cache)``; the cache is updated in place and returned with ``pos``
+    advanced."""
+    del opts                              # mesh-free: every knob a no-op
+    x = _embed_scaled(params, cfg, token, compute_dtype)
+    pos = cache["pos"]
+    shared = params.get("shared_attn")
+    for seg_p, seg, seg_c in zip(params["segments"], cfg.segments,
+                                 cache["seg_caches"]):
+        x = _segment_decode(seg_p, cfg, seg, x, seg_c, pos, shared,
+                            memory=enc_memory)
+    cache["pos"] = pos + 1
+    return _logits(params, cfg, x), cache
+
+
+def encode(params, cfg: ArchCfg, enc_embeddings,
+           compute_dtype=torch.bfloat16):
+    """Public encoder entry (serving: run once per request batch)."""
+    return _encode(params, cfg, enc_embeddings.to(compute_dtype))

@@ -23,7 +23,10 @@ and by ``chip_smoke.py``.
   row bucket spans several ragged wide-block plan blocks;
 * :func:`random_dense_lps` / :func:`dense_stack`: random bounded-feasible
   dense LPs and their stacked operator (the dense engine sweep's inputs);
-* :func:`densify`: a prepared structured stack as its dense ``(K,)`` twin.
+* :func:`densify`: a prepared structured stack as its dense ``(K,)`` twin;
+* :func:`to_device` / :func:`teacher_forcing`: an LM parameter tree moved to
+  a device, and a model's teacher-forced logits beside its decode path's;
+  :func:`bf16_logit_tol`: the bound on two bf16 evaluations of one model.
 """
 
 from __future__ import annotations
@@ -360,3 +363,46 @@ def densify(ops):
     from .core import pdhg
     K = pdhg.structured_to_dense(ops.structured).to(ops.c.device)
     return ops._replace(data=(K,), structured=None)
+
+
+def to_device(tree, device):
+    """An LM parameter tree (dicts and lists of tensors) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def teacher_forcing(params, cfg, toks, dtype, enc=None):
+    """``(forward_train``'s logits, the decode path's logits token by
+    token``)``, each ``[B, S, V]`` f32 on the host; computed in ``dtype``
+    on the device of ``toks``, with a cache in ``dtype``."""
+    from . import models
+    train = models.forward_train(params, cfg, toks, enc_embeddings=enc,
+                                 compute_dtype=dtype)
+    mem = (None if enc is None
+           else models.encode(params, cfg, enc, compute_dtype=dtype))
+    cache = models.init_cache(cfg, toks.shape[0], toks.shape[1],
+                              kv_dtype=dtype, device=toks.device)
+    out = []
+    for i in range(toks.shape[1]):
+        lg, cache = models.forward_decode(params, cfg, toks[:, i: i + 1],
+                                          cache, enc_memory=mem,
+                                          compute_dtype=dtype)
+        out.append(lg[:, 0])
+    return train.float().cpu(), torch.stack(out, 1).float().cpu()
+
+
+def bf16_logit_tol(f32_logits, bf16_logits) -> float:
+    """The bound on two bf16 evaluations of one model's logits (another
+    implementation, or another path through the same one), given a
+    trusted pair: ``bf16_logits`` from a trusted path in bf16 and
+    ``f32_logits`` from it in f32.  Each bf16 evaluation lies about
+    ``e = max|bf16 - f32|`` from the f32 result, so two of them lie within
+    ``2 e`` of each other (the triangle inequality, with the other path no
+    less accurate than the trusted one).  Readings and controls:
+    ``tools/bf16_bound.py``."""
+    f32 = np.asarray(f32_logits, np.float32)
+    bf16 = np.asarray(bf16_logits, np.float32)
+    return 2.0 * float(np.abs(bf16 - f32).max())

@@ -11,7 +11,10 @@ kernels round every operation to nearest and contract nothing into an
 FMA, as the plain version's separate elementwise ops do); the
 gather-reduce and dense products sum in another order, so they are held at
 the reference's product tolerance of 1e-4 (``tests/test_kernels.py``), and
-at its 2e-2 for bf16 coefficients."""
+at its 2e-2 for bf16 coefficients.  The language-model serving path (no
+hand kernel: plain torch ops) is held on the card against the same port
+on the CPU: the 10 reduced architectures in f32 with TF32 off, the
+serving driver and the two deprecated doors."""
 
 import functools
 
@@ -1313,3 +1316,83 @@ def test_cuda_moe_session_matches_cpu_session(cuda_device):
         np.testing.assert_array_equal(a.alloc, b.alloc)
         for key in ("served", "objective"):
             assert abs(a.metrics[key] - b.metrics[key]) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the language-model serving path (models, serve engine, launch/serve)
+# ---------------------------------------------------------------------------
+
+LM_TOL = 1e-4
+
+
+@pytest.fixture
+def no_tf32(cuda_device):
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda_device
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o_danube3_4b", "gemma3_4b",
+                                  "gemma2_27b", "llama3_8b", "mixtral_8x22b",
+                                  "qwen2_moe_a2_7b", "zamba2_2_7b",
+                                  "seamless_m4t_medium", "chameleon_34b",
+                                  "xlstm_350m"])
+def test_cuda_lm_matches_cpu(arch, no_tf32):
+    """Each reduced architecture on the card against the port on the CPU:
+    one parameter set made on the CPU, forward_train and 8 decode steps
+    within 1e-4 in f32 with TF32 off, the same greedy tokens."""
+    from repro_torch import configs, models
+    cfg = configs.get_reduced(arch)
+    params = models.init_params(torch.Generator().manual_seed(1), cfg)
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (2, 8), generator=gen)
+    enc = (torch.randn(2, 6, cfg.d_model, generator=gen)
+           if cfg.enc_segments else None)
+    want = testing.teacher_forcing(params, cfg, toks, torch.float32, enc)
+    got = testing.teacher_forcing(testing.to_device(params, no_tf32), cfg,
+                                  toks.to(no_tf32), torch.float32,
+                                  None if enc is None else enc.to(no_tf32))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=LM_TOL)
+        assert torch.equal(g.argmax(-1), w.argmax(-1))
+
+
+@pytest.mark.cuda
+def test_cuda_serve_driver(cuda_device):
+    """``launch.serve`` on the card: CUDA-event step times, peak memory,
+    greedy tokens in the vocabulary and the same tokens from the same
+    seed."""
+    from repro_torch.launch import serve
+    argv = ["--arch", "llama3_8b", "--reduced", "--batch", "4",
+            "--max-seq", "64", "--prompt", "8", "--tokens", "8"]
+    run = serve.main(argv)
+    assert run.step_ms is not None and run.step_ms > 0
+    assert run.peak_bytes >= run.cache_bytes
+    assert bool(torch.isfinite(run.final_logits).all())
+    assert bool(((run.tokens >= 0) & (run.tokens < 512)).all())
+    assert torch.equal(serve.main(argv).tokens, run.tokens)
+
+
+@pytest.mark.cuda
+def test_cuda_balance_requests_and_scheduler(cuda_device):
+    """The two shims on the card: valid placements, and a scheduler round
+    whose allocations are time fractions."""
+    import warnings
+    from repro_torch.sched import GavelScheduler, JobSpec, SchedulerConfig
+    from repro_torch.serve import balance_requests
+    rng = np.random.default_rng(1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        res = balance_requests(rng.uniform(1.0, 8.0, 40), 6, pop_k=2)
+        sched = GavelScheduler(SchedulerConfig(pop_k=2))
+    assert ((res.placement >= 0) & (res.placement < 6)).all()
+    for i in range(32):
+        sched.submit(JobSpec(job_id=f"j{i}", arch="llama3_8b",
+                             throughputs=np.abs(rng.normal(
+                                 [1.0, 0.6, 0.8], 0.2)) + 0.05))
+    rho = np.concatenate([np.atleast_1d(v)
+                          for v in sched.allocate().values()])
+    assert rho.shape == (32,) and (rho >= 0).all() and (rho <= 1 + 1e-6).all()

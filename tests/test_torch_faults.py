@@ -7,9 +7,10 @@ come out the same: the ladder rung (``status``), the ``faults`` tuple, the
 service's counters, the quarantine's ``warm_stats`` and, for equal
 measured rates, the rung and capped ``solver_kw`` the deadline ladder
 picks.  Allocations agree within 1e-3, the session standard of
-``tests/test_torch_service.py``.  The reference's greedy-rung case needs
-``moe_placement`` (ROADMAP open items §1, item 13); here a traffic session
-whose spec carries a test-local ``greedy=`` hook covers that rung."""
+``tests/test_torch_service.py``.  The greedy rung runs twice: on
+``moe_placement`` with the domain's registered hook (the reference's own
+case), and on a traffic session whose spec carries a test-local
+``greedy=`` hook."""
 
 import dataclasses
 import time
@@ -18,6 +19,7 @@ import types
 import numpy as np
 import pytest
 
+import repro.domains as ref_domains
 import repro.service as ref_service
 from repro.analysis import faults as ref_faults
 from repro.core import ExecConfig as RefExecConfig
@@ -26,6 +28,7 @@ from repro.core import pop as ref_pop
 from repro.domains import StepOutcome as RefStepOutcome
 from repro.domains import get as ref_domain
 from repro.problems import traffic_engineering as ref_te
+import repro_torch.domains as port_domains
 import repro_torch.service as port_service
 from repro_torch.analysis import faults as port_faults
 from repro_torch.core import pop as port_pop
@@ -40,11 +43,13 @@ ALLOC_TOL = 1e-3
 REF = types.SimpleNamespace(
     name="reference", service=ref_service, faults=ref_faults, pop=ref_pop,
     te=ref_te, SolveConfig=RefSolveConfig, ExecConfig=RefExecConfig,
-    StepOutcome=RefStepOutcome, domain=ref_domain, device={})
+    StepOutcome=RefStepOutcome, domain=ref_domain, domains=ref_domains,
+    device={})
 PORT = types.SimpleNamespace(
     name="port", service=port_service, faults=port_faults, pop=port_pop,
     te=port_te, SolveConfig=SolveConfig, ExecConfig=ExecConfig,
-    StepOutcome=StepOutcome, domain=port_domain, device={"device": "cpu"})
+    StepOutcome=StepOutcome, domain=port_domain, domains=port_domains,
+    device={"device": "cpu"})
 
 # the service counters both packages keep
 COUNTERS = ("steps", "plan_hits", "plan_repairs", "plan_misses",
@@ -318,6 +323,14 @@ class TestDeadlineLadder:
             key = next(k for k in svc._rates if k[0] == "pop")
             svc._rates[key] = 2e-5
             svc._overheads[key] = 0.0
+            # the ladder budgets the deadline less the host time since the
+            # step began: with 2 ms at 2e-5 s an iteration, 1.2 ms of it
+            # (a loaded host) would leave less than one chunk and take the
+            # fallback rung.  Re-reading the step's start at the ladder
+            # pins that time near zero, so the budget is 100 iterations.
+            ladder = sess._ladder
+            sess._ladder = lambda rkey, deadline_s, t0: ladder(
+                rkey, deadline_s, time.perf_counter())
             alloc = sess.step(traffic(pkg, scale=1.3), deadline_s=0.002)
             assert alloc.status == "degraded"
             assert len(alloc.faults) == 1
@@ -327,8 +340,7 @@ class TestDeadlineLadder:
             assert svc.stats()["degraded_steps"] == 1
             return alloc.raw.iterations
         for pkg in (REF, PORT):
-            # the cap (80 iterations, or one 40-iteration chunk when the
-            # host was slow to reach the ladder) bounds every lane
+            # the cap (80 iterations) bounds every lane
             assert int(np.max(scenario(pkg))) <= 80
 
     def test_loose_deadline_is_clean(self):
@@ -411,6 +423,26 @@ class TestDeadlineLadder:
         assert s["status"] == "fallback"
         assert s["fallback_source"] == "greedy"
         assert not s["alloc"].any()
+
+    def test_fallback_without_history_uses_moe_greedy(self):
+        """The reference's own case on ``moe_placement``: the fresh
+        tenant's fallback comes from the domain's registered ``greedy``
+        hook (``greedy_placement``), in both packages."""
+        def scenario(pkg):
+            svc = service(pkg)
+            inst = pkg.domains.make_placement_instance(32, 8, seed=0)
+            svc.session("a", inst).step(inst)
+            pkg.faults.inflate_rates(svc, factor=1e6)
+            fresh = svc.session("b", domain="moe_placement")
+            alloc = fresh.step(inst, deadline_s=0.5)
+            np.testing.assert_array_equal(
+                np.asarray(alloc.alloc),
+                pkg.domains.greedy_placement(inst))
+            return summary(alloc, svc)
+        s = both(scenario)
+        assert s["status"] == "fallback" and s["faults"] == ("deadline",)
+        assert s["fallback_source"] == "greedy"
+        assert s["stats"]["fallback_steps"] == 1
 
     def test_no_history_no_greedy_raises(self):
         for pkg in (REF, PORT):

@@ -1,8 +1,9 @@
-"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor the reference package ``repro``; every port module
-imports in a fresh interpreter without pulling JAX in; entry points default
-to the CUDA device and refuse, rather than fall back, where there is none;
-``chip_smoke.py`` fails without a card and outside the repository."""
+"""The port stands alone: ``src/repro_torch``, ``examples_torch/`` and
+``chip_smoke.py`` import neither ``jax`` nor the reference package
+``repro``; every port module imports in a fresh interpreter without
+pulling JAX in; entry points default to the CUDA device and refuse, rather
+than fall back, where there is none; ``chip_smoke.py`` fails without a
+card and outside the repository."""
 
 import ast
 import os
@@ -31,11 +32,13 @@ from repro_torch.tuning import build_profile
 PKG = Path(next(iter(repro_torch.__path__)))
 ROOT = PKG.parents[1]
 SMOKE = ROOT / "chip_smoke.py"
+EXAMPLES = ROOT / "examples_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [SMOKE]
+    return (sorted(PKG.rglob("*.py")) + sorted(EXAMPLES.glob("*.py"))
+            + [SMOKE])
 
 
 def _imported_roots(path: Path):
@@ -65,8 +68,9 @@ def test_new_modules_are_checked():
     """The dense and full-problem kernels, the LP containers, the traffic,
     load-balancing and MoE placement domains, the rounding and max-min
     helpers, the shared build, the session checkpoint codec, the page
-    store, the fault injectors, the tuner and the MoE routing statistics
-    are among the sources the import checks walk."""
+    store, the fault injectors, the tuner, the LM substrate and configs,
+    the serving engine and driver, the scheduler shims and the example
+    twins are among the sources the import checks walk."""
     names = {str(p.relative_to(ROOT)) for p in _sources()}
     for rel in ("kernels/structured_full_pdhg_step.py", "kernels/build.py",
                 "kernels/pdhg_matvec.py", "kernels/fused_pdhg_step.py",
@@ -79,9 +83,16 @@ def test_new_modules_are_checked():
                 "analysis/faults.py", "tuning/__init__.py",
                 "tuning/profile.py", "tuning/slo.py", "tuning/online.py",
                 "models/__init__.py", "models/moe.py",
-                "domains/moe_placement.py"):
+                "domains/moe_placement.py", "models/layers.py",
+                "models/attention.py", "models/ssm.py", "models/xlstm.py",
+                "models/transformer.py", "configs/__init__.py",
+                "configs/llama3_8b.py", "serve/engine.py",
+                "launch/serve.py", "sched/elastic.py",
+                "sched/gavel_service.py"):
         assert f"src/repro_torch/{rel}" in names, rel
-    assert "chip_smoke.py" in names
+    for rel in ("examples_torch/serve_balanced.py",
+                "examples_torch/schedule_cluster.py", "chip_smoke.py"):
+        assert rel in names, rel
 
 
 def test_problem_module_imports_nothing_of_the_package():
@@ -154,6 +165,36 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry()
     assert PopService(device="cpu").device.type == "cpu"
+
+
+def test_lm_entry_points_default_to_the_card(monkeypatch):
+    """The serving driver, the decode cache, the balancer shim, the
+    scheduler shim and the example twins resolve the device as
+    ``resolve_device`` does: the card by default, a refusal with none."""
+    import importlib.util
+    import warnings
+
+    from repro_torch import models
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import serve
+    from repro_torch.sched import GavelScheduler, SchedulerConfig
+    from repro_torch.serve import balance_requests
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    entries = [lambda: serve.main(["--reduced", "--tokens", "1"]),
+               lambda: models.init_cache(get_reduced("llama3_8b"), 1, 8),
+               lambda: balance_requests(np.ones(8), 2),
+               lambda: GavelScheduler(SchedulerConfig())]
+    for name in ("serve_balanced", "schedule_cluster"):
+        spec = importlib.util.spec_from_file_location(
+            f"{name}_twin", EXAMPLES / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        entries.append(lambda mod=mod: mod.main(["--fast"]))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        for entry in entries:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                entry()
 
 
 def test_chip_smoke_fails_without_card_or_outside_repo(tmp_path):

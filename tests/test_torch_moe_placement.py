@@ -4,8 +4,8 @@ domain of the port (``repro_torch.domains.moe_placement``,
 
 The first half twins ``tests/test_domains.py``'s ``TestRegistry``, its
 matvec-identity test and ``TestMoEPlacement`` on the port at
-``device="cpu"``; the gate-load test builds its router weight with numpy
-(the port has no ``init_moe``).  The second half puts the same inputs
+``device="cpu"``; the gate-load test builds its router weight with numpy.
+The second half puts the same inputs
 through both packages: the sub-LP arrays bit for bit (f32), ``_evaluate``
 and ``_round`` on one allocation, ``place_experts`` at a fixed budget
 (served, objective and moves within 1e-3, the same placement), the warm

@@ -3,6 +3,7 @@
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/session_iterations.py \
         [--n-jobs 1024] [--churn 0.05] [--probe-keys 7 8 9] [--resolves 2]
+        [--k 32]
 
 Runs the session of ``chip_smoke.py``'s main path (cold, a +-3% throughput
 drift, then ``--churn`` of the jobs replaced under new ids; the ``gavel``
@@ -19,7 +20,10 @@ iteration counts move with the probe draw.  ``--resolves N`` runs the
 drifted instance N more times after the hit, each warm from the step
 before (what ``chip_smoke.py``'s ``robust`` phase does between its
 faults): how many iterations a warm re-solve of an unchanged instance
-takes from its own converged iterates.
+takes from its own converged iterates.  ``--k`` replaces the registry's
+k=8 in both packages (the tuner's plan in the smoke's ``tune`` phase can
+pick another k): whether the reference leaves the same lanes at the
+iteration cap as the port.
 """
 
 from __future__ import annotations
@@ -35,12 +39,14 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tests"))
 
+from repro.core.config import SolveConfig as RefSolveConfig  # noqa: E402
 from repro.domains import GavelInstance as RefGavelInstance  # noqa: E402
 from repro.problems.cluster_scheduling import (  # noqa: E402
     make_cluster_workload as ref_make_cluster_workload)
 from repro.service import PopService as RefPopService  # noqa: E402
 from repro_torch import testing  # noqa: E402
 from repro_torch.core import pdhg as tpdhg  # noqa: E402
+from repro_torch.core.config import SolveConfig  # noqa: E402
 from repro_torch.domains import GavelInstance  # noqa: E402
 from repro_torch.service import PopService  # noqa: E402
 from test_torch_pdhg import reference_probes  # noqa: E402
@@ -67,23 +73,29 @@ def main() -> None:
     ap.add_argument("--probe-keys", type=int, nargs="*", default=[7])
     ap.add_argument("--resolves", type=int, default=0,
                     help="re-solves of the drifted instance after the hit")
+    ap.add_argument("--k", type=int, default=None,
+                    help="sub-problems (default: the registry's k=8)")
     args = ap.parse_args()
+    ref_solve = None if args.k is None else RefSolveConfig(k=args.k)
+    solve = None if args.k is None else SolveConfig(k=args.k)
     cold, drift, churn = testing.session_workloads(
         args.n_jobs, (args.n_jobs // 4,) * 3, args.churn,
         make_workload=ref_make_cluster_workload)
     workloads = [cold, drift] + [drift] * args.resolves + [churn]
-    run("reference", RefPopService().session("t", domain="gavel"),
+    run("reference",
+        RefPopService().session("t", domain="gavel", solve=ref_solve),
         RefGavelInstance, workloads)
     own_probes = tpdhg.rademacher_probes
     for key in args.probe_keys:
         tpdhg.rademacher_probes = functools.partial(reference_probes,
                                                     seed=key)
         run(f"port, jax key {key}",
-            PopService(device="cpu").session("t", domain="gavel"),
+            PopService(device="cpu").session("t", domain="gavel",
+                                             solve=solve),
             GavelInstance, workloads)
     tpdhg.rademacher_probes = own_probes
     run("port, own probes",
-        PopService(device="cpu").session("t", domain="gavel"),
+        PopService(device="cpu").session("t", domain="gavel", solve=solve),
         GavelInstance, workloads)
 
 
