@@ -13,7 +13,11 @@ Phases, each of which must pass:
              its reduced size: one parameter set made on the host and
              carried to the card, ``forward_train`` and 8 ``forward_decode``
              steps (f32, TF32 off, an f32 cache) against the same port on
-             the CPU within 1e-4, with equal greedy tokens;
+             the CPU within 1e-4, with equal greedy tokens; then one train
+             step (2 microbatches, f32, ``testing.PARITY_ADAMW``, every
+             MoE routing checked for a top-k tie) on the card against the
+             CPU: loss, grad_norm (relative), parameters, m and v within
+             1e-4;
 4. serve     llama3-8b at full width (32 layers, d_model 4,096, GQA 32/8,
              vocab 128,256; random f32 parameters from a seed on the card)
              through ``repro_torch.launch.serve``: teacher forcing on a
@@ -30,7 +34,29 @@ Phases, each of which must pass:
 5. serve-balanced ``examples_torch/serve_balanced.py --fast`` on the card:
              the balancer session's placements valid, each replica's
              greedy tokens in the vocabulary;
-6. kernels   each kernel against its plain PyTorch version on the card:
+6. train     llama3-8b at full width with its depth cut from 32 to 8
+             layers by memory (f32 parameters, gradients, m and v: 16 B a
+             parameter, 128.5 GB whole, 44.7 GB at 8 layers): 6 steps of
+             8 x 1,024 tokens from ``TokenPipeline`` through
+             ``DevicePrefetcher``, 2 microbatches, bf16 compute, remat,
+             the reference's AdamW defaults; ms a step from CUDA events,
+             tokens/s, the model FLOPs' share of the bf16 peak,
+             ``max_memory_allocated`` against the state; loss and
+             grad_norm finite, the last loss below the first, every leaf
+             changed; then remat on against off (2 layers, f32, every
+             gradient within 1e-6 of its leaf's largest) and one f32 step
+             of 1 layer on 2 x 64 tokens on the card against the CPU (loss
+             and grad_norm within 1e-4, parameters within 1e-5);
+7. train-driver xlstm-350m whole (24 layers) through ``python -m
+             repro_torch.launch.train`` in a child process: 8 steps with a
+             checkpoint at step 4, then 12 steps resumed from it (``resumed
+             from step 4``, a finite final loss); each run's wall;
+8. train-e2e ``examples_torch/train_e2e.py --model-scale full --steps 8
+             --fail-at 4 --ckpt-every 2`` in a child process (``across
+             restart``), then the reference's restart check at that
+             scale: the step after a restored checkpoint bit-equal to the
+             uninterrupted one (loss and every parameter);
+9. kernels   each kernel against its plain PyTorch version on the card:
              the lane kernels at the main path's stacked Gavel shapes and
              at skewed test shapes; the full-problem kernels at the
              traffic-engineering shape of 20,000 demands, at the Gavel
@@ -41,14 +67,14 @@ Phases, each of which must pass:
              the earlier design's times beside; where each structured
              wrapper's host time goes (``[host]``: ops dispatch, checks,
              allocations, the ctypes call, 1,000 calls each);
-7. main      the main path: an online Gavel POP session through
+10. main      the main path: an online Gavel POP session through
              ``PopService(device="cuda")`` at 16,384 jobs on 12,288
              accelerators, registry defaults (k=8, equilibrate), three
              steps (cold, a +-3% throughput drift, 5% job churn with
              stable ids); every lane converges and the allocation beats
              the Gandiva heuristic's fairness twice over, as the
              reference's own test holds it (``tests/test_problems.py``);
-8. tune      the tuner: ``tuning.build_profile`` over the gavel, traffic
+11. tune      the tuner: ``tuning.build_profile`` over the gavel, traffic
              and moe_placement probes at ``fast=False`` on the card, with
              no other thread running (its curves, launch line,
              ``launch_defaults``, thresholds, the engines its solves ran
@@ -64,7 +90,7 @@ Phases, each of which must pass:
              steps warm); the lane kernels against their plain versions at
              both sessions' stacks; ``dispatch=True`` sized by the launch
              line;
-9. moe       MoE expert placement: ``benchmarks/bench_moe_placement.py``'s
+12. moe       MoE expert placement: ``benchmarks/bench_moe_placement.py``'s
              defaults (512 experts on 16 devices: full, POP-4, POP-8, the
              greedy) held to ``tests/test_domains.py``'s gates; a
              ``moe_placement`` session at 4,096 experts on 64 devices
@@ -72,7 +98,7 @@ Phases, each of which must pass:
              step; ``expert_gate_load`` at DeepSeek-V3's router width
              (7,168 x 256, top-8, bf16, 16,384 tokens) fed to
              ``plan_expert_placement`` onto 64 devices;
-10. robust    the serving ladder on the main path's instances through its
+13. robust    the serving ladder on the main path's instances through its
              own ``PopService`` (``main``'s session untouched): a cold
              step and a hit to measure the ladder's rates; NaN in warm
              lane 3 and a step on the drifted fleet, which must come back
@@ -87,7 +113,7 @@ Phases, each of which must pass:
              truncated and corrupted blobs restored cold; two tenants
              under ``max_resident=1``, the paged-in one a warm hit; the
              lane kernels' counts put back afterwards;
-11. async     async serving through ``PopService(dispatch=
+14. async     async serving through ``PopService(dispatch=
              DispatchConfig(max_lanes=32))``: four tenants of the main
              path's size (seeds 0-3) step cold, then drifted, through
              ``step_async`` under ``hold()``, each round one 32-lane launch
@@ -104,9 +130,9 @@ Phases, each of which must pass:
              steps per second of the three ways, each round's prepare
              share, ``side_pack`` per new operator, and a profiled round's
              device busy share;
-12. profile   one more warm step under ``torch.profiler``: device time by
+15. profile   one more warm step under ``torch.profiler``: device time by
              kernel and the device's busy share;
-13. full      the unpartitioned traffic-engineering baseline at 20,000
+16. full      the unpartitioned traffic-engineering baseline at 20,000
              demands on the KDL-like topology through ``pop.solve_full_ex``
              (the ``fused_structured_full`` engine): the domain's
              defaults, then int8 coefficient storage (the same trajectory:
@@ -115,20 +141,20 @@ Phases, each of which must pass:
              30,000 iterations (the full-LP quality gate); then profiled
              fixed budgets of the full solve at the traffic shape (f32,
              int8) and at the Gavel full shape (f32, equilibrated);
-14. traffic   a POP session on the same instance (domain defaults: k=8
+17. traffic   a POP session on the same instance (domain defaults: k=8
              stratified): a cold step, every demand x 1.05 (a warm hit),
              and the CSPF heuristic beside POP and the full LP; a
              converged full LP must carry at least 99% of CSPF's flow;
-15. gavel-full the unpartitioned Gavel LP of the main path's fleet (Gavel
+18. gavel-full the unpartitioned Gavel LP of the main path's fleet (Gavel
              defaults, equilibrate), its fairness beside POP's;
-16. balance-kernels the lane and full kernels at load-balancing shapes
+19. balance-kernels the lane and full kernels at load-balancing shapes
              (1,024 shards on 64 servers): the stacked POP-4 relaxation and
              the single-lane full one with their ELL metadata, each solved
              at the conformance budget with the kernels, their plain
              versions on the card and the ``matvec`` engine (within 1e-5,
              equal iterations, one CUDA launch per half-step), their ELL
              fill and per-call times;
-17. balance  the paper's Fig. 5 (``benchmarks/bench_load_balancing.py``):
+20. balance  the paper's Fig. 5 (``benchmarks/bench_load_balancing.py``):
              the full relax-and-round, POP-k for k = 2, 4, 8, 16 and
              E-Store's greedy at 1,024 shards on 64 servers, held to the
              reference's gates (``tests/test_problems.py``); the matvec
@@ -136,15 +162,15 @@ Phases, each of which must pass:
              kernels per PDHG iteration of each run (two profiled fixed
              budgets); the host's relaxation build and repair, timed by
              wrapping them from here;
-18. balance-session the ``load_balance`` domain through
+21. balance-session the ``load_balance`` domain through
              ``PopService(device="cuda")`` at its defaults (k=4): 8,192
              shards on 256 servers, cold, a +-5% load drift (a hit), 5%
              shard churn (a repair, warm fraction 0.950), E-Store's greedy
              beside each step; valid placements within twice the load
              window;
-19. moe-profile one more step of the MoE session (a hit) under the
+22. moe-profile one more step of the MoE session (a hit) under the
              profiler: kernels and device time per PDHG iteration;
-20. redesign the redesigned kernels' device times under the profiler:
+23. redesign the redesigned kernels' device times under the profiler:
              ``structured_forward_step`` and ``structured_backward_step``
              at 4, 8 and 16 blocks a lane (main-path shape),
              ``structured_full_forward_step`` in one launch and after a
@@ -152,7 +178,7 @@ Phases, each of which must pass:
              ``structured_full_backward_step`` at the traffic shape (f32,
              int8) and the Gavel full shape; run after the paths, since a
              profiler session slows every later host call;
-21. kernels-dense the four dense kernels (``bmatvec``, ``bmatvec_t``,
+24. kernels-dense the four dense kernels (``bmatvec``, ``bmatvec_t``,
              ``fused_forward_step``, ``fused_backward_step``) against their
              plain versions at the densified main-path stack [8, 4,099,
              6,145], the dense engine sweep's [32, 256, 256] and the
@@ -161,11 +187,11 @@ Phases, each of which must pass:
              plain version's, one ``torch.bmm`` of the same product (plus
              the tail in torch for the half-steps, timed in turns) and the
              bound;
-22. redesign-dense the redesigned matvecs' device times under the
+25. redesign-dense the redesigned matvecs' device times under the
              profiler at the densified stack, f32 and bf16 A, in turns
              with ``torch.bmm``, each one CUDA launch a call and
              bit-for-bit the same twice, beside the earlier design's;
-23. dense    the main path's k=8 Gavel stack densified
+26. dense    the main path's k=8 Gavel stack densified
              (``pdhg.structured_to_dense``) through ``backends.solve_map(
              engine="auto")``, which must take the ``fused`` engine: the
              launch counts against the count the code predicts, a fixed
@@ -174,11 +200,11 @@ Phases, each of which must pass:
              1e-3 of the structured path's solve of the same instance), and
              a profiled fixed budget; one CUDA launch a matvec call, and
              fairness within 1e-4 of the earlier design's;
-24. dense-sweep ``fused`` against ``matvec`` on random dense LP stacks
+27. dense-sweep ``fused`` against ``matvec`` on random dense LP stacks
              [k, 256, 256], k = 1..32 (the reference's engine sweep,
              ``benchmarks/bench_pop_scaling.py``), a fixed budget of 2,000
              iterations: equal iterations, times, the engines' distance;
-25. solve-dense ``pdhg.solve_dense`` at the reference's ``pdhg_vs_scipy``
+28. solve-dense ``pdhg.solve_dense`` at the reference's ``pdhg_vs_scipy``
              size against scipy's HiGHS, at the reference test's bounds.
 
 The kernels' launch counts (calls and, for the structured kernels and the
@@ -205,6 +231,8 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -401,6 +429,30 @@ SERVE_PROMPT, SERVE_TOKENS = 128, 64
 SERVE_SEED = 0
 SERVE_PREFIX = 16
 SERVE_F32_TOL = 1e-3
+# the training path: each reduced architecture's train step (2
+# microbatches, f32, TF32 off) on the card against the CPU within LM_TOL;
+# llama3-8b at full width, its depth cut to TRAIN_LAYERS by memory (f32
+# parameters, gradients, m and v are 16 B a parameter: 128.5 GB whole),
+# TRAIN_STEPS bf16 steps of TRAIN_BATCH x TRAIN_SEQ tokens; then a
+# 2-layer f32 step with remat on against off (gradients within
+# REMAT_RTOL of the largest of each leaf) and a 1-layer f32 step on the
+# card against the CPU (loss and grad_norm within LM_TOL, parameters
+# within TRAIN_PARAM_TOL); xlstm-350m whole through launch/train; the
+# train_e2e twin at --model-scale full and the restart step bit for bit
+TRAIN_ARCH = "llama3_8b"
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 6
+TRAIN_SEED = 0
+REMAT_LAYERS, REMAT_BATCH, REMAT_SEQ = 2, 2, 256
+REMAT_RTOL = 1e-6
+TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 1, 2, 64
+TRAIN_PARAM_TOL = 1e-5
+PEAK_BF16_PER_S = 989e12
+DRIVER_ARCH = "xlstm_350m"
+DRIVER_RUNS = (("--steps", "8", "--ckpt-every", "4"), ("--steps", "12"))
+E2E_ARGS = ("--model-scale", "full", "--steps", "8", "--fail-at", "4",
+            "--ckpt-every", "2")
+CHILD_TIMEOUT_S = 300
 
 
 class SmokeError(RuntimeError):
@@ -618,11 +670,62 @@ def card_line() -> str:
 # the language-model serving path
 # --------------------------------------------------------------------------
 
+def _tree_diff(a, b) -> float:
+    """The largest absolute difference between two trees' leaves (each
+    moved to the host)."""
+    from repro_torch.models.transformer import leaves
+    return max(float((x.detach().cpu().float() - y.detach().cpu().float())
+                     .abs().max()) for x, y in zip(leaves(a), leaves(b)))
+
+
+def _one_step(cfg, params, batch, tcfg):
+    """One train step of ``params`` (updated in place) from a fresh
+    optimizer state: ``(params, opt_state, metrics as floats)``."""
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import make_train_step
+    opt = opt_mod.init_state(params)
+    params, opt, m = make_train_step(cfg, tcfg)(params, opt, batch)
+    return params, opt, {k: float(v) for k, v in m.items()}
+
+
+def _step_diffs(got: dict, want: dict) -> dict:
+    """The loss's difference and grad_norm's relative to its value (a
+    norm of every gradient: its size follows the model, 37 on zamba2
+    reduced against 2-13 on the others)."""
+    return {"loss": abs(got["loss"] - want["loss"]),
+            "grad_norm (relative)": abs(got["grad_norm"] - want["grad_norm"])
+            / want["grad_norm"]}
+
+
+def _lm_train_step(cfg, params, device):
+    """One train step (LM_BATCH rows in 2 microbatches, f32) of the same
+    parameters on the card and on the CPU, every routing checked for a
+    tie at the top-k cut: the largest difference of loss, grad_norm,
+    parameters, m and v."""
+    from repro_torch import testing
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import TrainConfig
+    tcfg = TrainConfig(n_microbatches=2, compute_dtype="float32",
+                       adamw=opt_mod.AdamWConfig(**testing.PARITY_ADAMW))
+    batch = testing.train_batch(cfg, LM_BATCH, LM_SEQ, seed=1)
+    card = testing.to_device(params, device)
+    with testing.router_tie_guard():
+        got = _one_step(cfg, card, testing.to_device(batch, device), tcfg)
+        want = _one_step(cfg, params, batch, tcfg)
+    diffs = _step_diffs(got[2], want[2])
+    diffs["params"] = _tree_diff(got[0], want[0])
+    diffs["m"] = _tree_diff(got[1].m, want[1].m)
+    diffs["v"] = _tree_diff(got[1].v, want[1].v)
+    return diffs
+
+
 def phase_lm_reduced(device):
     """Each of the 10 reduced architectures: one parameter set made on the
     host and carried to the card; forward_train and LM_SEQ decode steps on
     the card (f32, TF32 off, f32 cache) within LM_TOL of the same port on
-    the CPU, with equal greedy tokens."""
+    the CPU, with equal greedy tokens; then one train step (2
+    microbatches, f32) on the card within LM_TOL of the CPU's: loss,
+    grad_norm, every parameter, m and v."""
     from repro_torch import configs, models, testing
     for arch in configs.ARCH_IDS:
         cfg = configs.get_reduced(arch)
@@ -646,6 +749,13 @@ def phase_lm_reduced(device):
             f"{LM_TOL}); greedy tokens equal {same}")
         check(max(diffs) <= LM_TOL, f"{arch}: card off the CPU by {diffs}")
         check(same, f"{arch}: greedy tokens differ between card and CPU")
+        step = _lm_train_step(cfg, params, device)
+        log(f"[lm-reduced] {cfg.name}: one train step (2 microbatches, f32)"
+            " card against CPU, " + ", ".join(f"{k} {v:.3g}"
+                                               for k, v in step.items())
+            + f" (bound {LM_TOL})")
+        check(max(step.values()) <= LM_TOL,
+              f"{arch}: train step off the CPU by {step}")
 
 
 def phase_serve(device):
@@ -749,6 +859,324 @@ def phase_serve_balanced(device):
               f"replica {r} decoded {toks.shape[0]} sequences")
         check(bool(((toks >= 0) & (toks < vocab)).all()),
               f"replica {r}: a token outside the vocabulary")
+
+
+# --------------------------------------------------------------------------
+# the training path
+# --------------------------------------------------------------------------
+
+def cut_depth(cfg, n_layers: int):
+    """``cfg`` (one segment of one-block periods) with ``n_layers`` layers
+    and its widths unchanged."""
+    (seg,) = cfg.segments
+    check(len(seg.period) == 1, f"{cfg.name}: a period of several blocks")
+    return dataclasses.replace(
+        cfg, segments=(dataclasses.replace(seg, n_periods=n_layers),))
+
+
+def train_flops(cfg, tokens: int, seq: int, remat: bool) -> float:
+    """Model FLOPs of one train step of a dense GQA decoder (``cfg``'s
+    attention and gated-MLP blocks): the forward's matrix products
+    (projections, the MLP, scores and values over the whole ``seq`` x
+    ``seq`` square as the port computes them, the unembedding), the
+    backward at twice the forward, and with ``remat`` every layer's
+    forward once more."""
+    d, q, kv = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv * cfg.head_dim
+    layer = (2 * d * (2 * q + 2 * kv) + 2 * 3 * d * cfg.d_ff
+             + 2 * 2 * seq * q)
+    forward = tokens * (cfg.n_layers * layer + 2 * d * cfg.vocab)
+    return 3 * forward + (tokens * cfg.n_layers * layer if remat else 0)
+
+
+def _fingerprint(t):
+    """A leaf's sum and norm in f64 (on its device)."""
+    return torch.stack([t.sum(dtype=torch.float64),
+                        torch.linalg.vector_norm(t, dtype=torch.float64)])
+
+
+def _grads_of(cfg, params, batch, remat: bool):
+    """``(loss, [gradient of each leaf])`` of one f32 forward and backward
+    with ``remat`` on or off."""
+    from repro_torch.models.transformer import leaves
+    from repro_torch.train.train_step import TrainConfig, make_loss_fn
+    loss_fn = make_loss_fn(cfg, TrainConfig(compute_dtype="float32",
+                                            remat=remat))
+    flat = list(leaves(params))
+    for p in flat:
+        p.requires_grad_(True)
+    loss = loss_fn(params, batch)
+    loss.backward()
+    grads = [p.grad for p in flat]
+    for p in flat:
+        p.grad = None
+        p.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def phase_train(device, card: str):
+    """llama3-8b at full width, TRAIN_LAYERS deep, through the port's train
+    step (2 microbatches, bf16 compute over f32 parameters, remat on),
+    batches from ``TokenPipeline`` through ``DevicePrefetcher``: ms a step
+    from CUDA events, tokens/s, the model FLOPs' share of the bf16 peak,
+    ``max_memory_allocated`` against the reckoned state; loss and
+    grad_norm finite, the last loss below the first, every leaf changed.
+    Then remat on against off (2 layers, f32) and the card against the CPU
+    (1 layer, f32, 2 x 64 tokens)."""
+    from repro_torch import models, testing
+    from repro_torch.configs import get_config
+    from repro_torch.data import DevicePrefetcher, TokenPipeline
+    from repro_torch.models.transformer import leaves
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+    full = get_config(TRAIN_ARCH)
+    cfg = cut_depth(full, TRAIN_LAYERS)
+    n = cfg.param_count()
+    state_bytes = 16 * n
+    log(f"[train] {cfg.name} at full width (d_model {cfg.d_model}, GQA "
+        f"{cfg.n_heads}/{cfg.n_kv}, head_dim {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, untied), depth cut from "
+        f"{full.n_layers} to {cfg.n_layers} layers by memory: f32 "
+        f"parameters, gradients, m and v are 16 B a parameter, "
+        f"{16 * full.param_count() / 1e9:.1f} GB for all "
+        f"{full.param_count():,}, {state_bytes / 1e9:.1f} GB for {n:,}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    params = models.init_params(
+        torch.Generator(device).manual_seed(TRAIN_SEED), cfg)
+    opt = opt_mod.init_state(params)
+    before = [_fingerprint(t) for t in leaves(params)]
+    # the reference's AdamW defaults: lr 3e-6 a step of warmup (a peak of
+    # 3e-4 from the first step raised the loss from 12.16 to 19.87)
+    tcfg = TrainConfig(n_microbatches=2, compute_dtype="bfloat16",
+                       remat=True, adamw=opt_mod.AdamWConfig())
+    step = make_train_step(cfg, tcfg)
+    batches = DevicePrefetcher(
+        TokenPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                      seed=TRAIN_SEED), device)
+    ms, losses, gnorms = [], [], []
+    try:
+        for s in range(TRAIN_STEPS):
+            batch = next(batches)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, opt, m = step(params, opt, batch)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            log(f"[train] step {s}: loss {losses[-1]:.4f} grad_norm "
+                f"{gnorms[-1]:.4f} lr {float(m['lr']):.3g}, {ms[-1]:.2f} ms")
+    finally:
+        batches.close()
+    peak = torch.cuda.max_memory_allocated(device)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = sum(ms[1:]) / len(ms[1:])
+    flops = train_flops(cfg, tokens, TRAIN_SEQ, remat=True)
+    log(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens: first {ms[0]:.2f} ms, then {steady:.2f} ms a step (CUDA "
+        f"events, mean of {len(ms) - 1}; least {min(ms[1:]):.2f}), "
+        f"{tokens / steady * 1e3:.1f} tokens/s; {flops:.4g} model FLOPs a "
+        f"step (remat included) = {flops / (steady / 1e3) / PEAK_BF16_PER_S:.3f}"
+        f" of the dense bf16 peak (989 TFLOP/s) on {card}; "
+        f"max_memory_allocated {peak / 1e9:.3f} GB against "
+        f"{state_bytes / 1e9:.3f} GB of f32 state")
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"non-finite loss or grad_norm: {losses}, {gnorms}")
+    check(losses[-1] < losses[0],
+          f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    after = [_fingerprint(t) for t in leaves(params)]
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(before, after))
+    check(same == 0, f"{same} of {len(after)} parameter leaves unchanged")
+    log(f"[train] all {len(after)} parameter leaves changed")
+    del params, opt, batch, m
+    torch.cuda.empty_cache()
+    remat_check(device, full)
+    card_cpu_check(device, full)
+
+
+def remat_check(device, full):
+    """One f32 forward and backward of ``full`` cut to REMAT_LAYERS with
+    remat on and off: the loss and every gradient within REMAT_RTOL."""
+    from repro_torch import models, testing
+    cfg2 = cut_depth(full, REMAT_LAYERS)
+    params = models.init_params(
+        torch.Generator(device).manual_seed(TRAIN_SEED), cfg2)
+    batch = testing.train_batch(cfg2, REMAT_BATCH, REMAT_SEQ, seed=2,
+                                device=device)
+    on, off = (_grads_of(cfg2, params, batch, remat) for remat in (True,
+                                                                   False))
+    rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(on[1], off[1]))
+    bits = torch.equal(on[0], off[0]) and all(
+        torch.equal(a, b) for a, b in zip(on[1], off[1]))
+    loss_rel = abs(float(on[0]) - float(off[0])) / abs(float(off[0]))
+    log(f"[train] remat on against off ({cfg2.n_layers} layers, f32, "
+        f"{REMAT_BATCH} x {REMAT_SEQ} tokens): loss {float(on[0]):.6f} / "
+        f"{float(off[0]):.6f}, relative {loss_rel:.3g}; largest gradient "
+        f"difference {rel:.3g} of its leaf's largest (bound {REMAT_RTOL}); "
+        f"bit-equal {bits}")
+    check(loss_rel <= REMAT_RTOL and rel <= REMAT_RTOL,
+          f"remat changed the step: loss {loss_rel}, gradients {rel}")
+    del params, batch, on, off
+    torch.cuda.empty_cache()
+
+
+def card_cpu_check(device, full):
+    """One f32 train step of ``full`` cut to TRAIN_CPU_LAYERS on the card
+    and on the CPU from the same parameters: loss and grad_norm within
+    LM_TOL, parameters within TRAIN_PARAM_TOL."""
+    from repro_torch import models, testing
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import TrainConfig
+    cfg1 = cut_depth(full, TRAIN_CPU_LAYERS)
+    host = models.init_params(torch.Generator().manual_seed(TRAIN_SEED),
+                              cfg1)
+    card_params = testing.to_device(host, device)
+    batch = testing.train_batch(cfg1, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ,
+                                seed=3)
+    tcfg = TrainConfig(n_microbatches=2, compute_dtype="float32",
+                       adamw=opt_mod.AdamWConfig(**testing.PARITY_ADAMW))
+    t0 = time.perf_counter()
+    got = _one_step(cfg1, card_params, testing.to_device(batch, device),
+                    tcfg)
+    t1 = time.perf_counter()
+    want = _one_step(cfg1, host, batch, tcfg)
+    t2 = time.perf_counter()
+    diffs = _step_diffs(got[2], want[2])
+    p_diff = _tree_diff(got[0], want[0])
+    log(f"[train] card against CPU ({cfg1.n_layers} layer, f32, "
+        f"{TRAIN_CPU_BATCH} x {TRAIN_CPU_SEQ} tokens, one step): loss "
+        f"{got[2]['loss']:.6f} / {want[2]['loss']:.6f}, grad_norm "
+        f"{got[2]['grad_norm']:.6f} / {want[2]['grad_norm']:.6f}; "
+        + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+        + f" (bound {LM_TOL}), parameters {p_diff:.3g} (bound "
+        f"{TRAIN_PARAM_TOL}); card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s")
+    check(max(diffs.values()) <= LM_TOL and p_diff <= TRAIN_PARAM_TOL,
+          f"the card's step off the CPU's: {diffs}, parameters {p_diff}")
+    del host, card_params, got, want
+    torch.cuda.empty_cache()
+
+
+def _child(args, tag: str):
+    """Run ``python args...`` from the repository root with ``src`` on the
+    path; its output lines are logged with ``tag``.  Returns ``(stdout,
+    wall seconds)``; a nonzero exit fails the phase."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True,
+                          timeout=CHILD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for ln in proc.stdout.splitlines():
+        log(f"[{tag}]   {ln}")
+    check(proc.returncode == 0, f"{tag}: exit {proc.returncode}\\n"
+          f"{proc.stderr[-3000:]}")
+    return proc.stdout, wall
+
+
+def _final_loss(out: str) -> float:
+    line = [ln for ln in out.splitlines() if ln.startswith("done:")]
+    check(len(line) == 1, "no 'done:' line")
+    return float(line[0].split()[-1])
+
+
+def phase_train_driver(device):
+    """xlstm-350m whole (24 layers) through ``python -m
+    repro_torch.launch.train`` in a child process on the card: 8 steps
+    with a checkpoint at step 4, then 12 steps into the same directory,
+    which must resume from step 4 and end with a finite loss."""
+    from repro_torch.configs import get_config
+    cfg = get_config(DRIVER_ARCH)
+    ckpt = ROOT / "build" / "train_driver_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"[train-driver] {cfg.name}: {cfg.n_layers} layers, "
+        f"{cfg.param_count():,} parameters "
+        f"({16 * cfg.param_count() / 1e9:.2f} GB of f32 state)")
+    for i, run in enumerate(DRIVER_RUNS):
+        out, wall = _child(["-m", "repro_torch.launch.train", "--arch",
+                            DRIVER_ARCH, *run, "--ckpt-dir", str(ckpt)],
+                           "train-driver")
+        loss = _final_loss(out)
+        check(np.isfinite(loss), f"run {i + 1}: final loss {loss}")
+        if i:
+            check("resumed from step 4" in out, "the second run did not "
+                  "resume from step 4")
+        log(f"[train-driver] run {i + 1} ({' '.join(run)}): wall "
+            f"{wall:.2f} s (process start, parameters, steps, checkpoint "
+            f"writes), final loss {loss:.4f}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def phase_train_e2e(device):
+    """``examples_torch/train_e2e.py`` at ``--model-scale full`` on the card
+    in a child process (the simulated failure and restart, the marker
+    ``across restart``); then the reference's restart check
+    (``tests/test_system.py``'s ``test_train_checkpoint_restart_bitexact``)
+    at that scale: a checkpoint after step 1, restored, and the next step's
+    loss and every parameter bit-equal to the step that was not
+    interrupted."""
+    path = ROOT / "examples_torch" / "train_e2e.py"
+    out, wall = _child([str(path), *E2E_ARGS], "train-e2e")
+    check("across restart" in out, "train_e2e printed no 'across restart'")
+    log(f"[train-e2e] {' '.join(E2E_ARGS)}: wall {wall:.2f} s")
+    restart_bitexact(device)
+
+
+def restart_bitexact(device):
+    """The reference's restart check at ``train_e2e``'s full scale: a
+    checkpoint after step 1, restored, the next step bit-equal."""
+    import importlib.util
+    from repro_torch import models
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.transformer import leaves
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+    path = ROOT / "examples_torch" / "train_e2e.py"
+    spec = importlib.util.spec_from_file_location("train_e2e_twin", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    cfg = mod.model_cfg("full")
+    B, S = 8, 512
+    params = models.init_params(torch.Generator(device).manual_seed(0), cfg)
+    opt = opt_mod.init_state(params)
+    step = make_train_step(cfg, TrainConfig(
+        n_microbatches=1, adamw=opt_mod.AdamWConfig(
+            peak_lr=1e-3, warmup_steps=2, total_steps=10)))
+
+    def on_card(b):
+        return {k: torch.as_tensor(v).to(device) for k, v in b.items()}
+
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=B, seq=S, seed=3)
+    it = iter(pipe)
+    ckpt = ROOT / "build" / "e2e_restart_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ck = Checkpointer(str(ckpt))
+    params, opt, _ = step(params, opt, on_card(next(it)))
+    ck.save(1, {"params": params, "opt": opt}, extras={"pipe": pipe.state()})
+    b2 = next(it)
+    params_a, opt_a, m_a = step(params, opt, on_card(b2))
+    restored, extras = ck.restore(1, {"params": params_a, "opt": opt_a})
+    pipe2 = TokenPipeline(vocab=cfg.vocab, batch=B, seq=S, seed=3)
+    pipe2.restore(extras["pipe"])
+    b2r = next(iter(pipe2))
+    check(np.array_equal(b2["tokens"], b2r["tokens"]),
+          "the restored pipeline drew another batch")
+    params_b, opt_b, m_b = step(restored["params"], restored["opt"],
+                                on_card(b2r))
+    la, lb = float(m_a["loss"]), float(m_b["loss"])
+    unequal = sum(not torch.equal(a, b) for a, b in
+                  zip(leaves(params_a), leaves(params_b)))
+    log(f"[train-e2e] restart at {cfg.name} ({B} x {S} tokens): the "
+        f"restored step's loss {lb!r} against {la!r}; {unequal} of "
+        f"{len(list(leaves(params_a)))} parameter leaves differ")
+    check(la == lb and unequal == 0,
+          "the restored step is not bit-equal to the uninterrupted one")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del params, opt, params_a, opt_a, params_b, opt_b, restored
+    torch.cuda.empty_cache()
 
 
 def _check_pair(name, got, want):
@@ -3461,6 +3889,9 @@ def main() -> int:
         phase("lm-reduced", phase_lm_reduced, device)
         phase("serve", phase_serve, device)
         phase("serve-balanced", phase_serve_balanced, device)
+        phase("train", phase_train, device, card)
+        phase("train-driver", phase_train_driver, device)
+        phase("train-e2e", phase_train_e2e, device)
         records, lane_case = phase("kernels", phase_kernels, device)
         te_arrays = phase("te-instance", testing.traffic_arrays, TE_DEMANDS)
         full_records, full_cases = phase("kernels-full", phase_kernels_full,

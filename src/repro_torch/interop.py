@@ -2,9 +2,9 @@
 
 The tests feed both packages identical LPs, ELL payloads (f32, bf16 or
 int8 coefficients with their dequant scales), warm iterates, language-model
-parameters and decode caches: they convert the reference's leaves to
-numpy, and these helpers build the port's containers from them.  Nothing
-here imports the reference.
+parameters, optimizer states and decode caches: they convert the
+reference's leaves to numpy, and these helpers build the port's containers
+from them.  Nothing here imports the reference.
 """
 
 from __future__ import annotations
@@ -157,6 +157,20 @@ def params_from_numpy(tree: dict, cfg, device) -> dict:
             raise ValueError(f"{path}: shape {np.shape(got[path])}, "
                              f"expected {tuple(t.shape)}")
     return _rebuild(like, lambda path, _: _float_tensor(got[path], device))
+
+
+def opt_state_from_numpy(step, m: dict, v: dict, cfg, device):
+    """The port's :class:`~repro_torch.train.optimizer.AdamWState` from the
+    reference's ``AdamWState`` fields as numpy: ``step`` a 0-d int32 tensor,
+    ``m`` and ``v`` parameter trees for ``cfg`` (as
+    :func:`params_from_numpy` checks and builds them)."""
+    from .train.optimizer import AdamWState
+    device = torch.device(device)
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=device),
+        m=params_from_numpy(m, cfg, device),
+        v=params_from_numpy(v, cfg, device))
 
 
 def cache_from_numpy(tree: dict, cfg, device) -> dict:

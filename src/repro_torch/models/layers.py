@@ -94,8 +94,13 @@ def init_embedding(gen, vocab: int, d: int):
 def embed(p, tokens, compute_dtype=torch.bfloat16):
     """Rows of the table in the compute dtype.  The reference casts the
     whole table and then gathers; gathering first and casting the rows is
-    the same result without a table-sized cast every step."""
-    return p["table"][tokens].to(compute_dtype)
+    the same result without a table-sized cast every step (the backward
+    then sums a token's gradients in f32, where the reference sums them
+    in the compute dtype).  ``F.embedding``'s backward adds each row's
+    gradients in a fixed order on the CPU and the card, so a step is
+    bit-reproducible; indexing's backward (``index_put_`` with
+    accumulate) adds them with atomics on a multi-threaded CPU."""
+    return F.embedding(tokens.long(), p["table"]).to(compute_dtype)
 
 
 def unembed(p, x):

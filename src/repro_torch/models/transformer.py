@@ -8,7 +8,9 @@ periods.  Parameters are nested dicts of tensors whose leaf paths are the
 reference's (``segments.0.b0.mixer.wq``, ...), and a segment's leaves carry
 a leading ``[n_periods]`` axis, as the reference's scanned stacks do; a
 loop over the periods takes the place of ``lax.scan`` (each period reads a
-view of the stacked leaves).
+view of the stacked leaves).  Under autograd ``forward_train`` recomputes
+each period in its backward (``remat``, the reference's ``jax.checkpoint``
+around the scanned body), so a step keeps one residual a period.
 
 Weight-shared blocks (zamba2's shared attention) live outside the stacked
 parameters and are applied once a period with the same weights, while
@@ -27,6 +29,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.problem import resolve_device
 from . import attention as attn_mod
@@ -329,13 +332,35 @@ def _init_segment(gen, cfg: ArchCfg, seg: Segment):
     return stacked
 
 
+def _periods(tree, n: int) -> list:
+    """The ``n`` period views of a stacked tree, each leaf split once by
+    ``unbind``: its backward stacks the periods' gradients into the
+    stacked leaf in one copy (``tree[i]`` would add a zero-filled stack
+    per period)."""
+    if isinstance(tree, dict):
+        per_key = {k: _periods(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def _segment_train(seg_params, cfg: ArchCfg, seg: Segment, x,
-                   shared_attn_params, memory=None, causal=True):
-    for n in range(seg.n_periods):
-        pp = _period(seg_params, n)
+                   shared_attn_params, memory=None, causal=True,
+                   remat: bool = True):
+    """The segment's periods in turn.  With ``remat`` and autograd on, each
+    period's blocks run under ``checkpoint``: the backward keeps only the
+    period's input and recomputes the rest (no random numbers are drawn,
+    so no generator state is kept)."""
+    def body(h, pp):
         for i, b in enumerate(seg.period):
-            x = _apply_block_train(pp[f"b{i}"], cfg, b, x,
+            h = _apply_block_train(pp[f"b{i}"], cfg, b, h,
                                    shared_attn_params, memory, causal)
+        return h
+
+    recompute = remat and torch.is_grad_enabled()
+    for pp in _periods(seg_params, seg.n_periods):
+        x = (checkpoint(body, x, pp, use_reentrant=False,
+                        preserve_rng_state=False)
+             if recompute else body(x, pp))
     return x
 
 
@@ -396,11 +421,12 @@ def init_params(gen: Optional[torch.Generator], cfg: ArchCfg):
     return p
 
 
-def _encode(params, cfg: ArchCfg, enc_embeddings):
+def _encode(params, cfg: ArchCfg, enc_embeddings, remat: bool = True):
     x = (dense(params["frontend"], enc_embeddings) if cfg.frontend
          else enc_embeddings)
     for seg_p, seg in zip(params["enc_segments"], cfg.enc_segments):
-        x = _segment_train(seg_p, cfg, seg, x, None, causal=False)
+        x = _segment_train(seg_p, cfg, seg, x, None, causal=False,
+                           remat=remat)
     return rmsnorm(params["enc_norm"], x)
 
 
@@ -417,17 +443,24 @@ def _logits(params, cfg: ArchCfg, x):
 
 
 def forward_train(params, cfg: ArchCfg, tokens, enc_embeddings=None,
-                  compute_dtype=torch.bfloat16, opts=DEFAULT_OPTS):
-    """Logits for next-token prediction.  tokens: [B, S] integers.  The
-    forward pass only: rematerialisation belongs to the training slice."""
+                  remat: bool = True, compute_dtype=torch.bfloat16,
+                  opts=DEFAULT_OPTS):
+    """Logits for next-token prediction.  tokens: [B, S] integers.
+
+    ``remat`` recomputes each period in the backward when autograd is on
+    (the reference's per-period ``jax.checkpoint``); without autograd it
+    changes nothing.  The reference's ``unroll=`` (the dry run's cost
+    probe) waits for ROADMAP item 14.5."""
     del opts                              # mesh-free: every knob a no-op
     memory = None
     if cfg.enc_segments:
-        memory = _encode(params, cfg, enc_embeddings.to(compute_dtype))
+        memory = _encode(params, cfg, enc_embeddings.to(compute_dtype),
+                         remat=remat)
     x = _embed_scaled(params, cfg, tokens, compute_dtype)
     shared = params.get("shared_attn")
     for seg_p, seg in zip(params["segments"], cfg.segments):
-        x = _segment_train(seg_p, cfg, seg, x, shared, memory=memory)
+        x = _segment_train(seg_p, cfg, seg, x, shared, memory=memory,
+                           remat=remat)
     return _logits(params, cfg, x)
 
 

@@ -26,11 +26,15 @@ and by ``chip_smoke.py``.
 * :func:`densify`: a prepared structured stack as its dense ``(K,)`` twin;
 * :func:`to_device` / :func:`teacher_forcing`: an LM parameter tree moved to
   a device, and a model's teacher-forced logits beside its decode path's;
-  :func:`bf16_logit_tol`: the bound on two bf16 evaluations of one model.
+  :func:`bf16_logit_tol`: the bound on two bf16 evaluations of one model;
+* :func:`router_tie_guard`: fail any MoE routing with a tie at the top-k
+  cut; :func:`train_batch`: a seeded batch for one train step;
+  :data:`PARITY_ADAMW`: the optimizer settings of train-step comparisons.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -366,12 +370,14 @@ def densify(ops):
 
 
 def to_device(tree, device):
-    """An LM parameter tree (dicts and lists of tensors) on ``device``."""
+    """A copy of an LM parameter tree (dicts and lists of tensors) on
+    ``device`` (a copy on the same device too: a train step updates its
+    parameters in place)."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [to_device(v, device) for v in tree]
-    return tree.to(device)
+    return tree.to(device, copy=True)
 
 
 def teacher_forcing(params, cfg, toks, dtype, enc=None):
@@ -406,3 +412,50 @@ def bf16_logit_tol(f32_logits, bf16_logits) -> float:
     f32 = np.asarray(f32_logits, np.float32)
     bf16 = np.asarray(bf16_logits, np.float32)
     return 2.0 * float(np.abs(bf16 - f32).max())
+
+
+# AdamW's fields for holding two train steps against each other (the
+# port against the reference, the card against the CPU): the reference's
+# arch smoke schedule (the full 3e-4 at step 1) with eps 1e-6.  At the
+# default eps of 1e-8 the first update is g / (|g| + 1e-8), so an element
+# whose gradient lies within f32 noise of zero (measured on zamba2:
+# |g| about 1e-9, of opposite signs in the two packages) moves by
+# anything within +-lr, and the parameters would compare noise.
+PARITY_ADAMW = dict(warmup_steps=1, total_steps=4, eps=1e-6)
+
+
+@contextlib.contextmanager
+def router_tie_guard():
+    """While active, every MoE routing of the port checks that no two gates
+    tie at the top-k cut and raises ``AssertionError`` if they do:
+    ``torch.topk`` may order equal gates differently on another device or
+    in another package, so a comparison with a tie is no comparison."""
+    from .models import moe
+    route = moe._route
+
+    def checked(router, x, top_k):
+        probs = torch.softmax(torch.matmul(x, router.to(x.dtype)).float(),
+                              dim=-1)
+        top = torch.topk(probs, min(top_k + 1, probs.shape[-1]), dim=-1)[0]
+        if not bool(((top[..., :-1] - top[..., 1:]) > 0).all()):
+            raise AssertionError("tied router gates at the top-k")
+        return route(router, x, top_k)
+
+    moe._route = checked
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def train_batch(cfg, batch: int, seq: int, seed: int = 0, device="cpu"):
+    """``{"tokens", "labels"[, "enc_embeddings"]}`` drawn with numpy from
+    ``seed`` (labels independent of the tokens; six encoder frames for an
+    encoder-decoder config) as tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, (batch, seq)),
+           "labels": rng.integers(0, cfg.vocab, (batch, seq))}
+    if cfg.enc_segments:
+        out["enc_embeddings"] = rng.normal(
+            0, 1, (batch, 6, cfg.d_model)).astype(np.float32)
+    return {k: torch.as_tensor(v).to(device) for k, v in out.items()}

@@ -14,7 +14,11 @@ the reference's product tolerance of 1e-4 (``tests/test_kernels.py``), and
 at its 2e-2 for bf16 coefficients.  The language-model serving path (no
 hand kernel: plain torch ops) is held on the card against the same port
 on the CPU: the 10 reduced architectures in f32 with TF32 off, the
-serving driver and the two deprecated doors."""
+serving driver and the two deprecated doors.  So is the training path:
+each reduced architecture's train step (loss, grad_norm, parameters, m
+and v within 1e-4), remat on against off (gradients within 1e-6 of each
+leaf's largest), the checkpointer's round trip of card tensors and the
+prefetcher's staged batches."""
 
 import functools
 
@@ -1396,3 +1400,128 @@ def test_cuda_balance_requests_and_scheduler(cuda_device):
     rho = np.concatenate([np.atleast_1d(v)
                           for v in sched.allocate().values()])
     assert rho.shape == (32,) and (rho >= 0).all() and (rho <= 1 + 1e-6).all()
+
+
+# ---------------------------------------------------------------------------
+# the training path (train/, data/, checkpoint/checkpointer.py)
+# ---------------------------------------------------------------------------
+
+REMAT_RTOL = 1e-6
+ARCHS = ["h2o_danube3_4b", "gemma3_4b", "gemma2_27b", "llama3_8b",
+         "mixtral_8x22b", "qwen2_moe_a2_7b", "zamba2_2_7b",
+         "seamless_m4t_medium", "chameleon_34b", "xlstm_350m"]
+
+
+def _tree_max_diff(a, b) -> float:
+    from repro_torch.models.transformer import leaves
+    return max(float((x.cpu() - y.cpu()).abs().max())
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cuda_train_step_matches_cpu(arch, no_tf32):
+    """One train step (2 microbatches of 1 x 8 tokens, f32,
+    ``testing.PARITY_ADAMW``) of the same parameters on the card and on
+    the CPU, every routing checked for a top-k tie: the loss, grad_norm
+    (relative to its value), parameters, m and v within 1e-4."""
+    from repro_torch import configs, models
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+    cfg = configs.get_reduced(arch)
+    tcfg = TrainConfig(n_microbatches=2, compute_dtype="float32",
+                       adamw=opt_mod.AdamWConfig(**testing.PARITY_ADAMW))
+    host = models.init_params(torch.Generator().manual_seed(1), cfg)
+    card = testing.to_device(host, no_tf32)
+    batch = testing.train_batch(cfg, 2, 8, seed=1)
+    out = {}
+    with testing.router_tie_guard():
+        for name, params, b in (("card", card,
+                                 testing.to_device(batch, no_tf32)),
+                                ("cpu", host, batch)):
+            step = make_train_step(cfg, tcfg)
+            out[name] = step(params, opt_mod.init_state(params), b)
+    (gp, go, gm), (wp, wo, wm) = out["card"], out["cpu"]
+    assert abs(float(gm["loss"]) - float(wm["loss"])) <= LM_TOL
+    assert abs(float(gm["grad_norm"]) - float(wm["grad_norm"])) <= \
+        LM_TOL * float(wm["grad_norm"])
+    for a, b in ((gp, wp), (go.m, wo.m), (go.v, wo.v)):
+        assert _tree_max_diff(a, b) <= LM_TOL
+    assert go.step.device.type == "cuda" and int(go.step) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cuda_remat_on_and_off(arch, no_tf32):
+    """One f32 forward and backward on the card with remat on and off: the
+    loss and every gradient within 1e-6 of the leaf's largest."""
+    from repro_torch import configs, models
+    from repro_torch.models.transformer import leaves
+    from repro_torch.train.train_step import TrainConfig, make_loss_fn
+    cfg = configs.get_reduced(arch)
+    params = models.init_params(torch.Generator(no_tf32).manual_seed(1),
+                                cfg)
+    batch = testing.train_batch(cfg, 2, 16, seed=2, device=no_tf32)
+    runs = []
+    for remat in (True, False):
+        flat = list(leaves(params))
+        for p in flat:
+            p.grad = None
+            p.requires_grad_(True)
+        loss = make_loss_fn(cfg, TrainConfig(compute_dtype="float32",
+                                             remat=remat))(params, batch)
+        loss.backward()
+        runs.append((float(loss.detach()), [p.grad.clone() for p in flat]))
+        for p in flat:
+            p.requires_grad_(False)
+    (la, ga), (lb, gb) = runs
+    assert abs(la - lb) <= REMAT_RTOL * abs(lb)
+    for a, b in zip(ga, gb):
+        assert float((a - b).abs().max()) <= \
+            REMAT_RTOL * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_checkpointer_round_trip(cuda_device, tmp_path):
+    """Card tensors through ``save_async`` (updated in place right after)
+    and ``restore`` onto a card-side tree: the saved bits, on the card."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.models.transformer import leaves
+    from repro_torch.train import optimizer as opt_mod
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    params = {"w": torch.randn(64, 32, generator=gen, device=cuda_device),
+              "blocks": [{"scale": torch.randn(32, generator=gen,
+                                               device=cuda_device)}]}
+    tree = {"params": params, "opt": opt_mod.init_state(params)}
+    want = [t.cpu().clone() for t in leaves(tree)]
+    ck = Checkpointer(str(tmp_path))
+    ck.save_async(3, tree, extras={"step": 3})
+    for t in leaves(params):
+        t.add_(1.0)
+    ck.wait()
+    restored, extras = ck.restore(3, tree)
+    assert extras == {"step": 3}
+    for got, w in zip(leaves(restored), want):
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_cuda_prefetcher_stages_batches(cuda_device):
+    """``DevicePrefetcher`` on the card: each batch equal to the pipeline's
+    draw, on the card, usable on the caller's stream."""
+    from repro_torch.data import DevicePrefetcher, TokenPipeline
+    want = TokenPipeline(vocab=100, batch=4, seq=32, seed=2)
+    pre = DevicePrefetcher(TokenPipeline(vocab=100, batch=4, seq=32,
+                                         seed=2), cuda_device)
+    try:
+        for i, ref in zip(range(5), iter(want)):
+            got = next(pre)
+            total = got["tokens"].sum()          # read on the caller's stream
+            for k, v in ref.items():
+                assert got[k].device.type == "cuda"
+                np.testing.assert_array_equal(got[k].cpu().numpy(), v)
+            assert int(total) == int(ref["tokens"].sum())
+            assert pre.state()["cursor"] == i + 1
+    finally:
+        pre.close()

@@ -69,8 +69,10 @@ def test_new_modules_are_checked():
     load-balancing and MoE placement domains, the rounding and max-min
     helpers, the shared build, the session checkpoint codec, the page
     store, the fault injectors, the tuner, the LM substrate and configs,
-    the serving engine and driver, the scheduler shims and the example
-    twins are among the sources the import checks walk."""
+    the serving engine and driver, the scheduler shims, the training
+    substrate (optimizer, compression, train step, data pipeline,
+    checkpointer, training driver) and the example twins are among the
+    sources the import checks walk."""
     names = {str(p.relative_to(ROOT)) for p in _sources()}
     for rel in ("kernels/structured_full_pdhg_step.py", "kernels/build.py",
                 "kernels/pdhg_matvec.py", "kernels/fused_pdhg_step.py",
@@ -88,10 +90,15 @@ def test_new_modules_are_checked():
                 "models/transformer.py", "configs/__init__.py",
                 "configs/llama3_8b.py", "serve/engine.py",
                 "launch/serve.py", "sched/elastic.py",
-                "sched/gavel_service.py"):
+                "sched/gavel_service.py", "train/__init__.py",
+                "train/optimizer.py", "train/compression.py",
+                "train/train_step.py", "data/__init__.py",
+                "data/pipeline.py", "checkpoint/checkpointer.py",
+                "launch/train.py"):
         assert f"src/repro_torch/{rel}" in names, rel
     for rel in ("examples_torch/serve_balanced.py",
-                "examples_torch/schedule_cluster.py", "chip_smoke.py"):
+                "examples_torch/schedule_cluster.py",
+                "examples_torch/train_e2e.py", "chip_smoke.py"):
         assert rel in names, rel
 
 
@@ -168,8 +175,8 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 def test_lm_entry_points_default_to_the_card(monkeypatch):
-    """The serving driver, the decode cache, the balancer shim, the
-    scheduler shim and the example twins resolve the device as
+    """The serving and training drivers, the decode cache, the balancer
+    shim, the scheduler shim and the example twins resolve the device as
     ``resolve_device`` does: the card by default, a refusal with none."""
     import importlib.util
     import warnings
@@ -184,12 +191,16 @@ def test_lm_entry_points_default_to_the_card(monkeypatch):
                lambda: models.init_cache(get_reduced("llama3_8b"), 1, 8),
                lambda: balance_requests(np.ones(8), 2),
                lambda: GavelScheduler(SchedulerConfig())]
-    for name in ("serve_balanced", "schedule_cluster"):
+    from repro_torch.launch import train
+    entries.append(lambda: train.main(["--reduced", "--steps", "1"]))
+    for name, argv in (("serve_balanced", ["--fast"]),
+                       ("schedule_cluster", ["--fast"]),
+                       ("train_e2e", ["--steps", "2"])):
         spec = importlib.util.spec_from_file_location(
             f"{name}_twin", EXAMPLES / f"{name}.py")
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        entries.append(lambda mod=mod: mod.main(["--fast"]))
+        entries.append(lambda mod=mod, argv=argv: mod.main(argv))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
         for entry in entries:

@@ -30,6 +30,7 @@ from repro.models import ssm as rssm
 from repro.models import xlstm as rxlstm
 from repro_torch import configs as tconfigs
 from repro_torch import models as tmodels
+from repro_torch import testing
 from repro_torch.testing import bf16_logit_tol
 from repro_torch.interop import cache_from_numpy, params_from_numpy
 from repro_torch.models import attention as tattn
@@ -86,20 +87,12 @@ def ref_models():
 
 
 @pytest.fixture(autouse=True)
-def no_router_ties(monkeypatch):
+def no_router_ties():
     """``torch.topk`` and ``jax.lax.top_k`` may order equal gates
     differently: every routing in these tests must have no tie at the
     top-k cutoff, or the test fails here rather than on a tolerance."""
-    route = tmoe._route
-
-    def checked(router, x, top_k):
-        probs = torch.softmax(torch.matmul(x, router.to(x.dtype)).float(),
-                              dim=-1)
-        top = torch.topk(probs, min(top_k + 1, probs.shape[-1]), dim=-1)[0]
-        gaps = top[..., :-1] - top[..., 1:]
-        assert bool((gaps > 0).all()), "tied router gates at the top-k"
-        return route(router, x, top_k)
-    monkeypatch.setattr(tmoe, "_route", checked)
+    with testing.router_tie_guard():
+        yield
 
 
 def _fields(cfg):
