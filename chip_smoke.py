@@ -207,6 +207,37 @@ Phases, each of which must pass:
 28. solve-dense ``pdhg.solve_dense`` at the reference's ``pdhg_vs_scipy``
              size against scipy's HiGHS, at the reference test's bounds.
 
+The mesh layer (``torch.distributed`` on an NCCL world of one, the
+("data", "model") mesh of ``make_host_mesh()``) runs in four phases, the
+first three after train-e2e, the last after main:
+
+mesh-train   llama3-8b at full width cut to 8 layers, 2 steps of 8 x 1,024
+             tokens (2 microbatches, bf16, remat) through
+             ``make_train_step`` and through ``jit_train_step`` on the
+             (1, 1) mesh from the same seed and batches (state built on
+             the mesh by ``init_placed_params``, batches staged by
+             ``DevicePrefetcher(mesh=)``): losses, grad norms and every
+             parameter bit-equal; ms a step, tokens/s,
+             ``max_memory_allocated``; the FLOPs ``launch.dryrun`` counts
+             for the same cell (a child process); a checkpoint of the
+             embedding and final norm written from the mesh;
+mesh-serve   llama3-8b at full width, batch 8, a 2,048-slot cache, a
+             16-token prompt and 16 greedy tokens through the unsharded
+             step and through ``jit_serve_step`` on the mesh: tokens and
+             the final logits (the step's own) bit-equal, ms a step of
+             each;
+mesh-collectives ``compressed_psum`` over NCCL against the local int8
+             round trip with error feedback (two rounds, bit for bit);
+             mesh-train's checkpoint restored onto the mesh, bit-equal;
+mesh-pop     the main path's three steps through ``PopService`` with
+             ``backend="shard_map"`` (the mesh's "data" axis) and
+             ``backend="pmap"`` over ``[cuda:0]``: allocations and
+             per-lane iterations bit-equal to main's ``vmap`` session,
+             build_s / solve_s beside vmap's, the lane kernels' launches
+             over each session (zeroed just before), and the lane kernels
+             held against their plain versions at a lane slice
+             ``shard_map`` launched.
+
 The kernels' launch counts (calls and, for the structured kernels and the
 matvecs, the CUDA launches the calls made, printed per call on the
 ``[launches]`` lines) are set to 0 just before each path and read just
@@ -1707,6 +1738,336 @@ def phase_main(device, n_jobs=N_JOBS, num_workers=NUM_WORKERS):
     for name, per in per_call.items():
         check(per == 1, f"{name}: {per} CUDA launches per call, not one")
     return sess, insts, allocs, launches
+
+
+# --------------------------------------------------------------------------
+# the mesh layer (torch.distributed, an NCCL world of one)
+# --------------------------------------------------------------------------
+
+def _mesh(device):
+    """The ("data", "model") host mesh: an NCCL world of one on the card,
+    started on the first call."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(device=device)
+    check(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda",
+          f"host mesh {tuple(mesh.shape)} on {mesh.device_type}")
+    return mesh
+
+
+def _backend_session(device, insts, backend, opts):
+    """The main path's three steps through a session whose only change
+    from the registry's defaults is the map backend."""
+    from repro_torch.domains import registry
+    from repro_torch.service import PopService
+    spec = registry.get("gavel")
+    ex = dataclasses.replace(spec.default_exec, backend=backend,
+                             backend_opts=opts)
+    sess = PopService(device=device).session(f"mesh-{backend}", insts[0],
+                                             exec=ex)
+    allocs = []
+    for inst in insts:
+        allocs.append(sess.step(inst))
+        torch.cuda.synchronize()
+    return allocs
+
+
+def phase_mesh_pop(device, insts, main_allocs):
+    """The main path's session through ``backend="shard_map"`` on
+    ``make_host_mesh()`` (axis "data") and ``backend="pmap"`` over
+    ``[cuda:0]``: each step's allocation and per-lane iterations bit-equal
+    to the ``vmap`` session's of the main phase; the lane kernels' launch
+    counts over each session, and the kernels held against their plain
+    versions at a lane slice the backend launched."""
+    from repro_torch.core import backends, pdhg
+    from repro_torch.kernels import structured_pdhg_step as kernel_mod
+    mesh = _mesh(device)
+    launched = []
+    inner = backends._solve_batch
+
+    def recording(batch, *a, **kw):
+        launched.append(batch[0])
+        return inner(batch, *a, **kw)
+
+    runs = {}
+    backends._solve_batch = recording
+    try:
+        for backend, opts in (("shard_map", {"mesh": mesh, "axis": "data"}),
+                              ("pmap", {"devices": (device,)})):
+            zero_launches(kernel_mod)
+            allocs = _backend_session(device, insts, backend, opts)
+            runs[backend] = (allocs, dict(kernel_mod.LAUNCHES),
+                             per_half_step(kernel_mod))
+    finally:
+        backends._solve_batch = inner
+    for backend, (allocs, launches, per_call) in runs.items():
+        for a, want in zip(allocs, main_allocs):
+            its, want_its = (np.asarray(a.raw.iterations),
+                             np.asarray(want.raw.iterations))
+            log(f"[mesh-pop] {backend} {a.plan_cache}: backend {a.backend}, "
+                f"engine {a.engine}, build_s {a.build_time_s:.4f} / "
+                f"solve_s {a.solve_time_s:.4f} (vmap {want.build_time_s:.4f}"
+                f" / {want.solve_time_s:.4f}), iterations "
+                f"{its.tolist()}")
+            check(a.backend == backend and a.engine == "fused_structured",
+                  f"{backend}: ran {a.backend} / {a.engine}")
+            check(a.plan_cache == want.plan_cache,
+                  f"{backend}: verdict {a.plan_cache} against "
+                  f"{want.plan_cache}")
+            check(np.array_equal(a.alloc, want.alloc),
+                  f"{backend} {a.plan_cache}: allocation differs from "
+                  "vmap's")
+            check(np.array_equal(its, want_its),
+                  f"{backend} {a.plan_cache}: per-lane iterations differ "
+                  "from vmap's")
+        log(f"[mesh-pop] {backend}: allocations and per-lane iterations of "
+            f"all three steps bit-equal to vmap's; launches {launches}, "
+            f"CUDA launches per call {per_call}")
+        for name, n in launches.items():
+            check(n > 0, f"{name} was not launched through {backend}")
+        for name, per in per_call.items():
+            check(per == 1, f"{name}: {per} CUDA launches per call")
+    hold_at_shape("the shard_map session's lane slice", launched[0],
+                  pdhg.fused_structured_engine(),
+                  pdhg.fused_structured_engine("ref"), lane_calls, device,
+                  prefix="mesh-pop")
+
+
+MESH_TRAIN_STEPS = 2
+MESH_CKPT_LEAVES = ("embed", "final_norm")
+
+
+def _host_tree(tree):
+    from repro_torch.core import placement as pl
+    return pl.zip_map(lambda t: t.detach().to("cpu", copy=True),
+                      pl.full_tree(tree))
+
+
+def _mesh_train_run(device, cfg, tcfg, batches, mesh):
+    """MESH_TRAIN_STEPS steps from TRAIN_SEED, unsharded (``mesh=None``)
+    or through ``jit_train_step`` from state built on the mesh as
+    ``launch.train --mesh`` builds it (``init_placed_params``, each rank
+    keeping its blocks as they are drawn): ``(params, per-step ms,
+    metrics)``."""
+    from repro_torch import models
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import (init_placed_params,
+                                              init_placed_state,
+                                              jit_train_step,
+                                              make_train_step)
+    gen = torch.Generator(device).manual_seed(TRAIN_SEED)
+    if mesh is None:
+        params = models.init_params(gen, cfg)
+        opt = opt_mod.init_state(params)
+        step = make_train_step(cfg, tcfg)
+    else:
+        params = init_placed_params(gen, cfg, mesh)
+        opt = init_placed_state(params)
+        step = jit_train_step(cfg, tcfg, mesh, device=device)
+    ms, metrics = [], []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = step(params, opt, batch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+    del opt
+    return params, ms, metrics
+
+
+def _dryrun_compute(cfg_layers: int) -> dict:
+    """``launch.dryrun``'s count of the mesh-train cell (llama3-8b cut to
+    ``cfg_layers`` layers, TRAIN_BATCH x TRAIN_SEQ, 2 microbatches, a
+    (1, 1) mesh) in a child process (the fake group of the dry run needs
+    a process without the smoke's NCCL group)."""
+    code = (
+        "import dataclasses, json\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.launch import dryrun, specs\n"
+        f"cfg = get_config({TRAIN_ARCH!r})\n"
+        "(seg,) = cfg.segments\n"
+        "cfg = dataclasses.replace(cfg, segments=(dataclasses.replace("
+        f"seg, n_periods={cfg_layers}),))\n"
+        f"cell = specs.ShapeCell('mesh-train', {TRAIN_SEQ}, {TRAIN_BATCH},"
+        " 'train')\n"
+        f"r = dryrun.lower_cell({TRAIN_ARCH!r}, 'mesh-train', False, "
+        "cfg=cfg, mesh_shape=(1, 1), cell=cell, n_micro=2)\n"
+        "print(json.dumps({k: r[k] for k in ('flops', 'bytes_accessed', "
+        "'collectives', 'model_flops', 'lower_s')}))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=CHILD_TIMEOUT_S)
+    check(proc.returncode == 0, f"the dry run's child failed: "
+          f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_mesh_train(device, card: str):
+    """llama3-8b at full width cut to TRAIN_LAYERS, MESH_TRAIN_STEPS steps
+    of TRAIN_BATCH x TRAIN_SEQ tokens (2 microbatches, bf16, remat) through
+    ``make_train_step`` and then through ``jit_train_step`` on the (1, 1)
+    mesh, from the same seed and batches: losses, grad norms and every
+    parameter bit-equal; ms a step, tokens/s, ``max_memory_allocated``;
+    the compute term ``launch.dryrun`` counts for the same cell.  Writes
+    a checkpoint of the mesh run's MESH_CKPT_LEAVES from the mesh;
+    returns ``(directory, step, host copy of what it wrote)``."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import DevicePrefetcher, TokenPipeline
+    from repro_torch.models.transformer import leaves
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import TrainConfig
+    mesh = _mesh(device)
+    cfg = cut_depth(get_config(TRAIN_ARCH), TRAIN_LAYERS)
+    tcfg = TrainConfig(n_microbatches=2, compute_dtype="bfloat16",
+                       remat=True, adamw=opt_mod.AdamWConfig())
+    pipe = DevicePrefetcher(TokenPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH,
+                                          seq=TRAIN_SEQ, seed=TRAIN_SEED),
+                            device, mesh=mesh)
+    try:
+        staged = [next(pipe) for _ in range(MESH_TRAIN_STEPS)]
+    finally:
+        pipe.close()
+    check(all(type(v).__name__ == "DTensor" for b in staged
+              for v in b.values()),
+          "DevicePrefetcher(mesh=) did not hand out DTensors")
+    batches = [{k: v.to_local() for k, v in b.items()} for b in staged]
+    torch.cuda.empty_cache()
+    plain, plain_ms, plain_m = _mesh_train_run(device, cfg, tcfg, batches,
+                                               None)
+    want = [t.detach().to("cpu", copy=True) for t in leaves(plain)]
+    del plain
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    params, ms, metrics = _mesh_train_run(device, cfg, tcfg, staged, mesh)
+    peak = torch.cuda.max_memory_allocated(device)
+    got = list(leaves(params))
+    places = sorted({tuple(repr(p) for p in t.placements) for t in got})
+    equal = sum(bool(torch.equal(g.to_local().cpu(), w))
+                for g, w in zip(got, want))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, tokens, TRAIN_SEQ, remat=True)
+    for i, (a, b, t, u) in enumerate(zip(metrics, plain_m, ms, plain_ms)):
+        log(f"[mesh-train] step {i}: loss {a['loss']:.6f} (unsharded "
+            f"{b['loss']:.6f}), grad_norm {a['grad_norm']:.6f} "
+            f"({b['grad_norm']:.6f}); {t:.2f} ms (unsharded {u:.2f} ms), "
+            f"{tokens / t * 1e3:.1f} tokens/s")
+        check(a == b, f"step {i}: mesh metrics {a} against {b}")
+    log(f"[mesh-train] {cfg.name} cut to {cfg.n_layers} layers on the "
+        f"{tuple(mesh.shape)} mesh, placements {places}: {equal} of "
+        f"{len(got)} parameter leaves bit-equal to the unsharded step's; "
+        f"max_memory_allocated {peak / 1e9:.3f} GB; {flops:.4g} model FLOPs "
+        f"a step = {flops / (ms[-1] / 1e3) / PEAK_BF16_PER_S:.3f} of the "
+        f"dense bf16 peak at the last step, on {card}")
+    check(equal == len(got), f"{len(got) - equal} parameter leaves differ "
+          "from the unsharded step's")
+    dry = _dryrun_compute(TRAIN_LAYERS)
+    log(f"[mesh-train] launch.dryrun on the same cell (meta tensors, a "
+        f"fake (1, 1) group): {dry['flops']:.4g} FLOPs a device = "
+        f"{dry['flops'] / PEAK_BF16_PER_S * 1e3:.2f} ms at "
+        f"{PEAK_BF16_PER_S / 1e12:.0f} TFLOP/s (against {ms[-1]:.2f} ms "
+        f"measured), {dry['bytes_accessed']:.4g} bytes (unfused bound), "
+        f"collectives {dry['collectives']}, model FLOPs "
+        f"{dry['model_flops']:.4g}, traced in {dry['lower_s']} s")
+    ckdir = ROOT / "build" / "mesh_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    tree = {"params": {k: params[k] for k in MESH_CKPT_LEAVES}}
+    t0 = time.perf_counter()
+    Checkpointer(str(ckdir)).save(MESH_TRAIN_STEPS, tree,
+                                  extras={"step": MESH_TRAIN_STEPS})
+    log(f"[mesh-train] checkpoint of {MESH_CKPT_LEAVES} from the mesh in "
+        f"{time.perf_counter() - t0:.2f} s")
+    host = _host_tree(tree)
+    del params, got, want, tree, staged, batches
+    torch.cuda.empty_cache()
+    return str(ckdir), MESH_TRAIN_STEPS, host
+
+
+MESH_SERVE_PROMPT, MESH_SERVE_TOKENS = 16, 16
+
+
+def phase_mesh_serve(device):
+    """llama3-8b at full width (bf16 serving weights from SERVE_SEED),
+    batch SERVE_BATCH, a SERVE_MAX_SEQ cache: a MESH_SERVE_PROMPT-token
+    prompt and MESH_SERVE_TOKENS greedy tokens through the unsharded
+    step and through ``jit_serve_step`` on the (1, 1) mesh: equal
+    tokens, ms a step of each."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    mesh = _mesh(device)
+    cfg = get_config(SERVE_ARCH)
+    params = serve.build_params(cfg, SERVE_SEED, device)
+    prompt = serve.random_prompt(cfg, SERVE_BATCH, MESH_SERVE_PROMPT,
+                                 SERVE_SEED, device)
+    runs = {}
+    for name, m in (("unsharded", None), ("mesh", mesh)):
+        runs[name] = run = serve.serve(cfg, params, prompt,
+                                       MESH_SERVE_TOKENS, SERVE_MAX_SEQ,
+                                       mesh=m)
+        log(f"[mesh-serve] {name}: {run.step_ms:.4f} ms a step (CUDA "
+            f"events), {run.tokens_per_s:.1f} tok/s, prefill "
+            f"{run.prefill_s:.3f} s, max_memory_allocated "
+            f"{run.peak_bytes / 1e9:.3f} GB")
+        check(bool(torch.isfinite(run.final_logits).all()),
+              f"{name}: non-finite logits")
+    check(torch.equal(runs["mesh"].tokens, runs["unsharded"].tokens),
+          "the mesh step's tokens differ from the unsharded step's")
+    check(torch.equal(runs["mesh"].final_logits,
+                      runs["unsharded"].final_logits),
+          "the mesh step's final logits differ from the unsharded step's")
+    log(f"[mesh-serve] {SERVE_BATCH} x {MESH_SERVE_TOKENS} greedy tokens "
+        "and the final logits bit-equal to the unsharded step's; first "
+        f"tokens {runs['mesh'].tokens[0, :8].tolist()}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_mesh_collectives(device, ckpt):
+    """``compressed_psum`` over the NCCL world of one against the local
+    quantise-dequantise with error feedback (two rounds, bit for bit);
+    then the mesh-train checkpoint restored onto the mesh, bit-equal to
+    what was written."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.models.transformer import leaves
+    from repro_torch.train import compression as comp
+    mesh = _mesh(device)
+    gen = torch.Generator(device).manual_seed(3)
+    grads = {"a": torch.randn((4096, 1024), generator=gen, device=device),
+             "b": [torch.randn((1000,), generator=gen, device=device)]}
+    res = comp.init_residuals(grads)
+    want_res = comp.init_residuals(grads)
+    for rnd in range(2):
+        mean, res = comp.compressed_psum(grads, res,
+                                         group=mesh.get_group("data"))
+        for g, r, m, r_new in zip(leaves(grads), leaves(want_res),
+                                  leaves(mean), leaves(res)):
+            q, sc, r_want = comp.compress_with_feedback(g, r)
+            deq = comp.dequantize_int8(q, sc, g.shape)
+            check(torch.equal(m, deq) and torch.equal(r_new, r_want),
+                  f"round {rnd}: compressed_psum differs from the local "
+                  "quantise-dequantise")
+            r.copy_(r_want)
+        log(f"[mesh-collectives] compressed_psum round {rnd} over NCCL "
+            "(world 1): the mean and residuals bit-equal to the local "
+            f"int8 round trip with error feedback ({sum(g.numel() for g in leaves(grads)):,} "
+            "values)")
+    directory, step, host = ckpt
+    ck = Checkpointer(directory)
+    t0 = time.perf_counter()
+    restored, extras = ck.restore(step, host, mesh=mesh)
+    secs = time.perf_counter() - t0
+    got, want = list(leaves(restored)), list(leaves(host))
+    equal = sum(bool(torch.equal(g.to_local().cpu(), w))
+                for g, w in zip(got, want))
+    log(f"[mesh-collectives] the mesh-train checkpoint restored onto the "
+        f"{tuple(mesh.shape)} mesh in {secs:.2f} s: {equal} of {len(got)} "
+        f"leaves bit-equal, extras {extras}, placements "
+        f"{sorted({tuple(repr(p) for p in t.placements) for t in got})}")
+    check(equal == len(got) and extras == {"step": step},
+          "the restored checkpoint differs from what was written")
+    shutil.rmtree(directory, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------
@@ -3892,12 +4253,16 @@ def main() -> int:
         phase("train", phase_train, device, card)
         phase("train-driver", phase_train_driver, device)
         phase("train-e2e", phase_train_e2e, device)
+        ckpt = phase("mesh-train", phase_mesh_train, device, card)
+        phase("mesh-serve", phase_mesh_serve, device)
+        phase("mesh-collectives", phase_mesh_collectives, device, ckpt)
         records, lane_case = phase("kernels", phase_kernels, device)
         te_arrays = phase("te-instance", testing.traffic_arrays, TE_DEMANDS)
         full_records, full_cases = phase("kernels-full", phase_kernels_full,
                                          device, TrafficProblem(*te_arrays))
         records.update(full_records)
         sess, insts, allocs, launches = phase("main", phase_main, device)
+        phase("mesh-pop", phase_mesh_pop, device, insts, allocs)
         phase("tune", phase_tune, device, insts, allocs)
         moe_sess, moe_inst = phase("moe", phase_moe, device)
         phase("robust", phase_robust, device, insts)

@@ -18,7 +18,11 @@ memory before it returns (so the next step may update them in place) and
 serialises in a thread.
 
 Restores place each leaf on the device of the matching leaf of
-``like_tree``.  Sharded restores onto a mesh are ROADMAP item 14.5.
+``like_tree``, or, onto a device mesh, as a DTensor (``restore(mesh=,
+shardings=)``).  A sharded tree (DTensor leaves) is saved whole: every
+rank gathers each leaf (a collective, so every rank calls ``save``) and
+rank 0 writes.  So a checkpoint written on one mesh restores onto another
+or onto none.
 """
 
 from __future__ import annotations
@@ -32,13 +36,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-ROADMAP_MESH = ("a sharded restore onto a device mesh is not ported: "
-                "ROADMAP item 14.5")
-
+from ..core.placement import P, Places, distribute, placements
 
 def _entries(tree, path=()):
-    """``(key, leaf)`` in the reference's flattening order."""
-    if isinstance(tree, dict):
+    """``(key, leaf)`` in the reference's flattening order (a spec or a
+    placement tuple of ``core.placement`` is a leaf)."""
+    if isinstance(tree, (P, Places)):
+        yield "/".join(path), tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
             yield from _entries(tree[k], path + (str(k),))
     elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -74,12 +79,33 @@ def _rebuild(like, leaf_of, path=()):
     return leaf_of("/".join(path), like)
 
 
-def _host(leaf) -> np.ndarray:
+def _host(leaf, keep: bool = True):
     """A host copy of a leaf (never a view of memory a later step may
-    write)."""
+    write); a DTensor is gathered whole first.  With ``keep=False`` the
+    gather still runs (every rank takes part in it) and nothing is
+    copied."""
     if isinstance(leaf, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
+        if not keep:
+            return None
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
+
+
+def _host_copies(keys, leaves) -> dict:
+    """Host copies of the leaves on the writing rank; a sharded leaf is
+    gathered one at a time, and the other ranks keep nothing."""
+    writer = _writer()
+    return {k: _host(l, writer) for k, l in zip(keys, leaves)}
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or the only
+    process."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _write(directory: str, step: int, keys, host: dict, extras):
@@ -113,19 +139,21 @@ class Checkpointer:
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree, extras: Optional[dict] = None):
         keys, leaves = _flatten(tree)
-        _write(self.dir, step, keys,
-               {k: _host(l) for k, l in zip(keys, leaves)}, extras)
+        host = _host_copies(keys, leaves)
+        if _writer():
+            _write(self.dir, step, keys, host, extras)
 
     def save_async(self, step: int, tree, extras: Optional[dict] = None):
         """Copy to host memory now, write in the background.  Joins any
         in-flight write first (ordering)."""
         self.wait()
         keys, leaves = _flatten(tree)
-        host = {k: _host(l) for k, l in zip(keys, leaves)}
+        host = _host_copies(keys, leaves)
 
         def work():
             try:
-                _write(self.dir, step, keys, host, extras)
+                if _writer():
+                    _write(self.dir, step, keys, host, extras)
             except Exception as exc:       # re-raised by wait()
                 self._error = exc
 
@@ -151,9 +179,16 @@ class Checkpointer:
     def restore(self, step: int, like_tree, mesh=None, shardings=None):
         """Restore into the structure of ``like_tree`` (keys and shapes
         checked): ``(tree, extras)``, each leaf on the device of
-        ``like_tree``'s leaf, in the dtype it was saved in."""
-        if mesh is not None or shardings is not None:
-            raise NotImplementedError(ROADMAP_MESH)
+        ``like_tree``'s leaf, in the dtype it was saved in.
+
+        Onto a ``mesh`` each leaf becomes a DTensor: placed by the matching
+        leaf of ``shardings`` (a tree like ``like_tree`` of placements, or
+        of ``core.placement.P`` specs), else as ``like_tree``'s leaf is
+        placed when it is a DTensor, else replicated.  Each rank keeps its
+        own blocks; no collective runs."""
+        if shardings is not None and mesh is None:
+            raise ValueError("shardings= needs the mesh= they lie on")
+        sharded = _sharded_leaf(mesh, shardings)
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -167,8 +202,34 @@ class Checkpointer:
                 if tuple(a.shape) != tuple(proto.shape):
                     raise ValueError(f"{key}: shape {a.shape}, expected "
                                      f"{tuple(proto.shape)}")
+                if mesh is not None:
+                    return sharded(key, proto, torch.from_numpy(a))
                 device = (proto.device if isinstance(proto, torch.Tensor)
                           else "cpu")
                 return torch.from_numpy(a).to(device, copy=True)
             tree = _rebuild(like_tree, leaf_of)
         return tree, manifest["extras"]
+
+
+def _sharded_leaf(mesh, shardings):
+    """``fn(key, proto, host tensor) -> DTensor`` for a restore onto
+    ``mesh``; the placements of each key are read from ``shardings``."""
+    if mesh is None:
+        return None
+    from torch.distributed.tensor import DTensor, Replicate
+
+    by_key = dict(_entries(shardings)) if shardings is not None else {}
+    if mesh.device_type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    else:
+        device = torch.device(mesh.device_type)
+
+    def place(key, proto, host):
+        pl = by_key.get(key)
+        if isinstance(pl, P):
+            pl = placements(pl, mesh)
+        if pl is None:
+            pl = (tuple(proto.placements) if isinstance(proto, DTensor)
+                  else (Replicate(),) * mesh.ndim)
+        return distribute(host, Places(pl), mesh, device=device)
+    return place

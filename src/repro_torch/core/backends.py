@@ -20,15 +20,28 @@ Registered backends:
 ``chunked_vmap``
     Batched solves over fixed-size chunks of lanes (k padded to a chunk
     multiple by repeating lane 0): peak memory is bounded by the chunk.
-``shard_map`` / ``pmap``
-    Registered so configs naming them validate; they raise
-    ``NotImplementedError`` until the multi-GPU item of the ROADMAP.
+``shard_map``
+    SPMD over one axis of a ``torch.distributed`` device mesh: every rank
+    of the process group calls it with the same batch, k is padded up to
+    a multiple of the axis size (never a smaller mesh), each rank solves
+    its contiguous block of lanes with the local engine, and the
+    :class:`SolveResult` fields are gathered with
+    ``all_gather_into_tensor`` and the padding sliced off.
+``pmap``
+    One process over an explicit ``devices=`` list: the lanes are split
+    per device (k padded to a multiple of their count), each slice is
+    solved on its device in turn, and the results come back in device
+    order.
 
-``backend="auto"`` picks by k and per-sub-problem size
-(:func:`select_backend`), with the thresholds a tuning profile measured
-for the operator's device type when one is installed
-(:func:`install_tuned_thresholds`); the port drives one device per
-service, so the multi-device rule never fires.
+Both give each lane the bits ``vmap`` gives it, because no lane's sums
+depend on the stack's lane count (``kernels/ref.py:row_reduce``).
+
+``backend="auto"`` picks by k, per-sub-problem size and the ranks of the
+mesh the caller passes in its backend opts (one device without: only the
+caller knows that every rank calls with the same batch), through
+:func:`select_backend`, with the thresholds a tuning profile measured for
+the operator's device type when one is installed
+(:func:`install_tuned_thresholds`).
 
 The serving dispatcher shares one launch across tenants through
 :func:`coalesce_key` (which prepared batches may share),
@@ -186,30 +199,117 @@ def solve_chunked_vmap(batch, K_mv, KT_mv, solver_kw,
     return map_arrays(lambda a: a[:k], _concat_results(outs))
 
 
-def _multi_device(name: str) -> MapBackend:
-    def backend(batch, K_mv, KT_mv, solver_kw, engine="matvec", **opts):
-        raise NotImplementedError(
-            f"map backend {name!r} needs the multi-GPU port (ROADMAP open "
-            "items §1, item 14.5); use 'vmap', 'chunked_vmap' or 'serial'")
-    backend.__name__ = f"solve_{name}"
-    return backend
+def _default_mesh(device: torch.device, axis: str):
+    """A one-axis mesh named ``axis`` over the whole process group (a world
+    of one when there is none)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from .placement import ensure_process_group
+    ensure_process_group(device)
+    return init_device_mesh(device.type, (dist.get_world_size(),),
+                            mesh_dim_names=(axis,))
 
 
-register_backend("shard_map")(_multi_device("shard_map"))
-register_backend("pmap")(_multi_device("pmap"))
+def _gather_lanes(res: SolveResult, n: int, group, device) -> SolveResult:
+    """Every rank's lanes of ``res`` (numpy fields, equal lane counts) in
+    rank order, through ``all_gather_into_tensor`` on ``device``."""
+    import torch.distributed as dist
+
+    def one(a):
+        a = np.ascontiguousarray(a)
+        wire = a.view(np.uint8) if a.dtype == np.bool_ else a
+        t = torch.from_numpy(wire).to(device)
+        out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
+        dist.all_gather_into_tensor(out, t, group=group)
+        got = out.cpu().numpy()
+        return got.view(np.bool_) if a.dtype == np.bool_ else got
+    return map_arrays(one, res)
+
+
+@register_backend("shard_map")
+def solve_shard_map(batch, K_mv, KT_mv, solver_kw,
+                    engine: EngineSpec = "matvec", mesh=None,
+                    axis: str = "pop") -> SolveResult:
+    """Shard the k sub-problems over ``axis`` of ``mesh`` (default: a
+    one-axis mesh named ``axis`` over the whole process group); each rank
+    solves its lanes with the local engine.  No collective runs inside a
+    solve: POP sub-problems are independent by construction; the results
+    are gathered once at the end.  Every rank must call it with the same
+    batch, as every device runs the reference's ``shard_map`` body."""
+    device = batch[0].c.device
+    if mesh is None:
+        mesh = _default_mesh(device, axis)
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"mesh axes {names} have no {axis!r}")
+    dim = names.index(axis)
+    n = mesh.size(dim)
+    padded, k = pad_to_multiple(batch, n)
+    per = batch_size(padded) // n
+    lo = mesh.get_local_rank(dim) * per
+    local = _solve_batch(map_arrays(lambda a: a[lo:lo + per], padded),
+                         K_mv, KT_mv, solver_kw, engine)
+    res = (local if n == 1 else
+           _gather_lanes(local, n, mesh.get_group(dim), device))
+    return map_arrays(lambda a: a[:k], res)
+
+
+def _engine_on(engine: EngineSpec, ops: OperatorLP, K_mv, KT_mv):
+    """``engine`` for a lane slice on another device (a resolved engine is
+    built again there by its name)."""
+    if engine == "matvec":
+        return engine
+    return pdhg.resolve_engine(pdhg.engine_name(engine), ops, K_mv, KT_mv)
+
+
+@register_backend("pmap")
+def solve_pmap(batch, K_mv, KT_mv, solver_kw,
+               engine: EngineSpec = "matvec",
+               devices=None) -> SolveResult:
+    """Split the lanes over ``devices`` (default: the batch's device) and
+    solve each slice on its device, in turn, in this process; the results
+    are joined in device order and the padding sliced off."""
+    here = batch[0].c.device
+    devices = [torch.device(d) for d in (devices or [here])]
+    n = len(devices)
+    padded, k = pad_to_multiple(batch, n)
+    per = batch_size(padded) // n
+    outs = []
+    for i, dev in enumerate(devices):
+        part = map_arrays(lambda a, i=i: a[i * per:(i + 1) * per], padded)
+        eng = engine
+        if dev != here:
+            part = map_arrays(lambda a: a.to(dev), part)
+            eng = _engine_on(engine, part[0], K_mv, KT_mv)
+        outs.append(_solve_batch(part, K_mv, KT_mv, solver_kw, eng))
+    return map_arrays(lambda a: a[:k], _concat_results(outs))
 
 
 # --------------------------------------------------------------------------
 # auto-selection + entry points
 # --------------------------------------------------------------------------
 
+def _mesh_ranks(opts: dict) -> int:
+    """The ranks ``shard_map`` would spread over: the size of the ``axis``
+    of the ``mesh`` the caller passed in its backend opts, else one (a
+    process group alone does not say its ranks call with the same
+    batch)."""
+    mesh = opts.get("mesh")
+    if mesh is None:
+        return 1
+    return mesh.size(tuple(mesh.mesh_dim_names).index(
+        opts.get("axis", "pop")))
+
+
 def select_backend(k: int, n_elems_per_sub: int = 0,
                    n_dev: int = 1, *, device_type: str) -> str:
     """The reference's rule: several devices and enough lanes ->
     ``shard_map``; one device -> ``vmap`` until the stack gets large, then
-    ``chunked_vmap``.  A service drives one device, so ``n_dev`` is 1.
-    The crossover thresholds are the constants unless a profile installed
-    measured ones for ``device_type`` (:func:`install_tuned_thresholds`)."""
+    ``chunked_vmap``.  ``n_dev`` is the ranks of the mesh the caller
+    handed over (``resolve_exec``), one without.  The crossover
+    thresholds are the constants unless a profile installed measured ones
+    for ``device_type`` (:func:`install_tuned_thresholds`)."""
     if n_dev > 1 and k >= n_dev:
         return "shard_map"
     max_k, max_elems = _auto_thresholds(device_type)
@@ -272,6 +372,7 @@ def resolve_exec(ops: OperatorLP, K_mv, KT_mv, backend: str = "auto",
     opts = dict(opts or {})
     if backend == "auto":
         backend = select_backend(batch_size(ops), _n_elems_per_sub(ops),
+                                 _mesh_ranks(opts),
                                  device_type=ops.c.device.type)
         if opts:
             import inspect

@@ -13,9 +13,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-ROADMAP_MESH = ("staging batches onto a device mesh is not ported: "
-                "ROADMAP item 14.5")
-
+from ..core.placement import from_local, leading_spec, local_slice, placements
 
 class TokenPipeline:
     """Deterministic synthetic LM batches.
@@ -70,12 +68,15 @@ class DevicePrefetcher:
     the copy and marks the tensors used there (``record_stream``), so the
     allocator does not hand their memory to the next copy too early.
     ``state()`` is the pipeline's cursor after the last batch handed out
-    (the thread runs ahead of it), the one to checkpoint."""
+    (the thread runs ahead of it), the one to checkpoint.
+
+    With ``mesh`` each batch is placed on the mesh's data axes: this rank
+    stages only its own rows (``batch_spec`` for [B, S] leaves, the rows
+    alone for the others) and gets DTensors of the global batch."""
 
     def __init__(self, pipeline: TokenPipeline, device, depth: int = 2,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(ROADMAP_MESH)
+        self.mesh = mesh
         self.pipeline = pipeline
         self.device = torch.device(device)
         self._state = pipeline.state()
@@ -87,13 +88,30 @@ class DevicePrefetcher:
                                         name="pop-prefetch")
         self._thread.start()
 
+    def _places(self, ndim: int):
+        return placements(leading_spec(self.mesh, ndim), self.mesh)
+
+    def _rows(self, batch: dict) -> dict:
+        """This rank's rows of each leaf (all of them without a mesh)."""
+        out = {k: torch.from_numpy(np.ascontiguousarray(v))
+               for k, v in batch.items()}
+        if self.mesh is None:
+            return out
+        return {k: local_slice(t, self._places(t.ndim), self.mesh)
+                .contiguous() for k, t in out.items()}
+
+    def _as_global(self, out: dict, shapes: dict) -> dict:
+        if self.mesh is None:
+            return out
+        return {k: from_local(t, self._places(t.ndim), self.mesh, shapes[k])
+                for k, t in out.items()}
+
     def _place(self, batch: dict):
+        rows = self._rows(batch)
         if self._stream is None:
-            return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-                self.device) for k, v in batch.items()}, None
+            return {k: t.to(self.device) for k, t in rows.items()}, None
         with torch.cuda.stream(self._stream):
-            pinned = [(k, torch.from_numpy(np.ascontiguousarray(v))
-                       .pin_memory()) for k, v in batch.items()]
+            pinned = [(k, t.pin_memory()) for k, t in rows.items()]
             out = {k: h.to(self.device, non_blocking=True)
                    for k, h in pinned}
             done = torch.cuda.Event()
@@ -116,7 +134,8 @@ class DevicePrefetcher:
             it = iter(self.pipeline)
             while not self._stop.is_set():
                 batch = next(it)
-                staged = self._place(batch)
+                staged = self._place(batch) + (
+                    {k: v.shape for k, v in batch.items()},)
                 if not self._offer((staged, self.pipeline.state())):
                     return
         except Exception as exc:     # handed to the consumer, not lost
@@ -126,14 +145,14 @@ class DevicePrefetcher:
         staged, state = self.q.get()
         if isinstance(staged, Exception):
             raise RuntimeError("the prefetch thread failed") from staged
-        out, done = staged
+        out, done, shapes = staged
         if done is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(done)
             for t in out.values():
                 t.record_stream(stream)
         self._state = state
-        return out
+        return self._as_global(out, shapes)
 
     def state(self) -> dict:
         return dict(self._state)

@@ -1,4 +1,7 @@
-"""Launch drivers (the port of ``repro/launch``): the serving driver
-``python -m repro_torch.launch.serve`` and the training driver
-``python -m repro_torch.launch.train``.  The mesh, shardings, dry run and
-roofline of the reference's ``launch/`` are ROADMAP item 14.5."""
+"""Launch layer (the port of ``repro/launch``) on ``torch.distributed``:
+device meshes (``mesh``), the sharding rules (``shardings``; the DTensor
+placements that carry them out are ``core.placement``'s), the dry run's shape stand-ins (``specs``), collective
+statistics (``hlo_stats``), the dry run, roofline and flags harness
+(``dryrun``, ``roofline``, ``perf``), and the serving and training
+drivers (``python -m repro_torch.launch.serve`` / ``.train``, each with
+``--mesh DATAxMODEL``)."""

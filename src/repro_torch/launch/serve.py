@@ -13,6 +13,16 @@ loads no weights either), cast to bf16 once, and served from a cache of
 prefilled through the decode path, then ``--tokens`` greedy tokens are
 decoded.  Every clock is read after a device synchronisation; on the card
 the decode steps are also timed with CUDA events.
+
+``--mesh DATAxMODEL`` serves through ``jit_serve_step`` on a ("data",
+"model") mesh over the process group's ranks (a world of one in this
+process, or a launcher's world; see ``launch/train.py``): parameters by
+``param_shardings`` (each rank keeps only its blocks from the moment
+they are drawn), the cache by ``kv_cache_specs``, the tokens on the data
+axes; the prompt is prefilled through the same step.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
+        --batch 8 --max-seq 2048 --prompt 16 --tokens 16 --mesh 1x1
 """
 
 from __future__ import annotations
@@ -29,7 +39,9 @@ from ..configs import get_config, get_reduced
 from ..core.problem import resolve_device
 from ..models import init_cache, init_params, serving_params
 from ..models import transformer as tf
-from ..serve.engine import ServeConfig, make_serve_step, prefill
+from ..serve.engine import ServeConfig, jit_serve_step, make_serve_step
+from ..train.train_step import init_placed_params, place_params
+from .train import mesh_for, parse_mesh
 
 SEED = 0          # the reference's driver draws from PRNGKey(0)
 
@@ -63,10 +75,14 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def build_params(cfg, seed: int, device):
+def build_params(cfg, seed: int, device, mesh=None):
     """Random f32 parameters from ``seed`` on ``device``, cast once to bf16
-    for serving (``serving_params``)."""
+    for serving (``serving_params``).  On a ``mesh`` each rank keeps only
+    its blocks, cast as they are drawn (``init_placed_params``)."""
     gen = torch.Generator(device=device).manual_seed(seed)
+    if mesh is not None:
+        return init_placed_params(
+            gen, cfg, mesh, cast=lambda t: serving_params(t, torch.bfloat16))
     return serving_params(init_params(gen, cfg), torch.bfloat16)
 
 
@@ -82,28 +98,34 @@ def weight_bytes(params) -> int:
 
 
 def serve(cfg, params, prompt: torch.Tensor, n_tokens: int,
-          max_seq: int) -> ServeRun:
+          max_seq: int, mesh=None) -> ServeRun:
     """Prefill ``prompt`` ([B, P] on the params' device) through the decode
     path, then decode ``n_tokens`` greedy tokens in bf16, starting from
-    the prompt's last token."""
+    the prompt's last token; the final logits are one more step's.  With
+    ``mesh`` every step is the sharded one (``jit_serve_step``; global
+    parameters are placed on the way in, without a copy on a world of
+    one)."""
     device = prompt.device
     B, P = prompt.shape
-    compute_dtype = torch.bfloat16
     scfg = ServeConfig(batch=B, max_seq=max_seq,
                        **cache_policy(cfg, max_seq))
-    step = make_serve_step(cfg, scfg)
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    cache = init_cache(cfg, B, max_seq, kv_dtype=compute_dtype,
-                       device=device)
+    cache = init_cache(cfg, B, max_seq, kv_dtype=scfg.dtype, device=device)
     cache_bytes = sum(t.numel() * t.element_size()
                       for t in tf.leaves(cache["seg_caches"]))
+    if mesh is None:
+        step = make_serve_step(cfg, scfg, with_logits=True)
+    else:
+        step = jit_serve_step(cfg, scfg, mesh, device=device.type,
+                              with_logits=True)
+        params = place_params(params, mesh)
 
     _sync(device)
     t0 = time.perf_counter()
-    cache = prefill(params, cfg, prompt[:, :-1], cache,
-                    compute_dtype=compute_dtype)
+    for t in range(P - 1):
+        _, cache, _ = step(params, cache, prompt[:, t:t + 1])
     _sync(device)
     prefill_s = time.perf_counter() - t0
 
@@ -115,7 +137,7 @@ def serve(cfg, params, prompt: torch.Tensor, n_tokens: int,
         start.record()
     t0 = time.perf_counter()
     for _ in range(n_tokens):
-        tok, cache = step(params, cache, tok)
+        tok, cache, _ = step(params, cache, tok)
         out.append(tok)
     if cuda:
         end.record()
@@ -123,15 +145,20 @@ def serve(cfg, params, prompt: torch.Tensor, n_tokens: int,
     decode_s = time.perf_counter() - t0
     step_ms = start.elapsed_time(end) / n_tokens if cuda else None
 
-    logits, _ = tf.forward_decode(params, cfg, tok, cache,
-                                  compute_dtype=compute_dtype)
+    _, _, logits = step(params, cache, tok)
     peak = torch.cuda.max_memory_allocated(device) if cuda else None
     return ServeRun(
-        tokens=torch.cat(out, dim=1).cpu(),
-        final_logits=logits[:, 0].float().cpu(),
+        tokens=torch.cat([_whole(t) for t in out], dim=1).cpu(),
+        final_logits=_whole(logits)[:, 0].float().cpu(),
         prefill_s=prefill_s, decode_s=decode_s, step_ms=step_ms,
         tokens_per_s=B * n_tokens / decode_s, peak_bytes=peak,
         weight_bytes=weight_bytes(params), cache_bytes=cache_bytes)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A sharded step's output gathered whole (a plain tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def random_prompt(cfg, batch: int, length: int, seed: int, device):
@@ -151,13 +178,18 @@ def main(argv=None):
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--device", default=None,
                     help="default: the CUDA device (refused without one)")
+    ap.add_argument("--mesh", default=None,
+                    help="DATAxMODEL: the sharded step on a device mesh")
     a = ap.parse_args(argv)
 
     device = resolve_device(a.device)
+    mesh = mesh_for(parse_mesh(a.mesh), device)
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     cfg = get_reduced(a.arch) if a.reduced else get_config(a.arch)
-    params = build_params(cfg, SEED, device)
+    params = build_params(cfg, SEED, device, mesh)
     prompt = random_prompt(cfg, a.batch, a.prompt, SEED, device)
-    run = serve(cfg, params, prompt, a.tokens, a.max_seq)
+    run = serve(cfg, params, prompt, a.tokens, a.max_seq, mesh=mesh)
     step = ("not measured" if run.step_ms is None
             else f"{run.step_ms:.3f} ms/step (CUDA events)")
     print(f"{cfg.name}: prefill {a.prompt - 1} positions in "

@@ -12,8 +12,19 @@ batches come from ``TokenPipeline`` through ``DevicePrefetcher``, and with
 ``--ckpt-dir`` the run resumes from the directory's latest checkpoint
 (parameters, optimizer state and the data cursor) and writes one every
 ``--ckpt-every`` steps.  Every clock is read after a device
-synchronisation.  The per-arch mesh policy (``perf_policy``) acts only
-through a device mesh, ROADMAP item 14.5.
+synchronisation.
+
+``--mesh DATAxMODEL`` runs the sharded step (``jit_train_step``) on a
+("data", "model") mesh over the process group's ranks: a world of one in
+this process, or the world a launcher such as ``torchrun`` describes in
+``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT``.  Batches are
+staged onto the data axes (``DevicePrefetcher(mesh=)``), each rank keeps
+only its blocks of the parameters and of AdamW's m and v from the moment
+they are drawn (``init_placed_params``), and checkpoints are written whole
+by rank 0 and restored onto the mesh.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_8b \
+        --reduced --steps 4 --mesh 1x1
 """
 
 from __future__ import annotations
@@ -24,24 +35,58 @@ import time
 import torch
 
 from ..checkpoint import Checkpointer
+from .mesh import make_host_mesh
 from ..configs import get_config, get_reduced
 from ..core.problem import resolve_device
 from ..data import DevicePrefetcher, TokenPipeline
 from ..models import init_params
 from ..models import transformer as tf
 from ..train import optimizer as opt_mod
-from ..train.train_step import TrainConfig, make_train_step
+from ..train.train_step import (TrainConfig, init_placed_params,
+                                init_placed_state, jit_train_step,
+                                make_train_step)
 
 SEED = 0          # the reference's driver draws from PRNGKey(0)
 
 
 def perf_policy(cfg, mesh) -> dict:
-    """Per-arch mesh flags: the sequence-parallel residual pays off exactly
-    when attention cannot use the whole model axis (heads < axis).  No
-    flag without a mesh."""
-    if mesh is None or "model" not in mesh.axis_names:
-        return {}
-    return {"sp_residual": cfg.n_heads < mesh.shape["model"]}
+    """Per-arch mesh flags.  The reference turns on the sequence-parallel
+    residual where the heads do not fill the model axis; the port's steps
+    have no tensor parallelism for it to act on (``ModelOpts``), so no
+    flag is set on any mesh."""
+    del cfg, mesh
+    return {}
+
+
+def parse_mesh(text):
+    """``"DATAxMODEL"`` -> ``(data, model)``; None stays None."""
+    if text is None:
+        return None
+    data, model = (int(v) for v in text.lower().split("x"))
+    return data, model
+
+
+def mesh_for(shape, device):
+    """The ("data", "model") mesh of ``shape`` over the process group (a
+    launcher's world when its environment names one, else a world of one);
+    another world size raises."""
+    import os
+
+    import torch.distributed as dist
+
+    from .mesh import backend_for
+    if shape is None:
+        return None
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend_for(device))
+    mesh = make_host_mesh(model_parallel=shape[1], device=device)
+    if tuple(mesh.shape) != tuple(shape):
+        raise ValueError(f"--mesh {shape[0]}x{shape[1]} needs "
+                         f"{shape[0] * shape[1]} ranks; the process group "
+                         f"has {mesh.size()}")
+    return mesh
 
 
 def _sync(device: torch.device) -> None:
@@ -61,22 +106,36 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--device", default=None,
                     help="default: the CUDA device (refused without one)")
+    ap.add_argument("--mesh", default=None,
+                    help="DATAxMODEL: the sharded step on a device mesh")
     a = ap.parse_args(argv)
 
     device = resolve_device(a.device)
+    mesh = mesh_for(parse_mesh(a.mesh), device)
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     cfg = get_reduced(a.arch) if a.reduced else get_config(a.arch)
     tcfg = TrainConfig(
         n_microbatches=a.microbatches,
         adamw=opt_mod.AdamWConfig(peak_lr=3e-3, warmup_steps=10,
                                   total_steps=a.steps),
-        **perf_policy(cfg, None))
+        **perf_policy(cfg, mesh))
 
-    params = init_params(torch.Generator(device).manual_seed(SEED), cfg)
-    opt = opt_mod.init_state(params)
+    gen = torch.Generator(device).manual_seed(SEED)
+    if mesh is None:
+        params = init_params(gen, cfg)
+        opt = opt_mod.init_state(params)
+    else:
+        params = init_placed_params(gen, cfg, mesh)
+        opt = init_placed_state(params)
     n = sum(t.numel() for t in tf.leaves(params))
-    print(f"training {cfg.name}: {n/1e6:.1f}M params, {a.steps} steps")
+    where = ("" if mesh is None else
+             f" on a {'x'.join(map(str, mesh.shape))} mesh")
+    print(f"training {cfg.name}: {n/1e6:.1f}M params, {a.steps} steps"
+          f"{where}")
 
-    step_fn = make_train_step(cfg, tcfg)
+    step_fn = (make_train_step(cfg, tcfg) if mesh is None
+               else jit_train_step(cfg, tcfg, mesh, device=a.device))
     pipe = TokenPipeline(vocab=cfg.vocab, batch=a.batch, seq=a.seq, seed=0,
                          enc_seq=64 if cfg.enc_segments else 0,
                          d_model=cfg.d_model)
@@ -84,13 +143,14 @@ def main(argv=None):
     start = 0
     if ck and ck.latest() is not None:
         restored, extras = ck.restore(ck.latest(),
-                                      {"params": params, "opt": opt})
+                                      {"params": params, "opt": opt},
+                                      mesh=mesh)
         params, opt = restored["params"], restored["opt"]
         pipe.restore(extras["pipeline"])
         start = extras["step"]
         print(f"resumed from step {start}")
 
-    batches = DevicePrefetcher(pipe, device)
+    batches = DevicePrefetcher(pipe, device, mesh=mesh)
     try:
         for s in range(start, a.steps):
             batch = next(batches)

@@ -26,7 +26,9 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
+from ..core.placement import Places, block_range, gather, shard_dims
 from .layers import apply_rope, normal
 
 NEG_INF = -2.0 ** 30
@@ -144,14 +146,28 @@ class KVCache(NamedTuple):
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
+class CacheShard(NamedTuple):
+    """Where a rank's block of a ``[B, Kv, cache_len, hd]`` KV cache lies in
+    the whole: the DTensor ``places`` of the leaf on ``mesh``.  Its batch
+    dim holds this rank's own rows and is never split here."""
+    mesh: object
+    places: tuple
+
+
 def attention_decode(p, x, cache: Optional[KVCache], pos, *, window,
-                     softcap, rope_theta: float, memory=None):
+                     softcap, rope_theta: float, memory=None,
+                     shard: Optional[CacheShard] = None):
     """One-token decode step.  x: [B, 1, D]; ``pos``: the current position
     (a 0-d integer tensor on x's device).  The new key and value are
     written into ``cache`` in place; returns ``(out, cache)``.
 
     Cross-attention (``memory`` given) reads the memory directly and
-    ignores the cache."""
+    ignores the cache.  With ``shard`` the cache is this rank's block of
+    a cache split over a mesh (see :func:`_decode_on_block`)."""
+    if shard is not None and memory is None and any(
+            shard.mesh.size(i) > 1 for i, _ in shard_dims(shard.places)):
+        return _decode_on_block(p, x, cache, pos, shard, window=window,
+                                softcap=softcap, rope_theta=rope_theta)
     B = x.shape[0]
     dt = x.dtype
     scale = 1.0 / math.sqrt(p["wq"].shape[-1])
@@ -185,4 +201,93 @@ def attention_decode(p, x, cache: Optional[KVCache], pos, *, window,
     logits = torch.where(valid, logits, NEG_INF)
 
     o = _gqa_out(_softmax(logits, dt), cache.v.to(dt))
+    return _out_proj(o, p["wo"].to(dt)), cache
+
+
+def _stack_over(t, mesh, i: int):
+    """``t`` from every rank of mesh dim ``i``, stacked in rank order."""
+    out = t.new_empty((mesh.size(i),) + tuple(t.shape))
+    dist.all_gather_into_tensor(out, t.unsqueeze(0).contiguous(),
+                                group=mesh.get_group(i))
+    return out
+
+
+def _decode_on_block(p, x, cache: KVCache, pos, shard: CacheShard, *,
+                     window, softcap, rope_theta: float):
+    """:func:`attention_decode` on this rank's block of the cache, which
+    may be split over its KV heads, its slots or its head_dim (the
+    placements ``kv_cache_specs`` gives).  The block is read and written
+    in place and never gathered; what crosses the mesh is per query head:
+
+    * KV heads: each rank attends with the query heads that read its KV
+      heads, and the head outputs are gathered;
+    * head_dim: each rank's partial scores (f32) are summed over its
+      group, and the output's head_dim blocks are gathered;
+    * slots: each rank takes the softmax over its own slots, then the
+      ranks' maxima, sums and unnormalised outputs are combined (the
+      flash-decoding merge).  The new key and value go to the rank whose
+      block holds slot ``pos % cache_len``.
+
+    The rounding differs from the whole cache's attention where the
+    head_dim or the slots are split (partial sums are added in another
+    order); a split over KV heads alone computes each head as the whole
+    cache does."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, places = shard.mesh, shard.places
+    B, dt = x.shape[0], x.dtype
+    H, hd = p["wq"].shape[1], p["wq"].shape[2]
+    Kv = p["wk"].shape[1]
+    g = H // Kv
+    split = {d: [i for i, dd in shard_dims(places)
+                 if dd == d and mesh.size(i) > 1] for d in (1, 2, 3)}
+    L = cache.k.shape[2] * math.prod(mesh.size(i) for i in split[2])
+    kv0, n_kv = block_range(Kv, 1, places, mesh)
+    l0, n_l = block_range(L, 2, places, mesh)
+    d0, n_d = block_range(hd, 3, places, mesh)
+
+    pos_b = pos.expand(B, 1)
+    q = apply_rope(_project(x, p["wq"].to(dt)), pos_b, rope_theta)
+    q = q[:, :, kv0 * g:(kv0 + n_kv) * g, d0:d0 + n_d]
+    k_new = apply_rope(_project(x, p["wk"].to(dt)), pos_b, rope_theta)
+    v_new = _project(x, p["wv"].to(dt))
+
+    slot = torch.remainder(pos, L).view(1) - l0
+    inside = (slot >= 0) & (slot < n_l)
+    at = slot.clamp(0, n_l - 1)
+    for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+        new = new[:, :, kv0:kv0 + n_kv, d0:d0 + n_d].transpose(1, 2)
+        buf.index_copy_(2, at, torch.where(inside, new.to(buf.dtype),
+                                           buf.index_select(2, at)))
+
+    if split[3]:                 # partial dot products: add them in f32
+        logits = _gqa_scores(q.float(), cache.k.float(), 1.0 / math.sqrt(hd))
+        for i in split[3]:
+            dist.all_reduce(logits, group=mesh.get_group(i))
+    else:
+        logits = _gqa_scores(q, cache.k.to(dt), 1.0 / math.sqrt(hd)).float()
+    logits = _soft_cap(logits, softcap)                      # [B,Hl,1,Ll]
+    age = torch.remainder(
+        pos - (l0 + torch.arange(n_l, device=x.device)), L)
+    valid = ((pos - age) >= 0) & (age < window)
+    logits = torch.where(valid, logits, NEG_INF)
+
+    if not split[2]:
+        o = _gqa_out(_softmax(logits, dt), cache.v.to(dt))  # [B,1,Hl,hdl]
+    else:
+        m = logits.amax(-1, keepdim=True)                    # [B,Hl,1,1]
+        e = torch.exp(logits - m)
+        s = e.sum(-1, keepdim=True)
+        o = _gqa_out(e.to(dt), cache.v.to(dt)).float()
+        for i in split[2]:
+            ms, ss, os_ = (_stack_over(t, mesh, i) for t in (m, s, o))
+            m = ms.amax(0)
+            w = torch.exp(ms - m)                            # 0 off-window
+            s = (w * ss).sum(0)
+            o = (w.transpose(2, 3) * os_).sum(0)
+        o = (o / s.transpose(1, 2)).to(dt)
+
+    o_places = Places(Shard(2) if i in split[1] else
+                      Shard(3) if i in split[3] else Replicate()
+                      for i in range(len(places)))
+    o = gather(o, o_places, mesh)                            # [B,1,H,hd]
     return _out_proj(o, p["wo"].to(dt)), cache

@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..core.placement import Places, gather_leaf, local_slice, zip_map
 from ..core.problem import resolve_device
 from . import attention as attn_mod
 from . import moe as moe_mod
@@ -39,9 +40,6 @@ from . import xlstm as xlstm_mod
 from .attention import KVCache
 from .layers import (dense, embed, init_dense, init_embedding, init_mlp,
                      init_rmsnorm, mlp, rmsnorm, unembed)
-
-ROADMAP_MESH = ("a device mesh (ModelOpts.mesh) is not ported: sharded "
-                "serving and training are ROADMAP item 14.5")
 
 # leaves the reference reads in f32 whatever the compute dtype: norm
 # scales and biases, Mamba2's decay, step bias, skip and gate-norm scale,
@@ -70,20 +68,63 @@ class Segment:
 
 @dataclasses.dataclass(frozen=True)
 class ModelOpts:
-    """The reference's sharding knobs (sequence-parallel residual, bf16
-    barriers, gather-once, flash-decode cache layout).  Each acts only
-    through a device mesh; with ``mesh=None`` every one is a no-op, as in
-    the reference.  A mesh is refused: sharded serving is ROADMAP item
-    14.5."""
+    """The reference's sharding knobs and the mesh the model runs on.
+
+    ``mesh`` with ``places`` (and ``cache_places`` for decode) is the
+    port's sharded step: parameters (and cache leaves) come in as this
+    rank's blocks, ``places`` holds each leaf's DTensor placements, and
+    the model gathers a period's parameter blocks whole where it uses
+    them (``gathered``; inside the period's ``checkpoint``, so remat
+    gathers them again in the backward).  Attention reads its KV cache
+    block where it lies (``attention.attention_decode(shard=)``).
+
+    ``sp_residual``, ``gather_once`` and ``bf16_barrier`` are kept so the
+    reference's configurations construct, and do nothing: the port's
+    sharded steps run every op on local tensors (this rank's rows, the
+    parameters gathered whole), where the reference's
+    ``with_sharding_constraint`` has nothing to act on, and eager ops are
+    never re-ordered.  ``launch.perf`` refuses them.
+    ``cache_seq_on_model`` acts where the cache is placed
+    (``kv_cache_specs(seq_on_model=)`` in ``serve.engine.jit_serve_step``).
+    With ``mesh=None`` every knob is a no-op, as in the reference."""
     sp_residual: bool = False
     bf16_barrier: bool = False
     gather_once: bool = False
     cache_seq_on_model: bool = False
     mesh: object = None
+    places: object = None
+    cache_places: object = None
 
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(ROADMAP_MESH)
+    def gathered(self, tree, places):
+        """``tree``'s blocks gathered whole under ``places`` (a no-op
+        without a mesh or placements)."""
+        if self.mesh is None or places is None:
+            return tree
+        return zip_map(lambda t, pl: gather_leaf(t, pl, self.mesh), tree,
+                       places)
+
+
+def _unstacked(places, rows_local: bool = False):
+    """A stacked leaf's placements for one period's view (the leading
+    period axis dropped; it is never sharded).  ``rows_local``: a cache's
+    batch dim stays this rank's rows (each data rank decodes its own
+    rows), so it is neither gathered nor sliced."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def one(pl):
+        out = []
+        for p in pl:
+            if p.is_shard():
+                if p.dim == 0:
+                    raise ValueError("a stacked leaf sharded on its "
+                                     "period axis")
+                p = (Replicate() if rows_local and p.dim == 1
+                     else Shard(p.dim - 1))
+            out.append(p)
+        return Places(out)
+    if places is None:
+        return None
+    return zip_map(one, places)
 
 
 DEFAULT_OPTS = ModelOpts()
@@ -262,16 +303,17 @@ def _apply_block_train(p, cfg: ArchCfg, bcfg: BlockCfg, x,
 
 
 def _apply_block_decode(p, cfg: ArchCfg, bcfg: BlockCfg, x, cache, pos,
-                        shared_attn_params, memory=None):
-    """One block at one position.  A KV cache is written in place; a
-    recurrent state comes back new.  Returns ``(x, cache)``."""
+                        shared_attn_params, memory=None, shard=None):
+    """One block at one position.  A KV cache is written in place (on a
+    mesh ``shard`` says where its block lies); a recurrent state comes
+    back new.  Returns ``(x, cache)``."""
     window = float(bcfg.window) if bcfg.window else 2.0 ** 31
     h = rmsnorm(p["norm1"], x)
     if bcfg.mixer in ("attn", "shared_attn"):
         mp = p["mixer"] if bcfg.mixer == "attn" else shared_attn_params
         h, cache = attn_mod.attention_decode(
             mp, h, cache, pos, window=window, softcap=cfg.softcap,
-            rope_theta=cfg.rope_theta)
+            rope_theta=cfg.rope_theta, shard=shard)
     elif bcfg.mixer == "mamba2":
         h, cache = ssm_mod.mamba2_decode(p["mixer"], h, cache)
     elif bcfg.mixer == "mlstm":
@@ -316,13 +358,17 @@ def _set_period(stacked, tree, i: int):
         stacked[i].copy_(tree)
 
 
-def _init_segment(gen, cfg: ArchCfg, seg: Segment):
+def _whole(tree):
+    return tree
+
+
+def _init_segment(gen, cfg: ArchCfg, seg: Segment, keep=_whole):
     """Stacked period params: leaves get a leading [n_periods] axis.  Each
-    period is drawn and copied into its slot in turn, so at most one
-    period's draws live beside the stack."""
+    period is drawn, handed to ``keep`` and copied into its slot in turn,
+    so at most one period's draws live beside the stack."""
     def one_period():
-        return {f"b{i}": _init_block(gen, cfg, b)
-                for i, b in enumerate(seg.period)}
+        return keep({f"b{i}": _init_block(gen, cfg, b)
+                     for i, b in enumerate(seg.period)})
     first = one_period()
     stacked = _stacked_like(first, seg.n_periods)
     _set_period(stacked, first, 0)
@@ -345,12 +391,17 @@ def _periods(tree, n: int) -> list:
 
 def _segment_train(seg_params, cfg: ArchCfg, seg: Segment, x,
                    shared_attn_params, memory=None, causal=True,
-                   remat: bool = True):
+                   remat: bool = True, opts=DEFAULT_OPTS, places=None):
     """The segment's periods in turn.  With ``remat`` and autograd on, each
     period's blocks run under ``checkpoint``: the backward keeps only the
     period's input and recomputes the rest (no random numbers are drawn,
-    so no generator state is kept)."""
+    so no generator state is kept).  On a mesh (``places`` the stacked
+    leaves' placements) a period's blocks are gathered inside its
+    checkpoint, so the backward gathers them again."""
+    period_places = _unstacked(places)
+
     def body(h, pp):
+        pp = opts.gathered(pp, period_places)
         for i, b in enumerate(seg.period):
             h = _apply_block_train(pp[f"b{i}"], cfg, b, h,
                                    shared_attn_params, memory, causal)
@@ -365,17 +416,33 @@ def _segment_train(seg_params, cfg: ArchCfg, seg: Segment, x,
 
 
 def _segment_decode(seg_params, cfg: ArchCfg, seg: Segment, x, seg_cache,
-                    pos, shared_attn_params, memory=None):
+                    pos, shared_attn_params, memory=None, opts=DEFAULT_OPTS,
+                    places=None, cache_places=None):
+    """The segment's periods in turn, each cache slot written in place.  On
+    a mesh a period's parameter blocks are gathered whole; attention reads
+    and writes its KV cache block where it lies, and a recurrent state's
+    block is gathered whole and this rank's block of the new state copied
+    back."""
+    period_places = _unstacked(places)
+    cache_period = _unstacked(cache_places, rows_local=True)
     for n in range(seg.n_periods):
-        pp = _period(seg_params, n)
+        pp = opts.gathered(_period(seg_params, n), period_places)
         for i, b in enumerate(seg.period):
             stacked = seg_cache[f"b{i}"]
-            x, c = _apply_block_decode(pp[f"b{i}"], cfg, b, x,
-                                       _period(stacked, n), pos,
+            c_places = None if cache_period is None else cache_period[f"b{i}"]
+            if isinstance(stacked, KVCache):
+                shard = (None if c_places is None else
+                         attn_mod.CacheShard(opts.mesh, c_places.k))
+                x, _ = _apply_block_decode(
+                    pp[f"b{i}"], cfg, b, x, _period(stacked, n), pos,
+                    shared_attn_params, memory, shard)
+                continue
+            state = opts.gathered(_period(stacked, n), c_places)
+            x, c = _apply_block_decode(pp[f"b{i}"], cfg, b, x, state, pos,
                                        shared_attn_params, memory)
-            if not isinstance(stacked, KVCache):
-                for key, v in c.items():
-                    stacked[key][n].copy_(v)
+            for key, v in c.items():
+                stacked[key][n].copy_(v if c_places is None else local_slice(
+                    v, c_places[key], opts.mesh))
     return x
 
 
@@ -395,39 +462,68 @@ def _has_shared_attn(cfg: ArchCfg) -> bool:
                for s in cfg.segments for b in s.period)
 
 
-def init_params(gen: Optional[torch.Generator], cfg: ArchCfg):
+def init_params(gen: Optional[torch.Generator], cfg: ArchCfg, keep=_whole):
     """f32 parameters drawn from ``gen`` on its device (``gen=None``:
     shapes only, on the meta device).  The draws are the port's own; the
     tests carry the reference's parameters across with
-    ``interop.params_from_numpy``."""
+    ``interop.params_from_numpy``.
+
+    ``keep(subtree) -> subtree`` sees each part as it is drawn (one
+    period of a stack, or one top-level entry such as the embedding) and
+    returns what to keep of it, so a caller can keep one rank's blocks
+    and free the rest (``train.train_step.init_placed_params``); a stack
+    is built from what ``keep`` returns.  The draws do not depend on it."""
     p = {
-        "embed": init_embedding(gen, cfg.vocab, cfg.d_model),
-        "final_norm": init_rmsnorm(gen, cfg.d_model),
-        "segments": [_init_segment(gen, cfg, s) for s in cfg.segments],
+        "embed": keep(init_embedding(gen, cfg.vocab, cfg.d_model)),
+        "final_norm": keep(init_rmsnorm(gen, cfg.d_model)),
+        "segments": [_init_segment(gen, cfg, s, keep) for s in cfg.segments],
     }
     if not cfg.tied_embeddings:
-        p["unembed"] = init_dense(gen, cfg.d_model, cfg.vocab)
+        p["unembed"] = keep(init_dense(gen, cfg.d_model, cfg.vocab))
     if _has_shared_attn(cfg):
-        p["shared_attn"] = attn_mod.init_attention(
-            gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim)
+        p["shared_attn"] = keep(attn_mod.init_attention(
+            gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim))
     if cfg.enc_segments:
-        p["enc_segments"] = [_init_segment(gen, cfg, s)
+        p["enc_segments"] = [_init_segment(gen, cfg, s, keep)
                              for s in cfg.enc_segments]
-        p["enc_norm"] = init_rmsnorm(gen, cfg.d_model)
+        p["enc_norm"] = keep(init_rmsnorm(gen, cfg.d_model))
     if cfg.frontend is not None:
         # modality stub: a linear adapter over precomputed frame/patch
         # embeddings, as in the reference
-        p["frontend"] = init_dense(gen, cfg.d_model, cfg.d_model)
+        p["frontend"] = keep(init_dense(gen, cfg.d_model, cfg.d_model))
     return p
 
 
-def _encode(params, cfg: ArchCfg, enc_embeddings, remat: bool = True):
+def _encode(params, cfg: ArchCfg, enc_embeddings, remat: bool = True,
+            opts=DEFAULT_OPTS, places=None):
     x = (dense(params["frontend"], enc_embeddings) if cfg.frontend
          else enc_embeddings)
-    for seg_p, seg in zip(params["enc_segments"], cfg.enc_segments):
+    seg_places = (places or {}).get("enc_segments") or [None] * len(
+        cfg.enc_segments)
+    for seg_p, seg, sp in zip(params["enc_segments"], cfg.enc_segments,
+                              seg_places):
         x = _segment_train(seg_p, cfg, seg, x, None, causal=False,
-                           remat=remat)
+                           remat=remat, opts=opts, places=sp)
     return rmsnorm(params["enc_norm"], x)
+
+
+_STACKED = ("segments", "enc_segments")
+
+
+def _gather_unstacked(params, opts):
+    """``params`` with every leaf outside the stacked segments gathered
+    whole (the embedding, norms, shared attention, frontend); the segments
+    are gathered a period at a time where they are used."""
+    if opts.mesh is None or opts.places is None:
+        return params
+    return {k: v if k in _STACKED else opts.gathered(v, opts.places[k])
+            for k, v in params.items()}
+
+
+def _seg_places(opts, key: str, n: int):
+    if opts.places is None:
+        return [None] * n
+    return opts.places[key]
 
 
 def _embed_scaled(params, cfg: ArchCfg, tokens, compute_dtype):
@@ -444,23 +540,28 @@ def _logits(params, cfg: ArchCfg, x):
 
 def forward_train(params, cfg: ArchCfg, tokens, enc_embeddings=None,
                   remat: bool = True, compute_dtype=torch.bfloat16,
-                  opts=DEFAULT_OPTS):
+                  unroll: bool = False, opts=DEFAULT_OPTS):
     """Logits for next-token prediction.  tokens: [B, S] integers.
 
     ``remat`` recomputes each period in the backward when autograd is on
     (the reference's per-period ``jax.checkpoint``); without autograd it
-    changes nothing.  The reference's ``unroll=`` (the dry run's cost
-    probe) waits for ROADMAP item 14.5."""
-    del opts                              # mesh-free: every knob a no-op
+    changes nothing.  ``unroll`` is accepted and changes nothing: the
+    reference unrolls its ``lax.scan`` for the dry run's cost probe, and
+    the port's period loop is already unrolled Python.  On a mesh
+    (``opts.mesh``/``opts.places``) ``params`` are this rank's blocks."""
+    del unroll
+    params = _gather_unstacked(params, opts)
     memory = None
     if cfg.enc_segments:
         memory = _encode(params, cfg, enc_embeddings.to(compute_dtype),
-                         remat=remat)
+                         remat=remat, opts=opts, places=opts.places)
     x = _embed_scaled(params, cfg, tokens, compute_dtype)
     shared = params.get("shared_attn")
-    for seg_p, seg in zip(params["segments"], cfg.segments):
+    for seg_p, seg, sp in zip(params["segments"], cfg.segments,
+                              _seg_places(opts, "segments",
+                                          len(cfg.segments))):
         x = _segment_train(seg_p, cfg, seg, x, shared, memory=memory,
-                           remat=remat)
+                           remat=remat, opts=opts, places=sp)
     return _logits(params, cfg, x)
 
 
@@ -485,18 +586,27 @@ def init_cache(cfg: ArchCfg, batch: int, seq: int, kv_dtype=torch.bfloat16,
 
 
 def forward_decode(params, cfg: ArchCfg, token, cache, enc_memory=None,
-                   compute_dtype=torch.bfloat16, opts=DEFAULT_OPTS):
+                   compute_dtype=torch.bfloat16, unroll: bool = False,
+                   opts=DEFAULT_OPTS):
     """One decode step.  token: [B, 1] integers -> ``(logits [B, 1, V],
     cache)``; the cache is updated in place and returned with ``pos``
-    advanced."""
-    del opts                              # mesh-free: every knob a no-op
+    advanced.  On a mesh (``opts.mesh`` with ``opts.places`` and
+    ``opts.cache_places``) ``params`` and the cache are this rank's
+    blocks.  ``unroll`` changes nothing (see ``forward_train``)."""
+    del unroll
+    params = _gather_unstacked(params, opts)
     x = _embed_scaled(params, cfg, token, compute_dtype)
     pos = cache["pos"]
     shared = params.get("shared_attn")
-    for seg_p, seg, seg_c in zip(params["segments"], cfg.segments,
-                                 cache["seg_caches"]):
+    n = len(cfg.segments)
+    cache_places = ([None] * n if opts.cache_places is None
+                    else opts.cache_places["seg_caches"])
+    for seg_p, seg, seg_c, sp, cp in zip(
+            params["segments"], cfg.segments, cache["seg_caches"],
+            _seg_places(opts, "segments", n), cache_places):
         x = _segment_decode(seg_p, cfg, seg, x, seg_c, pos, shared,
-                            memory=enc_memory)
+                            memory=enc_memory, opts=opts, places=sp,
+                            cache_places=cp)
     cache["pos"] = pos + 1
     return _logits(params, cfg, x), cache
 

@@ -6,9 +6,14 @@ decode replicas — the port of ``repro/serve/engine.py``.
 ``max_seq``.  ``balance_requests`` is the serving-path use of the paper:
 request groups are shards, replicas are servers, and the §3.3
 load-balancing MILP is solved through POP (a deprecated door onto a
-:class:`~repro_torch.service.PopService` session).  The reference's
-``jit_serve_step`` shards the step over a device mesh; that is ROADMAP
-item 14.5.
+:class:`~repro_torch.service.PopService` session).  ``jit_serve_step``
+runs the step on a device mesh: parameters placed by ``param_shardings``,
+the cache by ``kv_cache_specs``, the tokens on the data axes when the
+batch divides them.  Each rank gathers a period's parameter blocks whole
+where it uses them and decodes its own rows; attention reads and writes
+its KV cache block where it lies and gathers only its output
+(``models.attention.attention_decode(shard=)``).  The module docstring
+of ``train/train_step.py`` has the design and its cost.
 """
 
 from __future__ import annotations
@@ -19,6 +24,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import placement as pl
+from ..core.placement import P
+from ..launch import shardings as sh
 from ..models import transformer as tf
 
 
@@ -27,6 +35,8 @@ class ServeConfig:
     batch: int
     max_seq: int
     compute_dtype: str = "bfloat16"
+    shard_cache_seq: bool = False     # long-context mode (batch too small)
+    unroll_segments: bool = False     # the dry run's cost probe (a no-op)
     # the flash-decode cache layout over a mesh's ``model`` axis: a no-op
     # without a mesh, as in the reference
     cache_seq_on_model: bool = False
@@ -37,22 +47,103 @@ class ServeConfig:
                 else torch.float32)
 
 
-def make_serve_step(cfg: tf.ArchCfg, scfg: ServeConfig, mesh=None):
+def make_serve_step(cfg: tf.ArchCfg, scfg: ServeConfig, mesh=None,
+                    places=None, cache_places=None,
+                    with_logits: bool = False):
     """``serve_step(params, cache, token, enc_memory=None) -> (next_token
-    [B, 1], cache)``: one decode step and the greedy next token.  A mesh
-    raises ``NotImplementedError`` (ROADMAP item 14.5)."""
+    [B, 1], cache)``: one decode step and the greedy next token (and the
+    step's logits ``[B, 1, V]`` after them with ``with_logits``).  On a
+    mesh, ``places``/``cache_places`` are the placements of the
+    parameters and the cache, and every argument holds this rank's blocks
+    (see :func:`jit_serve_step`)."""
     dtype = scfg.dtype
-    opts = tf.ModelOpts(cache_seq_on_model=scfg.cache_seq_on_model,
-                        mesh=mesh)
+    opts = tf.ModelOpts(mesh=mesh, places=places, cache_places=cache_places)
 
     def serve_step(params, cache, token, enc_memory=None):
         logits, cache = tf.forward_decode(params, cfg, token, cache,
                                           enc_memory=enc_memory,
-                                          compute_dtype=dtype, opts=opts)
+                                          compute_dtype=dtype,
+                                          unroll=scfg.unroll_segments,
+                                          opts=opts)
         # greedy next token (sampling plugs in here)
-        return torch.argmax(logits[:, -1, :], dim=-1)[:, None], cache
+        nxt = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+        return (nxt, cache, logits) if with_logits else (nxt, cache)
 
     return serve_step
+
+
+def _row_places(mesh, scfg: ServeConfig, ndim: int):
+    """Tokens (and encoder memory) on the data axes when the batch divides
+    them, else replicated.  Each rank decodes the rows its cache block
+    holds, so in the long-context mode (the cache's sequence on the data
+    axes, its batch whole) the tokens are replicated too, where the
+    reference lets GSPMD move them."""
+    on_dp = (scfg.batch % max(pl.dp_size(mesh), 1) == 0
+             and not scfg.shard_cache_seq)
+    return pl.placements(pl.leading_spec(mesh, ndim) if on_dp
+                         else P(*(None,) * ndim), mesh)
+
+
+def place_cache(cache, cfg_batch: int, mesh, scfg: ServeConfig):
+    """A global decode cache placed by ``kv_cache_specs``."""
+    specs = sh.kv_cache_specs(cache, mesh, cfg_batch,
+                              shard_seq=scfg.shard_cache_seq,
+                              seq_on_model=scfg.cache_seq_on_model)
+    return pl.distribute_tree(cache, specs, mesh)
+
+
+def jit_serve_step(cfg: tf.ArchCfg, scfg: ServeConfig, mesh,
+                   params_shape=None, cache_shape=None,
+                   has_memory: bool = False, device=None,
+                   with_logits: bool = False):
+    """The decode step on ``mesh`` with the reference's placements:
+    parameters by ``param_shardings``, the cache by ``kv_cache_specs``,
+    tokens (and the encoder memory) on the data axes when ``scfg.batch``
+    divides them (``_row_places``).  Inputs that are not DTensors yet
+    (global tensors, equal on every rank) are placed on the way in; the
+    step returns the next tokens as a DTensor and the same cache
+    DTensors, written in place (the reference's donation), and with
+    ``with_logits`` the step's logits as a DTensor too.  The mesh must
+    lie on the card unless ``device`` names its device type."""
+    del params_shape, cache_shape, has_memory
+    from torch.distributed.tensor import DTensor
+
+    from ..train.train_step import check_mesh_device, place_params
+    check_mesh_device(mesh, device)
+    state = {}
+
+    def step(params, cache, token, enc_memory=None):
+        if not isinstance(next(tf.leaves(params)), DTensor):
+            params = place_params(params, mesh)
+        if not isinstance(next(tf.leaves(cache["seg_caches"])), DTensor):
+            cache = place_cache(cache, scfg.batch, mesh, scfg)
+        t_places = _row_places(mesh, scfg, 2)
+        if not isinstance(token, DTensor):
+            token = pl.distribute(token, t_places, mesh)
+        if enc_memory is not None and not isinstance(enc_memory, DTensor):
+            enc_memory = pl.distribute(
+                enc_memory, _row_places(mesh, scfg, enc_memory.ndim),
+                mesh)
+        if "fn" not in state:
+            state["fn"] = make_serve_step(
+                cfg, scfg, mesh, places=pl.places_of(params),
+                cache_places=pl.places_of(cache), with_logits=True)
+        local_cache = pl.local_tree(cache)
+        nxt, local_cache, logits = state["fn"](
+            pl.local_tree(params), local_cache, token._local_tensor,
+            None if enc_memory is None else enc_memory._local_tensor)
+        # the decode step replaces ``pos`` (a new tensor), not in place
+        cache["pos"] = DTensor.from_local(local_cache["pos"], mesh,
+                                          cache["pos"].placements,
+                                          run_check=False)
+        nxt = pl.from_local(nxt, t_places, mesh, token.shape)
+        if not with_logits:
+            return nxt, cache
+        return nxt, cache, pl.from_local(
+            logits, _row_places(mesh, scfg, 3), mesh,
+            (token.shape[0],) + tuple(logits.shape[1:]))
+
+    return step
 
 
 @dataclasses.dataclass

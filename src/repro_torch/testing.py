@@ -459,3 +459,19 @@ def train_batch(cfg, batch: int, seq: int, seed: int = 0, device="cpu"):
         out["enc_embeddings"] = rng.normal(
             0, 1, (batch, 6, cfg.d_model)).astype(np.float32)
     return {k: torch.as_tensor(v).to(device) for k, v in out.items()}
+
+
+@contextlib.contextmanager
+def gloo_world():
+    """A ("data", "model") mesh over a gloo world of one in this process
+    (``make_host_mesh(device="cpu")``); a process group this block started
+    is destroyed when it ends, so no later code in the process sees it."""
+    import torch.distributed as dist
+
+    from .launch.mesh import make_host_mesh
+    started = not dist.is_initialized()
+    try:
+        yield make_host_mesh(device="cpu")
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()

@@ -7,8 +7,10 @@ the residual of each round is added back before the next quantisation
 (Seide et al. / Karimireddy et al.).  Rounding is half to even, as
 ``jnp.round``'s, so the int8 payloads equal the reference's.
 
-``compressed_psum`` is the collective over a data-parallel mesh axis; it
-moves to ``torch.distributed`` with ROADMAP item 14.5.
+``compressed_psum`` is the collective over a data-parallel process group:
+the wire carries each rank's int8 payload and its scales (``all_gather``),
+and every rank dequantises and sums them in rank order, so the mean does
+not depend on the backend's reduction order and is the same on every rank.
 """
 
 from __future__ import annotations
@@ -50,12 +52,43 @@ def compress_with_feedback(grad: torch.Tensor, residual: torch.Tensor):
     return q, scale, target - deq
 
 
-def compressed_psum(grad_tree, residual_tree, axis_name: str):
-    """The int8 all-reduce with error feedback over a data-parallel axis.
-    A mesh collective: ROADMAP item 14.5."""
-    raise NotImplementedError(
-        "compressed_psum is a collective over a device mesh axis: "
-        "multi-device training on torch.distributed is ROADMAP item 14.5")
+def compressed_psum(grad_tree, residual_tree, group=None):
+    """The int8 all-reduce with error feedback over ``group`` (a process
+    group; None is the default group): ``(mean_grad_tree,
+    new_residual_tree)``, the mean over the group of each rank's
+    dequantised int8 gradient, as the reference's ``compressed_psum``
+    under ``shard_map``.
+
+    Wire cost: 1 byte a parameter plus 4/BLOCK bytes of scales a rank,
+    against 4 bytes a parameter for an f32 all-reduce."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+
+    def one(g, r):
+        q, s, r_new = compress_with_feedback(g, r)
+        qs = q.new_empty((n * q.shape[0],) + tuple(q.shape[1:]))
+        ss = s.new_empty((n * s.shape[0],) + tuple(s.shape[1:]))
+        dist.all_gather_into_tensor(qs, q, group=group)
+        dist.all_gather_into_tensor(ss, s, group=group)
+        qs, ss = qs.view((n,) + tuple(q.shape)), ss.view((n,) + tuple(s.shape))
+        total = qs[0].to(torch.float32) * ss[0]
+        for i in range(1, n):
+            total = total + qs[i].to(torch.float32) * ss[i]
+        mean = (total / float(n)).reshape(-1)[:g.numel()].reshape(g.shape)
+        return mean, r_new
+
+    def walk(g, r):
+        if isinstance(g, dict):
+            pairs = {k: walk(v, r[k]) for k, v in g.items()}
+            return ({k: p[0] for k, p in pairs.items()},
+                    {k: p[1] for k, p in pairs.items()})
+        if isinstance(g, (list, tuple)):
+            pairs = [walk(v, w) for v, w in zip(g, r)]
+            return (type(g)(p[0] for p in pairs),
+                    type(g)(p[1] for p in pairs))
+        return one(g, r)
+
+    return walk(grad_tree, residual_tree)
 
 
 def init_residuals(params):

@@ -98,12 +98,16 @@ def global_norm(grads) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState):
+def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState,
+                  gnorm=None):
     """One AdamW step: the parameters and ``state``'s moments are written in
     place (and ``grads`` scaled in place by the clip).  Returns
     ``(params, new_state, metrics)``; ``new_state`` holds the same moment
-    tensors and the next step count."""
-    gnorm = global_norm(grads)
+    tensors and the next step count.  ``gnorm``: the gradients' global
+    norm when the caller has it (a sharded step holds blocks of the
+    gradients, whose norm needs a collective); else computed here."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)

@@ -122,9 +122,19 @@ def test_prefetcher_close_with_a_full_queue_and_errors():
     with pytest.raises(RuntimeError, match="prefetch thread failed"):
         next(bad)
     bad.close()
-    with pytest.raises(NotImplementedError, match="14.5"):
-        DevicePrefetcher(TokenPipeline(vocab=5, batch=1, seq=2), "cpu",
-                         mesh=object())
+    # a mesh is taken (ROADMAP item 14.5): a batch on a gloo world of one
+    # comes back as DTensors with its rows on the data axis
+    with testing.gloo_world() as mesh:
+        on_mesh = DevicePrefetcher(TokenPipeline(vocab=5, batch=2, seq=3),
+                                   "cpu", mesh=mesh)
+        try:
+            got = next(on_mesh)
+            want = next(iter(TokenPipeline(vocab=5, batch=2, seq=3)))
+            for k, v in want.items():
+                assert got[k].placements[0].is_shard(0)
+                np.testing.assert_array_equal(got[k].full_tensor().numpy(), v)
+        finally:
+            on_mesh.close()
 
 
 # ---------------------------------------------------------------------------
@@ -197,8 +207,10 @@ def test_checkpoint_structure_mismatch_rejected(tmp_path):
     wrong_shape["a"] = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="shape"):
         ck.restore(1, wrong_shape)
-    with pytest.raises(NotImplementedError, match="14.5"):
-        ck.restore(1, _tree(), mesh=object())
+    # placements need the mesh they lie on (sharded restores: ROADMAP item
+    # 14.5, tests/test_torch_mesh.py)
+    with pytest.raises(ValueError, match="mesh="):
+        ck.restore(1, _tree(), shardings={})
 
 
 # ---------------------------------------------------------------------------

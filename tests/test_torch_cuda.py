@@ -1525,3 +1525,168 @@ def test_cuda_prefetcher_stages_batches(cuda_device):
             assert pre.state()["cursor"] == i + 1
     finally:
         pre.close()
+
+
+# ---------------------------------------------------------------------------
+# the mesh layer on an NCCL world of one
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def host_mesh(cuda_device):
+    """``make_host_mesh()``: a (1, 1) mesh over an NCCL world of one (the
+    process group stays for the session)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh()
+    assert tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+    assert dist.get_backend() == "nccl"
+    return mesh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["shard_map", "pmap"])
+def test_cuda_map_backend_session_matches_vmap(host_mesh, backend):
+    """A 512-job Gavel session (cold, drift, churn; the registry's
+    defaults) through each multi-device backend: allocations and per-lane
+    iterations bit-equal to the vmap session's, the lane kernels
+    launched."""
+    import dataclasses
+    from repro_torch.domains import registry
+    insts = testing.session_instances(512, (128, 128, 128), 0.05)
+    opts = ({"mesh": host_mesh, "axis": "data"} if backend == "shard_map"
+            else {"devices": (torch.device("cuda"),)})
+    spec = registry.get("gavel")
+    runs = {}
+    for name, o in (("vmap", {}), (backend, opts)):
+        ex = dataclasses.replace(spec.default_exec, backend=name,
+                                 backend_opts=o)
+        sess = PopService(device="cuda").session(f"m-{name}", insts[0],
+                                                 exec=ex)
+        for k in structured_pdhg_step.LAUNCHES:
+            structured_pdhg_step.LAUNCHES[k] = 0
+        runs[name] = ([sess.step(i) for i in insts],
+                      dict(structured_pdhg_step.LAUNCHES))
+    for a, b in zip(runs[backend][0], runs["vmap"][0]):
+        assert a.backend == backend and b.backend == "vmap"
+        np.testing.assert_array_equal(a.alloc, b.alloc)
+        np.testing.assert_array_equal(np.asarray(a.raw.iterations),
+                                      np.asarray(b.raw.iterations))
+    assert all(n > 0 for n in runs[backend][1].values())
+
+
+def _mesh_train(cfg, tcfg, batches, mesh, device):
+    from repro_torch import models
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import (init_placed_params,
+                                              init_placed_state,
+                                              jit_train_step,
+                                              make_train_step)
+    gen = torch.Generator(device).manual_seed(0)
+    if mesh is None:
+        params = models.init_params(gen, cfg)
+        opt = opt_mod.init_state(params)
+        step = make_train_step(cfg, tcfg)
+    else:
+        params = init_placed_params(gen, cfg, mesh)
+        opt = init_placed_state(params)
+        step = jit_train_step(cfg, tcfg, mesh)
+    metrics = []
+    for b in batches:
+        params, opt, m = step(params, opt, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return params, metrics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_jit_train_step_bit_equal(host_mesh, dtype):
+    """Two steps of reduced llama3-8b (2 microbatches, remat) through
+    ``jit_train_step`` on the (1, 1) mesh: metrics and every parameter
+    bit-equal to ``make_train_step``'s from the same seed."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import leaves
+    from repro_torch.train.train_step import TrainConfig
+    cfg = get_reduced("llama3_8b")
+    tcfg = TrainConfig(n_microbatches=2, compute_dtype=dtype)
+    batches = [testing.train_batch(cfg, 4, 32, seed=s, device="cuda")
+               for s in (0, 1)]
+    want, wm = _mesh_train(cfg, tcfg, batches, None, torch.device("cuda"))
+    got, gm = _mesh_train(cfg, tcfg, batches, host_mesh,
+                          torch.device("cuda"))
+    assert gm == wm
+    for g, w in zip(leaves(got), leaves(want)):
+        assert torch.equal(g.to_local(), w)
+
+
+@pytest.mark.cuda
+def test_cuda_jit_serve_step_matches_unsharded(host_mesh):
+    """Reduced llama3-8b, batch 4, 8 greedy tokens in bf16 through
+    ``launch.serve.serve(mesh=)``, from parameters built on the mesh:
+    tokens and final logits bit-equal to the unsharded path's."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import serve
+    cfg = get_reduced("llama3_8b")
+    params = serve.build_params(cfg, 0, "cuda")
+    prompt = serve.random_prompt(cfg, 4, 5, 0, "cuda")
+    a = serve.serve(cfg, params, prompt, 8, 64)
+    b = serve.serve(cfg, serve.build_params(cfg, 0, "cuda", host_mesh),
+                    prompt, 8, 64, mesh=host_mesh)
+    assert torch.equal(a.tokens, b.tokens)
+    assert torch.equal(a.final_logits, b.final_logits)
+
+
+@pytest.mark.cuda
+def test_cuda_compressed_psum_world_of_one(host_mesh):
+    """Over NCCL with one rank the mean is the rank's own dequantised
+    payload and the residual its own error feedback, bit for bit."""
+    from repro_torch.train import compression as comp
+    gen = torch.Generator("cuda").manual_seed(1)
+    g = {"w": torch.randn(3000, generator=gen, device="cuda")}
+    r = comp.init_residuals(g)
+    mean, r2 = comp.compressed_psum(g, r, group=host_mesh.get_group("data"))
+    q, s, want_r = comp.compress_with_feedback(g["w"], r["w"])
+    assert torch.equal(mean["w"], comp.dequantize_int8(q, s, (3000,)))
+    assert torch.equal(r2["w"], want_r)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_restores_onto_mesh(host_mesh, tmp_path):
+    """Parameters placed on the mesh, saved, restored onto the mesh by
+    their placements and unsharded: bit-equal, on the card."""
+    from repro_torch import models
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models.transformer import leaves
+    from repro_torch.train.train_step import place_params
+    cfg = get_reduced("llama3_8b")
+    params = models.init_params(torch.Generator("cuda").manual_seed(4), cfg)
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, {"p": place_params(params, host_mesh)})
+    like = {"p": models.init_params(None, cfg)}
+    on_mesh, _ = ck.restore(1, like, mesh=host_mesh, shardings={
+        "p": sh.param_shardings(like["p"], host_mesh)})
+    plain, _ = ck.restore(1, {"p": params})
+    for a, b, w in zip(leaves(on_mesh), leaves(plain), leaves(params)):
+        assert a.to_local().device.type == "cuda"
+        assert torch.equal(a.to_local(), w) and torch.equal(b, w)
+
+
+@pytest.mark.cuda
+def test_cuda_prefetcher_on_mesh(host_mesh):
+    """``DevicePrefetcher(mesh=)``: DTensors on the card, rows on the data
+    axis, equal to the pipeline's draw."""
+    from repro_torch.data import DevicePrefetcher, TokenPipeline
+    want = iter(TokenPipeline(vocab=100, batch=4, seq=16, seed=5))
+    pre = DevicePrefetcher(TokenPipeline(vocab=100, batch=4, seq=16, seed=5),
+                           torch.device("cuda"), mesh=host_mesh)
+    try:
+        for _ in range(3):
+            got, ref = next(pre), next(want)
+            for k, v in ref.items():
+                assert got[k].to_local().device.type == "cuda"
+                assert got[k].placements[0].is_shard(0)
+                np.testing.assert_array_equal(
+                    got[k].full_tensor().cpu().numpy(), v)
+    finally:
+        pre.close()

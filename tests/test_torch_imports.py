@@ -71,8 +71,10 @@ def test_new_modules_are_checked():
     store, the fault injectors, the tuner, the LM substrate and configs,
     the serving engine and driver, the scheduler shims, the training
     substrate (optimizer, compression, train step, data pipeline,
-    checkpointer, training driver) and the example twins are among the
-    sources the import checks walk."""
+    checkpointer, training driver), the mesh layer (placements, mesh,
+    shardings, specs, collective statistics, dry run, roofline, flags
+    harness) and the example twins are among the sources the import
+    checks walk."""
     names = {str(p.relative_to(ROOT)) for p in _sources()}
     for rel in ("kernels/structured_full_pdhg_step.py", "kernels/build.py",
                 "kernels/pdhg_matvec.py", "kernels/fused_pdhg_step.py",
@@ -94,7 +96,10 @@ def test_new_modules_are_checked():
                 "train/optimizer.py", "train/compression.py",
                 "train/train_step.py", "data/__init__.py",
                 "data/pipeline.py", "checkpoint/checkpointer.py",
-                "launch/train.py"):
+                "launch/train.py", "launch/mesh.py", "launch/shardings.py",
+                "launch/specs.py", "launch/hlo_stats.py",
+                "launch/dryrun.py", "launch/roofline.py",
+                "launch/perf.py", "core/placement.py"):
         assert f"src/repro_torch/{rel}" in names, rel
     for rel in ("examples_torch/serve_balanced.py",
                 "examples_torch/schedule_cluster.py",
@@ -223,3 +228,34 @@ def test_chip_smoke_fails_without_card_or_outside_repo(tmp_path):
         out, _ = proc.communicate(timeout=120)
         assert proc.returncode != 0
         assert out == ""
+
+
+def test_mesh_entry_points_default_to_the_card(monkeypatch):
+    """The mesh layer resolves the device as ``resolve_device`` does:
+    ``make_host_mesh``/``make_production_mesh``, ``jit_train_step`` and
+    ``jit_serve_step`` (whose mesh must lie on the card unless the caller
+    names its device), the map backends' default mesh and both drivers'
+    ``--mesh`` refuse without a card, before any process group starts."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import backends
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.serve.engine import ServeConfig, jit_serve_step
+    from repro_torch.train.train_step import TrainConfig, jit_train_step
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    started = dist.is_initialized()
+
+    class CpuMesh:
+        device_type = "cpu"
+    cfg = get_reduced("llama3_8b")
+    for entry in (make_host_mesh, make_production_mesh,
+                  lambda: jit_train_step(cfg, TrainConfig(), CpuMesh()),
+                  lambda: jit_serve_step(cfg, ServeConfig(1, 8), CpuMesh()),
+                  lambda: backends._default_mesh(None, "pop"),
+                  lambda: train.main(["--reduced", "--mesh", "1x1"]),
+                  lambda: serve.main(["--reduced", "--mesh", "1x1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+    assert dist.is_initialized() == started

@@ -603,8 +603,25 @@ def test_encoder_decoder_cross_attention(ref_models):
 
 
 def test_mesh_refused():
-    """The reference's sharding knobs act through a mesh only; the port
-    refuses one (ROADMAP item 14.5)."""
-    assert ttf.ModelOpts(sp_residual=True).mesh is None
-    with pytest.raises(NotImplementedError, match="14.5"):
-        ttf.ModelOpts(mesh=object())
+    """The reference's sharding knobs construct and change nothing, with
+    or without a mesh: the port's steps have no tensor parallelism for
+    them to act on.  A mesh is taken (ROADMAP item 14.5; the sharded
+    paths: tests/test_torch_mesh.py)."""
+    cfg = tconfigs.get_reduced("llama3_8b")
+    params = tmodels.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 8)))
+    want = ttf.forward_train(params, cfg, tokens,
+                             compute_dtype=torch.float32)
+    x = torch.ones(2, 4, 8)
+    with testing.gloo_world() as mesh:
+        for m in (None, mesh):
+            opts = ttf.ModelOpts(sp_residual=True, gather_once=True,
+                                 bf16_barrier=True, cache_seq_on_model=True,
+                                 mesh=m)
+            assert opts.gathered({"w": x}, None)["w"] is x
+            got = ttf.forward_train(params, cfg, tokens,
+                                    compute_dtype=torch.float32, opts=opts)
+            assert torch.equal(got, want)
+    assert not any(hasattr(ttf.ModelOpts, name)
+                   for name in ("constrain", "unconstrain", "pin"))

@@ -26,7 +26,7 @@ import torch
 from repro.core import pdhg as rpdhg, pop as rpop
 from repro.problems.cluster_scheduling import (GavelProblem as RefGavel,
                                                make_cluster_workload)
-from repro_torch import interop
+from repro_torch import interop, testing
 from repro_torch.core import backends as tback, pdhg as tpdhg
 from repro_torch.core.pdhg import map_arrays
 from repro_torch.problems.cluster_scheduling import GavelProblem
@@ -186,9 +186,16 @@ def test_engine_rule_and_unported_engines(cluster):
     assert eng.name == "fused_structured_full"
     assert eng is tpdhg.fused_structured_full_engine(
         None, *tpdhg._wide_block_plans(lane.structured))
-    for backend in ("shard_map", "pmap"):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            tback.solve_map(ops, km, ktm, FIXED_KW, backend=backend)
+    # the multi-device backends run now (ROADMAP item 14.5): on one rank
+    # and over two "devices" each lane's bits are vmap's
+    want = tback.solve_map(ops, km, ktm, FIXED_KW, backend="vmap")
+    with testing.gloo_world():
+        for backend, opts in (("shard_map", {}),
+                              ("pmap", {"devices": ("cpu", "cpu")})):
+            got = tback.solve_map(ops, km, ktm, FIXED_KW, backend=backend,
+                                  **opts)
+            np.testing.assert_array_equal(got.x, want.x)
+            np.testing.assert_array_equal(got.iterations, want.iterations)
 
 
 def test_single_lane_solve_matches_reference():

@@ -247,12 +247,22 @@ def test_error_feedback_unbiased_over_steps():
 
 
 def test_init_residuals_and_compressed_psum_refusal():
+    """``compressed_psum`` runs over a process group now (ROADMAP item
+    14.5): on a gloo world of one its mean is the rank's own dequantised
+    payload and its residual the local error feedback, tree for tree (four
+    ranks against the reference: tests/test_torch_mesh.py)."""
     params = {"w": torch.ones(4, 3), "b": [torch.ones(2)]}
     res = tcomp.init_residuals(params)
     assert res["w"].shape == (4, 3) and res["b"][0].dtype == torch.float32
     assert float(res["w"].abs().sum()) == 0.0
-    with pytest.raises(NotImplementedError, match="14.5"):
-        tcomp.compressed_psum(params, res, "dp")
+    grads = {"w": torch.linspace(-1, 1, 12).reshape(4, 3),
+             "b": [torch.tensor([0.3, -2.0])]}
+    with testing.gloo_world():
+        mean, new_res = tcomp.compressed_psum(grads, res)
+    for g, m, r in zip(leaves(grads), leaves(mean), leaves(new_res)):
+        q, s, want_r = tcomp.compress_with_feedback(g, torch.zeros_like(g))
+        assert torch.equal(m, tcomp.dequantize_int8(q, s, g.shape))
+        assert torch.equal(r, want_r)
 
 
 # ---------------------------------------------------------------------------
@@ -336,14 +346,32 @@ def test_cross_entropy_matches_reference():
         rtol=1e-6)
 
 
-def test_mesh_paths_refused():
+def test_mesh_paths_refused(monkeypatch):
+    """The mesh paths run now (ROADMAP item 14.5; tests/test_torch_mesh.py):
+    ``jit_train_step`` refuses a mesh off the card unless the caller names
+    its device type, ``unroll_segments`` is the reference's cost probe and
+    changes nothing; a batch that does not split into the microbatches is
+    refused."""
     cfg = tconfigs.get_reduced("llama3_8b")
-    with pytest.raises(NotImplementedError, match="14.5"):
-        tts.make_train_step(cfg, tts.TrainConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="14.5"):
-        tts.jit_train_step(cfg, tts.TrainConfig(), object())
-    with pytest.raises(NotImplementedError, match="14.5"):
-        tts.make_train_step(cfg, tts.TrainConfig(unroll_segments=True))
+
+    class CpuMesh:
+        device_type = "cpu"
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tts.jit_train_step(cfg, tts.TrainConfig(), CpuMesh())
+    with pytest.raises(ValueError, match="lies on 'cpu'"):
+        tts.jit_train_step(cfg, tts.TrainConfig(), CpuMesh(), device="meta")
+    batch = testing.train_batch(cfg, 2, 8, seed=0)
+    runs = []
+    for unroll in (False, True):
+        params = tmodels.init_params(torch.Generator().manual_seed(0), cfg)
+        step = tts.make_train_step(cfg, tts.TrainConfig(
+            compute_dtype="float32", unroll_segments=unroll))
+        params, _, m = step(params, topt.init_state(params), batch)
+        runs.append((float(m["loss"]), list(leaves(params))))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
     step = tts.make_train_step(cfg, tts.TrainConfig(n_microbatches=3))
     params = tmodels.init_params(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(ValueError, match="microbatches"):
