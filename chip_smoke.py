@@ -113,6 +113,23 @@ Phases, each of which must pass:
              truncated and corrupted blobs restored cold; two tenants
              under ``max_resident=1``, the paged-in one a warm hit; the
              lane kernels' counts put back afterwards;
+steady       the main path's steady state under
+             ``repro_torch.analysis.runtime``: the tripwire's own check
+             (a ``.item()`` on the armed thread denied twice under
+             ``torch.cuda.set_sync_debug_mode("warn")``); a fresh
+             16,384-job session warmed through miss, hit and repair, then
+             four warm steps (three hits, a churn repair) each under
+             ``steady_state_guard(max_retraces=0)``: no build, no denied
+             sync, the chunk checks (lane-max iterations over 40, plus the
+             exit test) and the ten readbacks counted, every lane
+             converged, the session's peak device memory; then four
+             tenants in one held round of a 32-lane dispatcher, guarded
+             the same way; ``[steady]`` lines;
+quickstart   ``examples_torch/quickstart.py`` at its default size in a
+             child process: every line checked, the full LP on
+             ``fused_structured_full`` (rows 3-4) and the sessions on
+             ``fused_structured`` (rows 1-2), each kernel launched in the
+             child, the full LP's peak device memory;
 14. async     async serving through ``PopService(dispatch=
              DispatchConfig(max_lanes=32))``: four tenants of the main
              path's size (seeds 0-3) step cold, then drifted, through
@@ -132,6 +149,11 @@ Phases, each of which must pass:
              device busy share;
 15. profile   one more warm step under ``torch.profiler``: device time by
              kernel and the device's busy share;
+steady-profile one more warm step of ``steady``'s session, a profiler
+             session (CUDA activity) around its map step: the CUDA
+             runtime's synchronizing calls it records, less an empty
+             session's (the profiler's own ``cudaDeviceSynchronize``),
+             equal the tripwire's allowed count;
 16. full      the unpartitioned traffic-engineering baseline at 20,000
              demands on the KDL-like topology through ``pop.solve_full_ex``
              (the ``fused_structured_full`` engine): the domain's
@@ -417,6 +439,15 @@ ASYNC_STEP_LIMIT_S = 2.0
 # the kernels on the async path's operators against their plain versions:
 # a conformance-budget solve's x and y (rtol = atol), as balance-kernels
 ASYNC_KERNEL_TOL = 1e-5
+# the steady phase: the solve loop's chunk (pdhg.solve_stacked's
+# check_every), the seed of its churned and drifted instances, and the CUDA
+# runtime calls that block the host (a plain cudaMemcpy* counts too)
+STEADY_CHECK_EVERY = 40
+STEADY_CHURN_SEED = 11
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cuStreamSynchronize",
+              "cuCtxSynchronize", "cuEventSynchronize")
+QUICKSTART = ROOT / "examples_torch" / "quickstart.py"
 # the tuner: build_profile over the generic domains at fast=False (what
 # scripts/tune.py writes by default), a session on the main path's fleet
 # at a 2% quality loss, and a session under tests/test_tuning.py's
@@ -2755,6 +2786,324 @@ def phase_robust(device, insts):
     kernel_mod.CUDA_LAUNCHES.update(saved[1])
 
 
+# --------------------------------------------------------------------------
+# the steady state under the runtime sanitizers, and the quickstart twin
+# --------------------------------------------------------------------------
+
+def _churned(inst, seed: int, next_id: int):
+    """``inst`` with :data:`CHURN` of its jobs replaced by fresh ones under
+    new ids from ``next_id`` on (a warm repair)."""
+    from repro_torch.domains import GavelInstance
+    from repro_torch.problems.cluster_scheduling import make_cluster_workload
+    n = len(inst.job_ids)
+    n_out = max(1, int(round(CHURN * n)))
+    fresh = make_cluster_workload(n_out, num_workers=NUM_WORKERS, seed=seed)
+    keep = np.arange(n_out, n)
+
+    def cat(a, b):
+        return np.concatenate([np.asarray(a)[keep], b])
+    wl = dataclasses.replace(
+        inst.wl, T=cat(inst.wl.T, fresh.T), w=cat(inst.wl.w, fresh.w),
+        z=cat(inst.wl.z, fresh.z),
+        interference=cat(inst.wl.interference, fresh.interference),
+        job_type=cat(inst.wl.job_type, fresh.job_type))
+    ids = np.concatenate([np.asarray(inst.job_ids)[keep],
+                          next_id + np.arange(n_out)])
+    return GavelInstance(wl, job_ids=ids)
+
+
+def _check_steady(tag, stats, verdict, want_verdict, lane_max, calls=1):
+    """The guarded step's own checks: no build, no denied sync, the
+    debug mode armed, the chunk checks one a chunk plus the loop's exit
+    test, ten result fields read back a launch."""
+    check(verdict == want_verdict, f"{tag}: verdict {verdict}, not "
+          f"{want_verdict}")
+    check(stats.builds == 0, f"{tag}: builds {stats.built_names}")
+    check(stats.syncs_denied == 0, f"{tag}: denied {stats.denied_sites}")
+    check(stats.modes == {"cuda"}, f"{tag}: tripwire modes {stats.modes}")
+    check(stats.hot_backend_calls == calls,
+          f"{tag}: {stats.hot_backend_calls} map-backend calls")
+    check(stats.chunk_checks == lane_max // STEADY_CHECK_EVERY + 1,
+          f"{tag}: {stats.chunk_checks} chunk checks for lane-max "
+          f"{lane_max} iterations")
+    check(stats.readbacks == 10 * calls, f"{tag}: {stats.readbacks} "
+          "readbacks")
+
+
+def _runtime_syncs(prof) -> dict:
+    """The CUDA runtime's synchronizing calls a profiler session recorded
+    (a PyTorch device-to-host copy is a ``cudaMemcpyAsync`` and the
+    ``cudaStreamSynchronize`` that waits for it, counted once, at the
+    synchronize; a plain ``cudaMemcpy*`` blocks by itself), with the async
+    copies and kernel launches beside them."""
+    out = {"syncs": 0, "memcpy_async": 0, "launches": 0, "by_name": {}}
+    for e in prof.key_averages():
+        name, n = e.key, e.count
+        if not name.startswith("cu"):
+            continue
+        out["by_name"][name] = n
+        if name in SYNC_CALLS or (name.startswith("cudaMemcpy")
+                                  and "Async" not in name):
+            out["syncs"] += n
+        elif name.startswith("cudaMemcpy"):
+            out["memcpy_async"] += n
+        elif "Launch" in name:
+            out["launches"] += n
+    return out
+
+
+def phase_steady(device, insts):
+    """The main path's steady state under ``repro_torch.analysis.runtime``:
+    the tripwire's own check on the card (a ``.item()`` on the armed
+    thread raises, twice), then a fresh 16,384-job session warmed through
+    its three step types (miss, hit, repair) and four warm steps (three
+    hits and a churn repair), each under ``steady_state_guard(
+    max_retraces=0)``: no build, no denied sync, the allowed syncs split
+    into chunk checks (the lane-max iterations over 40, plus the loop's
+    exit test) and readbacks, and the session's peak device memory.  Then
+    four tenants of the same size in one held round of the dispatcher
+    (rows 1-2 in one 32-lane launch), guarded the same way.  Returns the
+    session and its next warm instance, for ``steady-profile``."""
+    from repro_torch import testing
+    from repro_torch.analysis.runtime import (HostSyncError,
+                                              host_sync_tripwire,
+                                              steady_state_guard)
+    from repro_torch.kernels import structured_pdhg_step as kernel_mod
+    from repro_torch.service import DispatchConfig, PopService
+    saved = (dict(kernel_mod.LAUNCHES), dict(kernel_mod.CUDA_LAUNCHES))
+
+    # a sanitizer that cannot fire proves nothing
+    one = torch.ones(4, device=device)
+    raised = 0
+    with host_sync_tripwire() as st:
+        check(torch.cuda.get_sync_debug_mode() == 1,
+              "the tripwire did not arm the sync debug mode")
+        for _ in range(2):
+            try:
+                one.sum().item()
+            except HostSyncError:
+                raised += 1
+    check(raised == 2 and st.syncs_denied == 2 and st.modes == {"cuda"},
+          f"the tripwire denied {raised} of 2 .item() calls ({st})")
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "the sync debug mode was not restored")
+    log("[steady] tripwire self-check: two .item() on the armed thread "
+        "denied under set_sync_debug_mode('warn'); mode restored")
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    service = PopService(device=device)
+    sess = service.session("steady", insts[0])
+    for inst, want in zip(insts, ("miss", "hit", "repair")):
+        a = sess.step(inst)
+        check(a.plan_cache == want, f"warm-up: {a.plan_cache}, not {want}")
+    churned = _churned(insts[2], STEADY_CHURN_SEED, 2 * N_JOBS)
+    steps = [("hit", _drifted(insts[2], STEADY_CHURN_SEED + 1)),
+             ("hit", _drifted(insts[2], STEADY_CHURN_SEED + 2)),
+             ("repair", churned),
+             ("hit", _drifted(churned, STEADY_CHURN_SEED + 3))]
+    for i, (want, inst) in enumerate(steps):
+        zero_launches(kernel_mod)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with steady_state_guard(max_retraces=0) as st:
+            a = sess.step(inst)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        its = np.asarray(a.raw.iterations)
+        lane_max = int(its.max())
+        row = dict(step=i + 1, verdict=a.plan_cache, builds=st.builds,
+                   syncs_denied=st.syncs_denied,
+                   syncs_allowed=st.syncs_allowed,
+                   chunk_checks=st.chunk_checks, readbacks=st.readbacks,
+                   lane_max_iterations=lane_max,
+                   lane_max_over_40=lane_max / STEADY_CHECK_EVERY,
+                   converged=f"{int(np.asarray(a.raw.converged).sum())}"
+                             f"/{its.size}",
+                   launches=dict(kernel_mod.LAUNCHES), wall_s=wall,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   before_session_gb=base / 1e9)
+        log("[steady] " + json.dumps(row))
+        _check_steady(f"step {i + 1}", st, a.plan_cache, want, lane_max)
+        check(np.asarray(a.raw.converged).all(), f"step {i + 1}: a lane "
+              "did not converge")
+        for name, n in kernel_mod.LAUNCHES.items():
+            check(n > 0, f"step {i + 1}: {name} was not launched")
+
+    session_peak = torch.cuda.max_memory_allocated()
+    log(f"[steady] session peak device memory {session_peak / 1e9:.3f} GB "
+        f"(max_memory_allocated since the session began; "
+        f"{base / 1e9:.3f} GB allocated before it)")
+
+    # the dispatcher: four tenants coalesced into one 32-lane launch
+    tenants = {f"A{s}": testing.session_instances(N_JOBS, NUM_WORKERS, CHURN,
+                                                  seed=s)[:2]
+               for s in range(4)}
+    disp_service = PopService(device=device, dispatch=DispatchConfig(
+        max_lanes=ASYNC_LANES, max_wait_ms=ASYNC_WAIT_MS))
+    try:
+        sessions = {n: disp_service.session(n, pair[0])
+                    for n, pair in tenants.items()}
+        for rnd in range(2):
+            allocs, _, _ = held_round(disp_service, sessions,
+                                      {n: p[rnd] for n, p in tenants.items()})
+            check(all(a.plan_cache == ("miss", "hit")[rnd]
+                      for a in allocs.values()),
+                  f"dispatcher warm-up round {rnd}: "
+                  f"{[a.plan_cache for a in allocs.values()]}")
+        disp = disp_service.dispatcher
+        zero_launches(kernel_mod)
+        before = disp.stats()
+        with steady_state_guard(max_retraces=0) as st:
+            allocs, wall, _ = held_round(
+                disp_service, sessions,
+                {n: _drifted(p[1], STEADY_CHURN_SEED + 10 + i)
+                 for i, (n, p) in enumerate(tenants.items())})
+        d = {k: v - before[k] for k, v in disp.stats().items()
+             if k in ("launches", "coalesced_requests", "lanes",
+                      "group_fallbacks")}
+        lane_max = max(_lane_max(a) for a in allocs.values())
+        conv = np.concatenate([np.asarray(a.raw.converged)
+                               for a in allocs.values()])
+        row = dict(round="coalesced", tenants=len(allocs),
+                   verdicts=[a.plan_cache for a in allocs.values()],
+                   converged=f"{int(conv.sum())}/{conv.size}",
+                   builds=st.builds, syncs_denied=st.syncs_denied,
+                   syncs_allowed=st.syncs_allowed,
+                   chunk_checks=st.chunk_checks, readbacks=st.readbacks,
+                   lane_max_iterations=lane_max,
+                   lane_max_over_40=lane_max / STEADY_CHECK_EVERY,
+                   dispatcher=d, launches=dict(kernel_mod.LAUNCHES),
+                   per_half_step=per_half_step(kernel_mod), wall_s=wall)
+        log("[steady] " + json.dumps(row))
+        _check_steady("coalesced round", st, "hit", "hit", lane_max)
+        check(all(a.plan_cache == "hit" and a.status == "ok"
+                  for a in allocs.values()), "coalesced round: not all hits")
+        check((d["launches"], d["coalesced_requests"], d["lanes"],
+               d["group_fallbacks"]) == (1, 4, ASYNC_LANES, 0),
+              f"coalesced round: dispatcher {d}")
+        for name, n in kernel_mod.LAUNCHES.items():
+            check(n > 0, f"coalesced round: {name} was not launched")
+            check(per_half_step(kernel_mod)[name] == 1,
+                  f"coalesced round: {name} CUDA launches a call")
+    finally:
+        disp_service.close()
+    kernel_mod.LAUNCHES.update(saved[0])
+    kernel_mod.CUDA_LAUNCHES.update(saved[1])
+    return sess, _drifted(churned, STEADY_CHURN_SEED + 4)
+
+
+def phase_steady_profile(sess, inst):
+    """One more warm step of ``steady``'s session (run with the profiled
+    phases: a profiler session slows the host calls of later phases), a
+    profiler session around its map step: the CUDA runtime's
+    synchronizing calls it records, less those of a session around an
+    empty call, equal the tripwire's allowed count."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis.runtime import steady_state_guard
+    from repro_torch.core import backends as backends_mod
+    # the profiler's count of synchronizing runtime calls in the map step:
+    # a profiler session around each map-backend call (outside the
+    # tripwire, whose block it encloses), less what a session around an
+    # empty call records (the profiler's own synchronize at its end)
+    activities = [ProfilerActivity.CUDA]
+    with profile(activities=activities) as empty:
+        pass
+    own = _runtime_syncs(empty)
+    traces = []
+
+    def profiled_call(fn):
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            with profile(activities=activities) as prof:
+                out = fn(*args, **kw)
+            traces.append(prof)
+            return out
+        return run
+
+    torch.cuda.synchronize()
+    with steady_state_guard(max_retraces=0) as st:
+        for name, fn in list(backends_mod.MAP_BACKENDS.items()):
+            backends_mod.MAP_BACKENDS[name] = profiled_call(fn)
+        a = sess.step(inst)
+        torch.cuda.synchronize()
+    lane_max = _lane_max(a)
+    check(len(traces) == 1, f"{len(traces)} profiled map-backend calls")
+    got = _runtime_syncs(traces[0])
+    in_step = got["syncs"] - own["syncs"]
+    log(f"[steady] profiled warm step ({a.plan_cache}, lane-max "
+        f"{lane_max} iterations): CUDA runtime synchronizing calls in the "
+        f"map step {in_step} ({got['syncs']} recorded less the profiler's "
+        f"own {own['syncs']}: {own['by_name']}) against the tripwire's "
+        f"allowed {st.syncs_allowed} ({st.chunk_checks} chunk checks + "
+        f"{st.readbacks} readbacks); cudaMemcpyAsync {got['memcpy_async']}, "
+        f"kernel launches {got['launches']}; by name {got['by_name']}")
+    _check_steady("profiled step", st, a.plan_cache, "hit", lane_max)
+    check(got["launches"] > 0, "the profiler recorded no CUDA runtime "
+          "calls in the map step")
+    check(in_step == st.syncs_allowed,
+          f"the profiler counted {in_step} synchronizing calls, the "
+          f"tripwire {st.syncs_allowed}")
+
+
+def phase_quickstart(device):
+    """``examples_torch/quickstart.py`` at its default size (120 nodes,
+    4,000 demands, 8,000 iterations) in a child process on the card, the
+    lane and full kernels' launch counts read in the child after it: every
+    printed line checked, the full LP on ``fused_structured_full`` (rows
+    3-4 launched), the POP sessions on ``fused_structured`` (rows 1-2),
+    flows finite and positive, the warm re-tick a hit, the skewed split
+    below POP-16's flow; the full LP's peak device memory printed."""
+    code = (
+        "import json, runpy, sys\n"
+        "from repro_torch.kernels import structured_full_pdhg_step as f, "
+        "structured_pdhg_step as l\n"
+        f"sys.argv = [{str(QUICKSTART)!r}]\n"
+        f"runpy.run_path({str(QUICKSTART)!r}, run_name='__main__')\n"
+        "print('launches ' + json.dumps({**l.LAUNCHES, **f.LAUNCHES}))\n")
+    out, wall = _child(["-c", code], "quickstart")
+    flows, peak_gb, launches = check_quickstart(out)
+    log(f"[quickstart] wall {wall:.2f} s (process start included); full LP "
+        f"peak device memory {peak_gb:.3f} GB (max_memory_allocated); "
+        f"flows {flows}; kernel calls {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"quickstart: {name} was not launched")
+    return peak_gb
+
+
+def check_quickstart(out: str):
+    """Every line the quickstart prints, checked: ``(flows, the full LP's
+    peak GB, the kernels' calls)``."""
+    lines = {}
+    for ln in out.splitlines():
+        head = ln.split(":", 1)[0].strip()
+        lines[head] = ln
+    for head in ("full LP", "POP-4", "POP-16", "warm re-tick", "CSPF",
+                 "POP-16 skew", "MoE place"):
+        check(head in lines, f"quickstart printed no '{head}' line")
+
+    def flow(head):
+        v = float(lines[head].split("flow=")[1].split()[0])
+        check(np.isfinite(v) and v > 0, f"{head}: flow {v}")
+        return v
+    full = lines["full LP"]
+    check("engine=fused_structured_full" in full,
+          f"the full LP did not run fused_structured_full: {full}")
+    for head in ("POP-4", "POP-16"):
+        check("engine=fused_structured)" in lines[head], lines[head])
+    flows = {h: flow(h) for h in ("full LP", "POP-4", "POP-16",
+                                  "warm re-tick", "CSPF", "POP-16 skew")}
+    check("plan_cache=hit" in lines["warm re-tick"], lines["warm re-tick"])
+    check(flows["POP-16 skew"] < flows["POP-16"],
+          "the skewed split did not lose flow against POP-16")
+    check("served=" in lines["MoE place"], lines["MoE place"])
+    check("peak=" in full, f"the full LP line gives no peak memory: {full}")
+    peak_gb = float(full.split("peak=")[1].split("GB")[0])
+    launches = json.loads(out.split("launches ", 1)[1].splitlines()[0])
+    return flows, peak_gb, launches
+
+
 def _drifted(inst, seed):
     """``inst`` with every throughput scaled by U(0.97, 1.03): a warm hit."""
     from repro_torch.domains import GavelInstance
@@ -4266,8 +4615,11 @@ def main() -> int:
         phase("tune", phase_tune, device, insts, allocs)
         moe_sess, moe_inst = phase("moe", phase_moe, device)
         phase("robust", phase_robust, device, insts)
+        steady = phase("steady", phase_steady, device, insts)
+        phase("quickstart", phase_quickstart, device)
         phase("async", phase_async, device)
         profiled_ms = phase("profile", phase_profile, sess, insts[2])
+        phase("steady-profile", phase_steady_profile, *steady)
         runs, full_paths = phase("full", phase_full, device, te_arrays)
         gavel_prob = gavel_full_problem()
         full_profiles = phase("profile-full", phase_profile_full, device,

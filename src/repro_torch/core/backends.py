@@ -109,6 +109,10 @@ def register_backend(name: str) -> Callable[[MapBackend], MapBackend]:
     return deco
 
 
+def available_backends() -> tuple:
+    return tuple(MAP_BACKENDS)
+
+
 def get_backend(name: str) -> MapBackend:
     if name not in MAP_BACKENDS:
         raise ValueError(
@@ -158,15 +162,53 @@ def _freeze_kw(solver_kw: dict):
         return tuple(solver_kw.items()), False
 
 
-def _solve_batch(batch, K_mv, KT_mv, solver_kw, engine) -> SolveResult:
+# map solvers built for unhashable keys (each a build that no cache saw)
+UNCACHED_SOLVERS = 0
+
+
+@pdhg._memoized(maxsize=64)
+def _cached_solver(K_mv, KT_mv, kw_items, engine):
+    return _build_solver(K_mv, KT_mv, dict(kw_items), engine)
+
+
+def _build_solver(K_mv, KT_mv, solver_kw: dict, engine: EngineSpec):
     if engine != "matvec" and not isinstance(engine, StepEngine):
         raise ValueError(f"unresolved engine {engine!r} reached a backend; "
                          "go through solve_map or pass a StepEngine")
-    return pdhg.solve_stacked(batch[0], engine=engine, K_mv=K_mv,
-                              KT_mv=KT_mv, warm_x=batch[1],
-                              warm_y=batch[2], **solver_kw)
+
+    def run(batch) -> SolveResult:
+        return pdhg.solve_stacked(batch[0], engine=engine, K_mv=K_mv,
+                                  KT_mv=KT_mv, warm_x=batch[1],
+                                  warm_y=batch[2], **solver_kw)
+    return run
 
 
+def make_map_solver(K_mv, KT_mv, solver_kw: Optional[dict] = None,
+                    engine: EngineSpec = "matvec"):
+    """``fn(batch) -> SolveResult`` for one stacked batch, where ``batch =
+    (ops, warm_x, warm_y)``.  The function is cached on (matvecs,
+    solver_kw, engine) when they hash, as the reference caches its jitted
+    solver (``repro/core/backends.py:_cached_solver``), so equal keys give
+    the same object and a warm re-solve builds nothing; unhashable keys
+    build a fresh function per call.  Every map backend solves through
+    it."""
+    global UNCACHED_SOLVERS
+    solver_kw = dict(solver_kw or {})
+    kw_items, hashable = _freeze_kw(solver_kw)
+    if hashable:
+        try:
+            return _cached_solver(K_mv, KT_mv, kw_items, engine)
+        except TypeError:
+            pass
+    UNCACHED_SOLVERS += 1
+    return _build_solver(K_mv, KT_mv, solver_kw, engine)
+
+
+def _solve_batch(batch, K_mv, KT_mv, solver_kw, engine) -> SolveResult:
+    return make_map_solver(K_mv, KT_mv, solver_kw, engine)(batch)
+
+
+# popcheck: hot
 @register_backend("serial")
 def solve_serial(batch, K_mv, KT_mv, solver_kw,
                  engine: EngineSpec = "matvec") -> SolveResult:
@@ -177,6 +219,7 @@ def solve_serial(batch, K_mv, KT_mv, solver_kw,
     return _concat_results(outs)
 
 
+# popcheck: hot
 @register_backend("vmap")
 def solve_vmap(batch, K_mv, KT_mv, solver_kw,
                engine: EngineSpec = "matvec") -> SolveResult:
@@ -184,6 +227,7 @@ def solve_vmap(batch, K_mv, KT_mv, solver_kw,
     return _solve_batch(batch, K_mv, KT_mv, solver_kw, engine)
 
 
+# popcheck: hot
 @register_backend("chunked_vmap")
 def solve_chunked_vmap(batch, K_mv, KT_mv, solver_kw,
                        engine: EngineSpec = "matvec",
@@ -227,6 +271,7 @@ def _gather_lanes(res: SolveResult, n: int, group, device) -> SolveResult:
     return map_arrays(one, res)
 
 
+# popcheck: hot
 @register_backend("shard_map")
 def solve_shard_map(batch, K_mv, KT_mv, solver_kw,
                     engine: EngineSpec = "matvec", mesh=None,
@@ -263,6 +308,7 @@ def _engine_on(engine: EngineSpec, ops: OperatorLP, K_mv, KT_mv):
     return pdhg.resolve_engine(pdhg.engine_name(engine), ops, K_mv, KT_mv)
 
 
+# popcheck: hot
 @register_backend("pmap")
 def solve_pmap(batch, K_mv, KT_mv, solver_kw,
                engine: EngineSpec = "matvec",
@@ -354,7 +400,10 @@ def _resolve_warm(ops: OperatorLP, warm):
 
 
 def make_batch(ops: OperatorLP, warm=None):
-    """The ``(ops, warm_x, warm_y)`` batch a map backend consumes."""
+    """The ``(ops, warm_x, warm_y)`` batch a map backend consumes (a
+    structured operator's bucket ids checked here, before the map step)."""
+    from ..kernels import ops as kops
+    kops.precheck_structured(ops.structured)
     return (ops, *_resolve_warm(ops, warm))
 
 
@@ -415,6 +464,15 @@ def solve_one_ex(op: OperatorLP, K_mv, KT_mv,
             pdhg.engine_name(engine))
 
 
+def solve_one(op: OperatorLP, K_mv, KT_mv, solver_kw: Optional[dict] = None,
+              backend: str = "auto", engine: EngineSpec = "auto",
+              warm=None, **opts: Any) -> SolveResult:
+    """:func:`solve_one_ex` without the observability tuple."""
+    res, _, _ = solve_one_ex(op, K_mv, KT_mv, solver_kw, backend=backend,
+                             engine=engine, warm=warm, **opts)
+    return res
+
+
 # --------------------------------------------------------------------------
 # cross-tenant coalescing: shared launches over concatenated batches
 # --------------------------------------------------------------------------
@@ -465,8 +523,10 @@ def concat_batches(batches):
     axis into one launch-sized batch (ops through :func:`~repro_torch.core.
     pdhg.concat_stacks`, which pads structured ELL widths across tenants).
     Returns ``(batch, sizes)``; :func:`split_result` undoes it."""
+    from ..kernels import ops as kops
     sizes = tuple(batch_size(b) for b in batches)
     ops = pdhg.concat_stacks([b[0] for b in batches])
+    kops.precheck_structured(ops.structured)
     wx = torch.cat([b[1] for b in batches])
     wy = torch.cat([b[2] for b in batches])
     return (ops, wx, wy), sizes
@@ -494,4 +554,8 @@ def pad_lanes_pow2(batch):
     perturb real ones), so variable group sizes give O(log) distinct lane
     counts.  Returns ``(padded, k)`` with the original k; slice results
     ``[:k]``."""
-    return pad_to_multiple(batch, next_pow2(batch_size(batch)))
+    from ..kernels import ops as kops
+    padded, k = pad_to_multiple(batch, next_pow2(batch_size(batch)))
+    if padded is not batch:
+        kops.precheck_structured(padded[0].structured)
+    return padded, k

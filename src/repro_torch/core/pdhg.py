@@ -428,11 +428,17 @@ class StepEngine(NamedTuple):
     prep: Optional[Callable] = None
 
 
+# every builder made by _memoized, in definition order: the cache misses
+# analysis/runtime.py's retrace_guard counts as builds
+MEMOIZED: list = []
+
+
 def _memoized(maxsize: int) -> Callable:
     """``functools.lru_cache`` whose misses run one at a time: a step engine
     is keyed by its identity (the serving dispatcher shares a launch only
     between tenants whose engines are the same object), and two threads
-    that miss an unlocked cache together would each build their own."""
+    that miss an unlocked cache together would each build their own.  The
+    builder is listed in :data:`MEMOIZED`."""
     def deco(fn: Callable) -> Callable:
         cached = functools.lru_cache(maxsize=maxsize)(fn)
         lock = threading.Lock()
@@ -444,6 +450,7 @@ def _memoized(maxsize: int) -> Callable:
 
         memoized.cache_clear = cached.cache_clear
         memoized.cache_info = cached.cache_info
+        MEMOIZED.append(memoized)
         return memoized
     return deco
 
@@ -874,6 +881,15 @@ def rademacher_probes(iters: int, n_probes: int, n_var: int, n_con: int):
     return [(draw(n_var), draw(n_con)) for _ in range(iters)]
 
 
+def _to_device(a: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``: onto a card through pinned memory, so
+    the copy is queued on the stream without a host sync (a pageable copy
+    waits for it), with the same bits."""
+    if torch.device(device).type != "cuda":
+        return a.to(device)
+    return a.pin_memory().to(device, non_blocking=True)
+
+
 def _equilibrate(engine: StepEngine, op: OperatorLP,
                  iters: int = 2, n_probes: int = 4):
     """Operator-form Ruiz equilibration from matvec probes (Hutchinson);
@@ -884,7 +900,7 @@ def _equilibrate(engine: StepEngine, op: OperatorLP,
     d_c = torch.ones_like(op.c)
     dev = op.c.device
     for vs, us in rademacher_probes(iters, n_probes, n_var, n_con):
-        vs, us = vs.to(dev), us.to(dev)
+        vs, us = _to_device(vs, dev), _to_device(us, dev)
         rows = torch.stack([torch.square(d_r * engine.K(op.data, d_c * v))
                             for v in vs]).mean(dim=0)
         cols = torch.stack([torch.square(d_c * engine.KT(op.data, d_r * u))

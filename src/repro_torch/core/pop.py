@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -444,6 +445,48 @@ def solve_instance(
                 engine=prep.engine, solver_kw=prep.solver_kw,
                 backend_opts=prep.opts, warm=prep.warm)
     return finish_prepared(prep, res, time.perf_counter() - t1)
+
+
+def pop_solve(
+    problem: POPProblem,
+    k: int,
+    *,
+    strategy: str = "random",
+    backend: str = "auto",
+    engine: str = "auto",
+    seed: int = 0,
+    replicate_threshold: Optional[float] = None,
+    partition_idx: Optional[np.ndarray] = None,
+    solver_kw: Optional[dict] = None,
+    backend_opts: Optional[dict] = None,
+    warm: Optional[POPResult] = None,
+    plan: Optional[PopPlan] = None,
+    replan: bool = False,
+    entity_ids: Optional[np.ndarray] = None,
+    device=None,
+) -> POPResult:
+    """DEPRECATED kwarg surface over :func:`solve_instance` (the
+    reference's forwarder): collapse the loose kwargs into a
+    :class:`SolveConfig` + :class:`ExecConfig` (or use a
+    :class:`~repro_torch.service.PopService` session) and call
+    :func:`solve_instance`; results are bit-identical."""
+    warnings.warn(
+        "pop_solve(problem, k, ...) is deprecated: use "
+        "pop.solve_instance(problem, SolveConfig(k=..., strategy=...), "
+        "ExecConfig(...)) or a repro_torch.service.PopService session — "
+        "results are identical when the configs mirror these kwargs (NOTE: "
+        "SolveConfig defaults strategy='stratified'; pop_solve's default "
+        "was 'random')",
+        DeprecationWarning, stacklevel=2)
+    return solve_instance(
+        problem,
+        SolveConfig(k=k, strategy=strategy, seed=seed,
+                    replicate_threshold=replicate_threshold),
+        ExecConfig(backend=backend, engine=engine,
+                   solver_kw=dict(solver_kw or {}),
+                   backend_opts=dict(backend_opts or {})),
+        warm=warm, plan=plan, replan=replan, partition_idx=partition_idx,
+        entity_ids=entity_ids, device=device)
 
 
 @dataclasses.dataclass

@@ -115,6 +115,17 @@ def smatvec_t(s, y):
     return _ref.smatvec_t(s, y)
 
 
+def precheck_structured(s) -> None:
+    """Check a stacked structured operator's bucket ids where the lane
+    kernels will read it (CUDA tensors, a [k] lane axis), so the checks'
+    one device sync falls before the map step rather than inside its first
+    half-step; nothing to do elsewhere."""
+    if s is None or not s.row_idx.is_cuda or s.row_idx.ndim != 3:
+        return
+    from . import structured_pdhg_step as _kernel
+    _kernel.precheck(s)
+
+
 def structured_forward_step(s, x, c, l, u, tau, kty, *, backend=None):
     """(x_new, kx) for a structured operator: the whole k-stack in one
     call (``tau`` is [k])."""

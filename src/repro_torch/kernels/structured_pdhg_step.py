@@ -87,6 +87,8 @@ class Pack:
 _lib = None
 # checked operator sides: id(first tensor) -> Pack
 _packs: dict = {}
+# bucket ids found in range: id(wids) -> ((_version, S), weakref)
+_checked_ids: dict = {}
 
 
 def library() -> ctypes.CDLL:
@@ -122,10 +124,41 @@ def wide_order(wids: torch.Tensor, wval: torch.Tensor, s_len: int):
     return wsort.contiguous(), real.sum(dim=1).to(torch.int32)
 
 
+def _ids_in_range(name, wids: torch.Tensor, s_len: int) -> None:
+    """Raise unless every bucket id of ``wids`` lies in ``[0, s_len)``: one
+    device sync the first time a ``wids`` tensor is seen, none while it
+    lives unmodified (:data:`_checked_ids`, keyed like the packs).  Equal
+    ids tensors are shared by an operator and its equilibrated copy, so
+    :func:`precheck` at the map-step boundary keeps the sync out of the
+    solve."""
+    key = id(wids)
+    seen = _checked_ids.get(key)
+    if seen is not None and seen[0] == (wids._version, s_len):
+        return
+    if wids.numel():
+        lo, hi = torch.stack([wids.min(), wids.max()]).tolist()
+        if lo < 0 or hi >= s_len:
+            raise ValueError(f"{name}: wide bucket ids span [{lo}, {hi}], "
+                             f"outside [0, {s_len})")
+    pop = _checked_ids.pop
+    _checked_ids[key] = ((wids._version, s_len),
+                         weakref.ref(wids, lambda _ref: pop(key, None)))
+
+
+def precheck(s) -> None:
+    """Check both sides' bucket ids of the stacked operator ``s`` now (the
+    one device sync of a new operator), so that the half-steps' packs find
+    them checked."""
+    _ids_in_range("structured_forward_step", s.wrow_ids,
+                  s.row_idx.shape[-1])
+    _ids_in_range("structured_backward_step", s.wcol_ids,
+                  s.col_idx.shape[-1])
+
+
 def _check_side(name, side, v_len):
     """Raise unless ``side`` = (idx, val, widx, wval, wids) is one device's
     contiguous [k, W, S] int32 / f32, [k, Ww, D] int32 / f32 and [k, D]
-    int32 with bucket ids in ``[0, S)`` (one device sync)."""
+    int32 with bucket ids in ``[0, S)`` (:func:`_ids_in_range`)."""
     idx, val, widx, wval, wids = side
     dev = idx.device
     for t, dt in zip(side, (_I, _F, _I, _F, _I)):
@@ -144,11 +177,7 @@ def _check_side(name, side, v_len):
         raise ValueError(
             f"{name}: operand shapes do not fit one side of a stacked "
             f"operator: side {[tuple(a.shape) for a in side]}")
-    if wids.numel():
-        lo, hi = torch.stack([wids.min(), wids.max()]).tolist()
-        if lo < 0 or hi >= idx.shape[2]:
-            raise ValueError(f"{name}: wide bucket ids span [{lo}, {hi}], "
-                             f"outside [0, {idx.shape[2]})")
+    _ids_in_range(name, wids, idx.shape[2])
 
 
 def _dropper(key):

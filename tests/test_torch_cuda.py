@@ -1690,3 +1690,104 @@ def test_cuda_prefetcher_on_mesh(host_mesh):
                     got[k].full_tensor().cpu().numpy(), v)
     finally:
         pre.close()
+
+
+# --------------------------------------------------------------------------
+# the runtime sanitizers on the card (repro_torch.analysis.runtime)
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_tripwire_denies_every_sync_on_the_armed_thread(cuda_device):
+    """Under the sync debug mode a ``.item()`` on the armed thread raises,
+    and so does a second one at the same line: the ``"always"`` filter
+    keeps Python from showing the warning once per location only.  The
+    mode is armed inside the block and restored after it."""
+    from repro_torch.analysis.runtime import HostSyncError, host_sync_tripwire
+    t = torch.ones(4, device=cuda_device)
+    before = torch.cuda.get_sync_debug_mode()
+    raised = 0
+    with host_sync_tripwire() as stats:
+        assert torch.cuda.get_sync_debug_mode() == 1
+        for _ in range(2):
+            try:
+                t.sum().item()
+            except HostSyncError:
+                raised += 1
+    assert raised == 2 and stats.syncs_denied == 2
+    assert stats.modes == {"cuda"}
+    assert torch.cuda.get_sync_debug_mode() == before
+    assert t.sum().item() == 4.0
+
+
+@pytest.mark.cuda
+def test_cuda_tripwire_passes_an_unarmed_thread(cuda_device):
+    """The debug mode is process-wide, the denial is not: another thread's
+    ``.item()`` while the main thread is armed passes."""
+    import threading
+
+    from repro_torch.analysis.runtime import host_sync_tripwire
+    t = torch.ones(4, device=cuda_device)
+    out, errors = [], []
+
+    def other():
+        try:
+            out.append(t.sum().item())
+        except BaseException as e:     # reported below
+            errors.append(e)
+
+    with host_sync_tripwire() as stats:
+        th = threading.Thread(target=other)
+        th.start()
+        th.join()
+    assert not errors and out == [4.0]
+    assert stats.syncs_denied == 0
+
+
+@pytest.mark.cuda
+def test_cuda_warm_session_builds_nothing_and_syncs_by_design(cuda_device):
+    """A small warm Gavel session on the card: four guarded steps (three
+    hits, one churn repair) build nothing and take no denied sync; the
+    syncs the debug mode saw are the chunk checks (one a chunk, plus the
+    loop's exit test) and ten result fields read back a solve."""
+    from repro_torch.analysis.runtime import steady_state_guard
+    from repro_torch.domains import GavelInstance
+    kw = dict(max_iters=400, tol_primal=1e-4, tol_gap=1e-4)
+    sess = PopService(device=cuda_device).session(
+        "fleet", domain="gavel",
+        solve=SolveConfig(k=2, strategy="stratified"),
+        exec=ExecConfig(solver_kw=kw))
+    ids = np.arange(64)
+    for seed in range(3):
+        if seed == 2:
+            ids = np.concatenate([ids[4:], 100 + np.arange(4)])
+        sess.step(GavelInstance(make_cluster_workload(64, seed=seed),
+                                job_ids=ids))
+    lane_max = []
+    with steady_state_guard(max_retraces=0) as stats:
+        for tick in range(3, 7):
+            if tick == 5:
+                ids = np.concatenate([ids[4:], 200 + np.arange(4)])
+            a = sess.step(GavelInstance(make_cluster_workload(64, seed=tick),
+                                        job_ids=ids))
+            assert a.plan_cache == ("repair" if tick == 5 else "hit")
+            lane_max.append(int(np.asarray(a.raw.iterations).max()))
+    assert stats.builds == 0, stats.built_names
+    assert stats.syncs_denied == 0, stats.denied_sites
+    assert stats.modes == {"cuda"} and stats.hot_backend_calls == 4
+    assert stats.chunk_checks == sum(m // 40 + 1 for m in lane_max)
+    assert stats.readbacks == 4 * 10
+
+
+@pytest.mark.cuda
+def test_cuda_pinned_probe_copy_takes_no_sync(cuda_device):
+    """A pageable host tensor copied onto the card synchronizes (the debug
+    mode sees it); the solver's probe copy (``pdhg._to_device``: pinned,
+    non-blocking) does not, and gives the same bits."""
+    from repro_torch.analysis.runtime import HostSyncError, host_sync_tripwire
+    host = torch.randn(4, 257, generator=torch.Generator().manual_seed(2))
+    with host_sync_tripwire() as stats:
+        with pytest.raises(HostSyncError):
+            host.to(cuda_device)
+        got = pdhg._to_device(host, cuda_device)
+    assert stats.syncs_denied == 1
+    assert torch.equal(got.cpu(), host)

@@ -33,12 +33,15 @@ PKG = Path(next(iter(repro_torch.__path__)))
 ROOT = PKG.parents[1]
 SMOKE = ROOT / "chip_smoke.py"
 EXAMPLES = ROOT / "examples_torch"
+# the port's scripts: the popcheck runner and the surface renderer
+SCRIPTS = [ROOT / "scripts" / "popcheck_torch.py",
+           ROOT / "scripts" / "api_surface_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _sources():
     return (sorted(PKG.rglob("*.py")) + sorted(EXAMPLES.glob("*.py"))
-            + [SMOKE])
+            + [SMOKE] + SCRIPTS)
 
 
 def _imported_roots(path: Path):
@@ -73,7 +76,8 @@ def test_new_modules_are_checked():
     substrate (optimizer, compression, train step, data pipeline,
     checkpointer, training driver), the mesh layer (placements, mesh,
     shardings, specs, collective statistics, dry run, roofline, flags
-    harness) and the example twins are among the sources the import
+    harness), the popcheck rules and runtime sanitizers with their two
+    scripts, and the example twins are among the sources the import
     checks walk."""
     names = {str(p.relative_to(ROOT)) for p in _sources()}
     for rel in ("kernels/structured_full_pdhg_step.py", "kernels/build.py",
@@ -99,11 +103,17 @@ def test_new_modules_are_checked():
                 "launch/train.py", "launch/mesh.py", "launch/shardings.py",
                 "launch/specs.py", "launch/hlo_stats.py",
                 "launch/dryrun.py", "launch/roofline.py",
-                "launch/perf.py", "core/placement.py"):
+                "launch/perf.py", "core/placement.py",
+                "analysis/core.py", "analysis/hotpath.py",
+                "analysis/retrace.py", "analysis/contracts.py",
+                "analysis/profiles.py", "analysis/surface.py",
+                "analysis/cuda.py", "analysis/runtime.py"):
         assert f"src/repro_torch/{rel}" in names, rel
     for rel in ("examples_torch/serve_balanced.py",
                 "examples_torch/schedule_cluster.py",
-                "examples_torch/train_e2e.py", "chip_smoke.py"):
+                "examples_torch/train_e2e.py",
+                "examples_torch/quickstart.py", "chip_smoke.py",
+                "scripts/popcheck_torch.py", "scripts/api_surface_torch.py"):
         assert rel in names, rel
 
 
