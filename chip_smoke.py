@@ -230,8 +230,8 @@ steady-profile one more warm step of ``steady``'s session, a profiler
              size against scipy's HiGHS, at the reference test's bounds.
 
 The mesh layer (``torch.distributed`` on an NCCL world of one, the
-("data", "model") mesh of ``make_host_mesh()``) runs in four phases, the
-first three after train-e2e, the last after main:
+("data", "model") mesh of ``make_host_mesh()``) runs in five phases, the
+first four after train-e2e, the last after main:
 
 mesh-train   llama3-8b at full width cut to 8 layers, 2 steps of 8 x 1,024
              tokens (2 microbatches, bf16, remat) through
@@ -251,6 +251,23 @@ mesh-serve   llama3-8b at full width, batch 8, a 2,048-slot cache, a
 mesh-collectives ``compressed_psum`` over NCCL against the local int8
              round trip with error feedback (two rounds, bit for bit);
              mesh-train's checkpoint restored onto the mesh, bit-equal;
+mesh-tp      tensor parallelism across two processes on the one card, a
+             (1, 2) mesh over gloo (NCCL refuses two ranks on one
+             device): llama3-8b at full width in bf16, batch 8, a
+             2,048-slot cache, a 16-token prompt and 16 decode steps,
+             each rank computing its heads, its FFN columns and its vocab
+             block, held against the world-of-one step run first in the
+             same call: the split run is teacher-forced with the world of
+             one's 16 greedy tokens, and every step's logits lie within
+             that step's ``testing.bf16_logit_tol`` of the world of one's
+             (its f32 and bf16 logits from the same tokens); the split
+             run's own greedy token equals the world of one's except
+             where its top two logits lie closer than that tolerance;
+             ms a step of each and each rank's
+             ``max_memory_allocated`` (at most 0.6 of the world of one's);
+             then one f32 train step of llama3-8b cut to 2 layers under
+             ``testing.PARITY_ADAMW`` within 1e-5 of the unsharded step
+             (loss, grad_norm, every parameter block);
 mesh-pop     the main path's three steps through ``PopService`` with
              ``backend="shard_map"`` (the mesh's "data" axis) and
              ``backend="pmap"`` over ``[cuda:0]``: allocations and
@@ -2053,6 +2070,298 @@ def phase_mesh_serve(device):
         f"tokens {runs['mesh'].tokens[0, :8].tolist()}")
     del params
     torch.cuda.empty_cache()
+
+
+MESH_TP_RANKS = 2
+MESH_TP_TOKENS = 16
+MESH_TP_TRAIN_LAYERS, MESH_TP_TRAIN_BATCH, MESH_TP_TRAIN_SEQ = 2, 2, 128
+MESH_TP_TRAIN_TOL = 1e-5
+MESH_TP_PEAK_SHARE = 0.6
+MESH_TP_TIMEOUT_S = 240
+
+
+def _tp_greedy(step, params, cache, prompt, n_tokens: int, forced=None):
+    """``prompt`` prefilled through ``step``, then ``n_tokens - 1`` more
+    steps, each fed the step's own greedy token or, teacher-forced, the
+    tokens ``forced`` [B, n_tokens] (step ``i`` fed ``forced[:, i - 1]``):
+    ``(every step's logits [n_tokens, B, V] f32 on the host, the step's
+    greedy tokens [B, n_tokens], their top-two gaps [B, n_tokens], ms a
+    step by CUDA events)``.  A step's logits are this rank's vocab block
+    where the vocab splits; they are kept on the card and gathered whole
+    over the CPU after the timed steps."""
+    import torch.distributed as dist
+
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    def whole(logits, local_logits):
+        host = local_logits.cpu()
+        if not hasattr(logits, "to_local") or not dist.is_initialized() \
+                or dist.get_world_size() == 1 or not any(
+                    p.is_shard() for p in logits.placements):
+            return host
+        parts = [torch.empty_like(host)
+                 for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, host)
+        return torch.cat(parts, dim=-1)
+
+    for t in range(prompt.shape[1] - 1):
+        _, cache, _ = step(params, cache, prompt[:, t:t + 1])
+    tok, cache, logits = step(params, cache, prompt[:, -1:])
+    steps = [(logits, local(logits)[:, -1].float())]
+    toks = [local(tok)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(1, n_tokens):
+        feed = tok if forced is None else forced[:, i - 1:i].to(
+            local(tok).device)
+        tok, cache, logits = step(params, cache, feed)
+        steps.append((logits, local(logits)[:, -1].float()))
+        toks.append(local(tok))
+    end.record()
+    end.synchronize()
+    every = torch.stack([whole(lg, loc) for lg, loc in steps])
+    top = torch.topk(every, 2, dim=-1).values
+    return (every, torch.cat(toks, 1).cpu(), (top[..., 0] - top[..., 1]).t(),
+            start.elapsed_time(end) / (n_tokens - 1))
+
+
+def _tp_serve_one(cfg, device, prompt):
+    """The world-of-one step on this process's card (``make_serve_step``):
+    in bf16 (the serving cast of the draws) its greedy run, with every
+    step's logits, tokens, top-two gaps, ms a step and
+    ``max_memory_allocated`` with the weights and the cache in place;
+    then in f32, from the same draws, every step's logits teacher-forced
+    with the bf16 run's tokens (each step's bf16-to-f32 distance)."""
+    from repro_torch import models
+    from repro_torch.serve.engine import ServeConfig, make_serve_step
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        gen = torch.Generator(device).manual_seed(SERVE_SEED)
+        params = models.init_params(gen, cfg)
+        if dtype == "bfloat16":
+            params = models.serving_params(params, torch.bfloat16)
+        scfg = ServeConfig(batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ,
+                           compute_dtype=dtype)
+        cache = models.init_cache(cfg, SERVE_BATCH, SERVE_MAX_SEQ,
+                                  kv_dtype=scfg.dtype, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        step = make_serve_step(cfg, scfg, with_logits=True)
+        forced = None if dtype == "bfloat16" else out["bfloat16"][1]
+        with torch.no_grad():
+            out[dtype] = _tp_greedy(step, params, cache, prompt,
+                                    MESH_TP_TOKENS, forced)
+        out[dtype + "_peak"] = torch.cuda.max_memory_allocated(device)
+        del cache, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_train(cfg, device, mesh):
+    """One f32 step of ``cfg`` unsharded and through ``jit_train_step`` on
+    ``mesh`` from the same draws and batch: ``(loss and grad_norm of
+    each, largest difference of this rank's parameter blocks)``."""
+    from repro_torch import models, testing
+    from repro_torch.core import placement as pl
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import (TrainConfig, init_placed_state,
+                                              jit_train_step,
+                                              make_train_step, place_params)
+    tcfg = TrainConfig(n_microbatches=1, compute_dtype="float32",
+                       adamw=opt_mod.AdamWConfig(**testing.PARITY_ADAMW))
+    batch = testing.train_batch(cfg, MESH_TP_TRAIN_BATCH, MESH_TP_TRAIN_SEQ,
+                                seed=TRAIN_SEED, device=device)
+
+    def draw():
+        return models.init_params(
+            torch.Generator(device).manual_seed(TRAIN_SEED), cfg)
+
+    import torch.distributed as dist
+    # the unsharded steps one rank at a time (each holds 16 B a parameter)
+    for rank in range(dist.get_world_size()):
+        if rank == dist.get_rank():
+            params = draw()
+            params, opt, plain = make_train_step(cfg, tcfg)(
+                params, opt_mod.init_state(params), batch)
+            plain = {k: float(v) for k, v in plain.items()}
+            del opt
+            torch.cuda.empty_cache()
+        dist.barrier()
+    placed = place_params(draw(), mesh)
+    placed, opt, got = jit_train_step(cfg, tcfg, mesh, device=device)(
+        placed, init_placed_state(placed), batch)
+    got = {k: float(v) for k, v in got.items()}
+    diff = max(float((b.to_local() - pl.local_slice(
+        w, b.placements, mesh)).abs().max())
+        for b, w in zip(models.transformer.leaves(placed),
+                        models.transformer.leaves(params)))
+    return got, plain, diff
+
+
+def mesh_tp_rank(rank: int, store: str, out_path: str,
+                 device=torch.device("cuda", 0)) -> None:
+    """One rank of the mesh-tp phase (``python chip_smoke.py --mesh-tp-rank
+    RANK STORE OUT``): a gloo group of MESH_TP_RANKS processes on card 0
+    and the (1, MESH_TP_RANKS) ("data", "model") mesh over it.  Rank 0
+    runs the world-of-one step first while the other ranks wait; then
+    every rank serves, teacher-forced with the world of one's tokens,
+    and trains through the split steps.  Rank 0
+    writes the report to ``out_path``."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import (ServeConfig, jit_serve_step,
+                                          place_cache)
+    from repro_torch import models
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", store=dist.FileStore(store,
+                                                         MESH_TP_RANKS),
+                            rank=rank, world_size=MESH_TP_RANKS,
+                            timeout=timedelta(seconds=MESH_TP_TIMEOUT_S))
+    mesh = init_device_mesh(device.type, (1, MESH_TP_RANKS),
+                            mesh_dim_names=("data", "model"))
+    cfg = get_config(SERVE_ARCH)
+    prompt = serve.random_prompt(cfg, SERVE_BATCH, MESH_SERVE_PROMPT,
+                                 SERVE_SEED, device)
+    report = {}
+    if rank == 0:
+        report["one"] = _tp_serve_one(cfg, device, prompt)
+    # the split run is teacher-forced with the world of one's tokens
+    box = [report["one"]["bfloat16"][1] if rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    params = serve.build_params(cfg, SERVE_SEED, device, mesh=mesh)
+    scfg = ServeConfig(batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ)
+    cache = place_cache(models.init_cache(cfg, SERVE_BATCH, SERVE_MAX_SEQ,
+                                          kv_dtype=scfg.dtype,
+                                          device=device),
+                        SERVE_BATCH, mesh, scfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    step = jit_serve_step(cfg, scfg, mesh, device=device.type,
+                          with_logits=True)
+    with torch.no_grad():
+        tp = _tp_greedy(step, params, cache, prompt, MESH_TP_TOKENS,
+                         forced=box[0])
+    peak = torch.cuda.max_memory_allocated(device)
+    local_bytes = sum(t.to_local().numel() * t.to_local().element_size()
+                      for t in models.transformer.leaves(params))
+    del params, cache, step
+    torch.cuda.empty_cache()
+    peaks = [None] * MESH_TP_RANKS
+    dist.all_gather_object(peaks, (peak, local_bytes))
+    train = _tp_train(cut_depth(get_config(TRAIN_ARCH), MESH_TP_TRAIN_LAYERS),
+                      device, mesh)
+    trains = [None] * MESH_TP_RANKS
+    dist.all_gather_object(trains, train)
+    if rank == 0:
+        report.update(tp=tp, peaks=peaks, trains=trains)
+        torch.save(report, out_path)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_mesh_tp(device):
+    """Tensor parallelism on the card: MESH_TP_RANKS processes (this file
+    with ``--mesh-tp-rank``) on card 0 over gloo; see the module
+    docstring's ``mesh-tp``."""
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    log(f"[mesh-tp] this process holds {held:.3f} GB "
+        f"({torch.cuda.memory_reserved() / 1e9:.3f} GB reserved) of the "
+        "card beside the two ranks")
+    work = ROOT / "build" / "mesh_tp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = work / "report.pt"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-tp-rank",
+         str(r), str(work / "store"), str(out)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MESH_TP_RANKS)]
+    try:
+        logs = [p.communicate(timeout=MESH_TP_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"mesh-tp rank {r}: exit {p.returncode}\n"
+              f"{text[-3000:]}")
+    _mesh_tp_verdict(torch.load(out), wall)
+
+
+def _mesh_tp_verdict(rep: dict, wall: float) -> None:
+    """Log and check rank 0's mesh-tp report."""
+    from repro_torch import testing
+    one, tp = rep["one"], rep["tp"]
+    f32, bf16 = one["float32"][0], one["bfloat16"][0]
+    # every step of the split run, teacher-forced with the world of one's
+    # tokens, against the world of one's bf16 logits at that step, within
+    # the step's testing.bf16_logit_tol (its f32 logits from the same
+    # tokens)
+    tols = [testing.bf16_logit_tol(f, b) for f, b in zip(f32, bf16)]
+    diffs = [float((t - b).abs().max()) for t, b in zip(tp[0], bf16)]
+    # the split run's own greedy token at a step may differ from the
+    # world of one's only where the world of one's top two logits lie
+    # closer than that step's tolerance
+    want_toks, gaps = one["bfloat16"][1], one["bfloat16"][2]
+    differ = want_toks != tp[1]
+    at = differ.nonzero().tolist()
+    wide = [(b, i) for b, i in at if float(gaps[b, i]) > tols[i]]
+    gap = max((round(float(gaps[b, i]), 4) for b, i in at), default=None)
+    one_peak = one["bfloat16_peak"]
+    log(f"[mesh-tp] {MESH_TP_RANKS} processes on card 0 over gloo, a (1, "
+        f"{MESH_TP_RANKS}) mesh; llama3-8b full width bf16, batch "
+        f"{SERVE_BATCH}, a {SERVE_MAX_SEQ}-slot cache, "
+        f"{MESH_SERVE_PROMPT}-token prompt, {MESH_TP_TOKENS} steps "
+        "teacher-forced with the world of one's greedy tokens")
+    log(f"[mesh-tp] each step's logits against the world of one's: "
+        f"largest difference {[round(d, 4) for d in diffs]}; "
+        f"testing.bf16_logit_tol {[round(t, 4) for t in tols]}")
+    log(f"[mesh-tp] the split run's own greedy tokens: {int(differ.sum())} "
+        f"of {differ.numel()} differ from the world of one's, the largest "
+        f"top-two gap there {gap}")
+    log(f"[mesh-tp] ms a decode step: split {tp[3]:.3f} (each rank's "
+        f"collectives over gloo through the host), world of one "
+        f"{one['bfloat16'][3]:.3f}; max_memory_allocated a rank "
+        f"{[round(p / 1e9, 3) for p, _ in rep['peaks']]} GB (weights "
+        f"{[round(b / 1e9, 3) for _, b in rep['peaks']]} GB) against the "
+        f"world of one's {one_peak / 1e9:.3f} GB")
+    for i, (d, t) in enumerate(zip(diffs, tols)):
+        check(d <= t, f"mesh-tp step {i}: logits off the world of one's "
+              f"by {d} (tolerance {t})")
+    check(not wide, f"mesh-tp: greedy tokens differ at (row, step) {wide}, "
+          "where the top two logits are further apart than the tolerance")
+    for r, (peak, _) in enumerate(rep["peaks"]):
+        check(peak <= MESH_TP_PEAK_SHARE * one_peak,
+              f"mesh-tp rank {r}: peak {peak} above "
+              f"{MESH_TP_PEAK_SHARE} of {one_peak}")
+    for r, (got, plain, pdiff) in enumerate(rep["trains"]):
+        log(f"[mesh-tp] train rank {r}: loss {got['loss']:.7f} (unsharded "
+            f"{plain['loss']:.7f}), grad_norm {got['grad_norm']:.7f} "
+            f"({plain['grad_norm']:.7f}), largest parameter difference "
+            f"{pdiff:.3g}")
+        for k in ("loss", "grad_norm"):
+            check(abs(got[k] - plain[k]) <= MESH_TP_TRAIN_TOL * abs(plain[k]),
+                  f"mesh-tp train rank {r}: {k} {got[k]} against "
+                  f"{plain[k]}")
+        check(pdiff <= MESH_TP_TRAIN_TOL,
+              f"mesh-tp train rank {r}: parameters off by {pdiff}")
+    log(f"[mesh-tp] wall {wall:.1f} s (two processes, world of one and "
+        f"split runs); card {card_line()}")
 
 
 def phase_mesh_collectives(device, ckpt):
@@ -4604,6 +4913,7 @@ def main() -> int:
         phase("train-e2e", phase_train_e2e, device)
         ckpt = phase("mesh-train", phase_mesh_train, device, card)
         phase("mesh-serve", phase_mesh_serve, device)
+        phase("mesh-tp", phase_mesh_tp, device)
         phase("mesh-collectives", phase_mesh_collectives, device, ckpt)
         records, lane_case = phase("kernels", phase_kernels, device)
         te_arrays = phase("te-instance", testing.traffic_arrays, TE_DEMANDS)
@@ -4677,4 +4987,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-tp-rank"]:
+        mesh_tp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -256,41 +256,281 @@ def full_tree(tree):
 
 
 # ---------------------------------------------------------------------------
-# gathers
+# gathers of activations
 # ---------------------------------------------------------------------------
 
 def gather(local: torch.Tensor, places, mesh) -> torch.Tensor:
     """The global tensor from this rank's block: an all-gather over each
     sharded mesh dim, innermost first.  A mesh dim of one rank gathers
-    nothing, so on a world of one ``local`` itself comes back."""
+    nothing, so on a world of one ``local`` itself comes back.  (Decode
+    attention gathers its outputs' head_dim blocks with it; no parameter
+    is ever gathered.)"""
     for i, d in reversed(shard_dims(places)):
         n = mesh.size(i)
         if n == 1:
             continue
-        src = local.movedim(d, 0).contiguous()
-        out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
-        dist.all_gather_into_tensor(out, src, group=mesh.get_group(i))
-        local = out.movedim(0, d)
+        local = _all_gather(local, d, mesh.get_group(i), n)
     return local
 
 
-class Gather(torch.autograd.Function):
-    """:func:`gather` under autograd.  Its backward keeps this rank's block
-    of the gradient: every rank of a sharded mesh dim runs the same data
-    (the batch lies on the data axes only), so their gradients are equal
-    and no collective is needed; the data axes are reduced once a step."""
+# ---------------------------------------------------------------------------
+# the model axis: Megatron's conjugate collectives under autograd
+# ---------------------------------------------------------------------------
+
+def _all_reduce(x, group, op=None):
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def _all_gather(x, dim: int, group, n: int):
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(x, dim: int, group, n: int):
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+def _split(x, dim: int, n: int, rank: int):
+    size = x.shape[dim] // n
+    return x.narrow(dim, rank * size, size)
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward; the gradient summed over the group backward (a
+    replicated tensor entering products that each rank computes a part
+    of)."""
 
     @staticmethod
-    def forward(ctx, local, places, mesh):
-        ctx.places, ctx.mesh = places, mesh
-        return gather(local, places, mesh)
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
 
     @staticmethod
-    def backward(ctx, grad):
-        return local_slice(grad, ctx.places, ctx.mesh), None, None
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.ax.group), None
 
 
-def gather_leaf(local: torch.Tensor, places, mesh) -> torch.Tensor:
-    if all(mesh.size(i) == 1 for i, _ in shard_dims(places)):
-        return local
-    return Gather.apply(local, places, mesh)
+class _Reduce(torch.autograd.Function):
+    """Partial values summed over the group forward; identity backward
+    (the sum is used alike on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        return _all_reduce(x, ax.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Psum(torch.autograd.Function):
+    """Summed over the group both ways: a sum whose every rank's use is
+    partial (a norm's statistics over a split dim)."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return _all_reduce(x, ax.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.ax.group), None
+
+
+class _Gather(torch.autograd.Function):
+    """Blocks along ``dim`` all-gathered forward.  Backward, this rank's
+    block of the gradient: taken as it is where every rank uses the whole
+    alike (``partial=False``), reduce-scattered where each rank's use is a
+    part of the whole's (``partial=True``)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, ax, partial):
+        ctx.dim, ctx.ax, ctx.partial = dim, ax, partial
+        return _all_gather(x, dim, ax.group, ax.size)
+
+    @staticmethod
+    def backward(ctx, g):
+        ax = ctx.ax
+        if ctx.partial:
+            g = _reduce_scatter(g, ctx.dim, ax.group, ax.size)
+        else:
+            g = _split(g, ctx.dim, ax.size, ax.rank).contiguous()
+        return g, None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """This rank's block along ``dim`` forward; the blocks' gradients
+    all-gathered backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return _split(x, dim, ax.size, ax.rank)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.ax.group, ctx.ax.size), \
+            None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Partial values summed over the group and this rank's block along
+    ``dim`` kept forward; the gradient blocks all-gathered backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return _reduce_scatter(x, dim, ax.group, ax.size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.ax.group, ctx.ax.size), \
+            None, None
+
+
+class _Shared(torch.autograd.Function):
+    """Identity forward; the gradient divided by the group's size
+    backward: a whole computation every rank runs alike on a tensor whose
+    gradient is then summed over the group (the sequence-parallel
+    gather's reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.ax.size, None
+
+
+class ModelAxis:
+    """This rank's place on the ``model`` axis of a mesh and the
+    collectives over it, each an autograd function (Megatron's pairs):
+
+    * :meth:`copy` / :meth:`reduce`: enter / leave products that each
+      rank computes a part of (identity / all-reduce forward, all-reduce /
+      identity backward);
+    * :meth:`gather` / :meth:`scatter`: an activation's blocks along a dim
+      gathered / this rank's block kept;
+    * :meth:`reduce_scatter`: partial values summed, this rank's block of
+      a dim kept (the sequence-parallel exit);
+    * :meth:`psum`: a sum used partially on every rank (summed both ways).
+
+    ``sp`` is the sequence-parallel residual: between blocks each rank
+    holds its slice of the sequence.  A block then enters by one
+    all-gather of its norm output (:meth:`enter`) and leaves by a
+    reduce-scatter (:meth:`leave`); without it a block enters by
+    :meth:`copy` and leaves by :meth:`reduce`.
+
+    A replicated parameter that a rank uses for its part of a product
+    (KV heads of a replicated ``wk``, a router feeding split experts)
+    takes a partial gradient; which leaves do is decided by the
+    placements and the layouts alone
+    (``models.transformer.partial_leaves``), and the train step sums
+    their gradients over the axis before AdamW.  A group of one rank is
+    never built: the model code then takes its unsharded path, op for
+    op."""
+
+    def __init__(self, mesh, sp: bool = False):
+        names = axis_names(mesh)
+        i = names.index("model")
+        self.mesh = mesh
+        self.group = mesh.get_group(i)
+        self.size = mesh.size(i)
+        self.rank = mesh.get_coordinate()[i]
+        self.sp = sp
+
+    def __repr__(self):
+        shape = dict(zip(axis_names(self.mesh), self.mesh.shape))
+        return f"the model axis of the mesh {shape} (rank {self.rank})"
+
+    # where a leaf lies
+    def dim(self, places) -> int | None:
+        """The tensor dim that ``places`` shard over ``model``, else
+        None."""
+        if places is None:
+            return None
+        names = axis_names(self.mesh)
+        for i, p in enumerate(places):
+            if names[i] == "model" and p.is_shard():
+                return p.dim
+        return None
+
+    def block(self, size: int) -> tuple:
+        """``(start, length)`` of this rank's block of a dim of ``size``."""
+        if size % self.size:
+            raise ValueError(f"a dim of {size} does not split over a "
+                             f"{self.size}-wide model axis")
+        n = size // self.size
+        return self.rank * n, n
+
+    # collectives
+    def copy(self, x):
+        return _Copy.apply(x, self)
+
+    def reduce(self, x):
+        return _Reduce.apply(x, self)
+
+    def psum(self, x):
+        return _Psum.apply(x, self)
+
+    def amax(self, x):
+        """The maximum over the group (no gradient)."""
+        return _all_reduce(x.detach(), self.group, dist.ReduceOp.MAX)
+
+    def gather(self, x, dim: int, partial: bool = False):
+        return _Gather.apply(x, dim % x.ndim, self, partial)
+
+    def scatter(self, x, dim: int):
+        return _Scatter.apply(x, dim % x.ndim, self)
+
+    def reduce_scatter(self, x, dim: int):
+        return _ReduceScatter.apply(x, dim % x.ndim, self)
+
+    def stack(self, x):
+        """``x`` from every rank, stacked in rank order (no gradient)."""
+        return _all_gather(x.detach().unsqueeze(0), 0, self.group, self.size)
+
+    # blocks
+    def sp_on(self, x) -> bool:
+        """Whether ``x`` ([B, S, ...]) runs sequence-parallel: the flag is
+        on and the sequence splits (decode's one position never does)."""
+        return self.sp and x.shape[1] % self.size == 0
+
+    def enter(self, h, sp: bool):
+        """``(hp, hr)`` from a block's norm output ``h``: ``hp`` for the
+        products each rank computes a part of, ``hr`` for those every rank
+        computes whole.  Under ``sp`` ``h`` is this rank's sequence slice,
+        gathered once for both."""
+        if sp:
+            hp = self.gather(h, 1, partial=True)
+            return hp, _Shared.apply(hp, self)
+        return self.copy(h), h
+
+    def leave(self, y, sp: bool):
+        """A block's partial output summed: whole, or under ``sp`` this
+        rank's sequence slice."""
+        return self.reduce_scatter(y, 1) if sp else self.reduce(y)
+
+    def leave_whole(self, y, sp: bool):
+        """A block's output computed whole on every rank: as it is, or
+        under ``sp`` this rank's sequence slice."""
+        return self.scatter(y, 1) if sp else y
+
+
+def model_axis(mesh, sp: bool = False):
+    """The :class:`ModelAxis` of ``mesh``, or None where it has no
+    ``model`` axis of more than one rank (the unsharded path)."""
+    if mesh is None or "model" not in axis_names(mesh):
+        return None
+    if axis_size(mesh, "model") == 1 or not hasattr(mesh, "get_group"):
+        return None
+    return ModelAxis(mesh, sp)

@@ -10,9 +10,10 @@ once.  Counted per device, on rank 0's own shapes:
 
 * FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` over the step.  The
   port's sharded steps compute on local tensors (each rank's rows of the
-  batch, its parameter blocks gathered whole), so the count is this
-  rank's work, not the global op's (``FlopCounterMode`` over DTensor ops
-  would count the global op);
+  batch and, over ``model``, its share of every split product: its
+  heads, its FFN columns, its vocab block), so the count is this rank's
+  work, not the global op's (``FlopCounterMode`` over DTensor ops would
+  count the global op);
 * bytes: every op's tensor inputs read once and outputs written once
   (views excepted) — an unfused upper bound, as the reference's CPU-backend
   HLO bytes;
@@ -128,10 +129,12 @@ class ByteCounter(TorchDispatchMode):
         return out
 
 
-# the flags that change what a cell runs; the reference's ``sp_residual``,
-# ``bf16_barrier`` and ``gather_once`` do nothing in the port's steps
-# (``models.transformer.ModelOpts``), so they are refused
-FLAGS = ("shard_cache_seq", "cache_seq_on_model", "moe_cf")
+# the flags that change what a cell runs: the serve step's cache layouts,
+# the MoE capacity factor, and the model options of
+# ``models.transformer.ModelOpts`` (a decode step's one position never
+# runs sequence-parallel)
+MODEL_FLAGS = ("sp_residual", "gather_once", "bf16_barrier")
+FLAGS = ("shard_cache_seq", "cache_seq_on_model", "moe_cf") + MODEL_FLAGS
 
 
 def check_flags(flags: dict) -> dict:
@@ -139,8 +142,7 @@ def check_flags(flags: dict) -> dict:
         if k not in FLAGS:
             raise ValueError(
                 f"flag {k!r} is not one the port's steps act on "
-                f"({', '.join(FLAGS)}); the reference's sp_residual, "
-                "bf16_barrier and gather_once change nothing here")
+                f"({', '.join(FLAGS)})")
     return flags
 
 
@@ -157,6 +159,7 @@ def _run(cfg, cell, mesh, n_dp, flags=None, n_micro=None):
     microbatch's counts times ``n_micro``).  ``n_micro`` replaces the
     cell's microbatching policy (``microbatches_for``)."""
     flags = check_flags(flags or {})
+    model_flags = {k: bool(flags[k]) for k in MODEL_FLAGS if k in flags}
     params = place_params(sp.params_shape(cfg), mesh)
     counter = ByteCounter()
     log = CollectiveLog()
@@ -167,7 +170,8 @@ def _run(cfg, cell, mesh, n_dp, flags=None, n_micro=None):
             scale = n_micro or sp.microbatches_for(cell, n_dp)
             micro = dataclasses.replace(
                 cell, global_batch=max(cell.global_batch // scale, n_dp))
-            tcfg = TrainConfig(n_microbatches=1, unroll_segments=True)
+            tcfg = TrainConfig(n_microbatches=1, unroll_segments=True,
+                               **model_flags)
             opt = place_opt_state(sp.opt_shape(sp.params_shape(cfg)), mesh)
             batch = place_batch(sp.batch_specs(cfg, micro), mesh)
             args = (params, opt, batch)
@@ -178,7 +182,8 @@ def _run(cfg, cell, mesh, n_dp, flags=None, n_micro=None):
             batch = place_batch(sp.batch_specs(cfg, cell), mesh)
             batch.pop("labels")
             args = (params, batch)
-            opts = tf.ModelOpts(mesh=mesh, places=pl.places_of(params))
+            opts = tf.ModelOpts(mesh=mesh, places=pl.places_of(params),
+                                **model_flags)
             enc = batch.get("enc_embeddings")
             with log, flop, counter, torch.no_grad():
                 tf.forward_train(

@@ -6,9 +6,10 @@ optimisation flags, as lines comparable before and after — the port of
         --flags cache_seq_on_model
 
 Flags: ``shard_cache_seq``, ``cache_seq_on_model`` (the serve step's
-cache layouts), ``moe_cf=<float>``.  The reference's ``sp_residual``,
-``bf16_barrier`` and ``gather_once`` are refused: the port's steps have
-nothing for them to act on (``models.transformer.ModelOpts``).  Writes
+cache layouts), ``moe_cf=<float>``, and the model options
+``sp_residual``, ``gather_once`` and ``bf16_barrier``
+(``models.transformer.ModelOpts``; a decode step's one position never
+runs sequence-parallel).  Writes
 ``experiments/perf_torch/<arch>__<shape>__<tag>.json``.
 """
 

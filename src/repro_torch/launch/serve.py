@@ -19,7 +19,9 @@ the decode steps are also timed with CUDA events.
 process, or a launcher's world; see ``launch/train.py``): parameters by
 ``param_shardings`` (each rank keeps only its blocks from the moment
 they are drawn), the cache by ``kv_cache_specs``, the tokens on the data
-axes; the prompt is prefilled through the same step.
+axes; each rank computes its share of every product the rules split over
+``model`` (no weight crosses the mesh), and the prompt is prefilled
+through the same step.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
         --batch 8 --max-seq 2048 --prompt 16 --tokens 16 --mesh 1x1

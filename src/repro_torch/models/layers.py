@@ -11,6 +11,11 @@ computed in the compute dtype and each weight is cast where it is used.
 A cast of a tensor already in the compute dtype is free, so serving casts
 its matrices once (``transformer.serving_params``) and every later use
 reads them as they are.
+
+On a mesh the apply functions take this rank's blocks of the leaves:
+:func:`embed` looks up its own vocab rows (``ax``), :func:`mlp` and
+:func:`dense` multiply by whatever block they are given (the caller
+enters and leaves the model axis, ``transformer``).
 """
 
 from __future__ import annotations
@@ -91,7 +96,8 @@ def init_embedding(gen, vocab: int, d: int):
     return {"table": normal(gen, (vocab, d), 0.02)}
 
 
-def embed(p, tokens, compute_dtype=torch.bfloat16):
+def embed(p, tokens, compute_dtype=torch.bfloat16, ax=None, places=None,
+          sp: bool = False):
     """Rows of the table in the compute dtype.  The reference casts the
     whole table and then gathers; gathering first and casting the rows is
     the same result without a table-sized cast every step (the backward
@@ -99,8 +105,29 @@ def embed(p, tokens, compute_dtype=torch.bfloat16):
     in the compute dtype).  ``F.embedding``'s backward adds each row's
     gradients in a fixed order on the CPU and the card, so a step is
     bit-reproducible; indexing's backward (``index_put_`` with
-    accumulate) adds them with atomics on a multi-threaded CPU."""
-    return F.embedding(tokens.long(), p["table"]).to(compute_dtype)
+    accumulate) adds them with atomics on a multi-threaded CPU.
+
+    With ``ax`` (a ``ModelAxis``) and the table's ``places``: a table
+    split on its vocab rows looks up the tokens in this rank's range,
+    writes zeros for the rest and sums over the model axis (each token's
+    row comes from one rank, so the sum is exact); a table split on its
+    columns gathers them.  Under ``sp`` the result is this rank's
+    sequence slice."""
+    if ax is None:
+        return F.embedding(tokens.long(), p["table"]).to(compute_dtype)
+    table = p["table"]
+    d = ax.dim(places["table"])
+    if d == 0:
+        v0, n = ax.block(table.shape[0] * ax.size)
+        ids = tokens.long() - v0
+        inside = (ids >= 0) & (ids < n)
+        x = F.embedding(ids.clamp(0, n - 1), table).to(compute_dtype)
+        x = torch.where(inside[..., None], x, x.new_zeros(()))
+        return ax.leave(x, sp)
+    x = F.embedding(tokens.long(), table).to(compute_dtype)
+    if d is not None:
+        x = ax.gather(x, -1)
+    return ax.leave_whole(x, sp)
 
 
 def unembed(p, x):

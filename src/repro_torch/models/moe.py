@@ -11,6 +11,9 @@ activations and sums each expert's normalised gate mass: the demand vector
 of the registered ``moe_placement`` domain.  ``plan_expert_placement``
 places the experts onto devices through that domain (the paper's
 technique, fourth scenario).
+
+On a mesh ``moe`` runs each rank's block of every expert's hidden dim
+(``ax``); the dispatch is the same on every rank.
 """
 
 from __future__ import annotations
@@ -51,20 +54,17 @@ def _route(router, x, top_k: int):
     return gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9), experts
 
 
-def moe(p, x, *, top_k: int, capacity_factor: float = 1.25,
-        activation: str = "silu"):
-    """x: [B, S, D] -> [B, S, D].
-
-    Capacity-bounded top-k dispatch: each expert processes at most
-    ``C = ceil(cf * S * top_k / E)`` tokens a sequence (and never more than
-    ``S``; 1 at decode); a choice past its expert's capacity is dropped.
-    """
+def _routed(p, x, router, *, top_k: int, capacity_factor: float,
+            activation: str):
+    """The routed experts' output for ``x`` with ``router``'s top-k
+    dispatch; the experts' leaves may be this rank's blocks of their
+    hidden dim (the output is then this rank's part of the sum)."""
     B, S, D = x.shape
-    E = p["router"].shape[1]
+    E = router.shape[1]
     C = min(int(np.ceil(capacity_factor * S * top_k / E)), S)
     dt = x.dtype
 
-    gate_vals, experts = _route(p["router"], x, top_k)        # [B,S,k]
+    gate_vals, experts = _route(router, x, top_k)             # [B,S,k]
     # position of each (token, choice) in its expert's queue
     onehot = F.one_hot(experts, E).float()                    # [B,S,k,E]
     flat = onehot.reshape(B, S * top_k, E)
@@ -84,11 +84,56 @@ def moe(p, x, *, top_k: int, capacity_factor: float = 1.25,
     u = torch.einsum("becd,edf->becf", xe, p["w_up"].to(dt))
     ye = torch.einsum("becf,efd->becd", activation_fn(activation)(g) * u,
                       p["w_down"].to(dt))
-    y = torch.einsum("bsec,becd->bsd", combine.to(dt), ye)
+    return torch.einsum("bsec,becd->bsd", combine.to(dt), ye)
 
+
+def moe(p, x, *, top_k: int, capacity_factor: float = 1.25,
+        activation: str = "silu", ax=None, places=None, sp: bool = False):
+    """x: [B, S, D] -> [B, S, D].
+
+    Capacity-bounded top-k dispatch: each expert processes at most
+    ``C = ceil(cf * S * top_k / E)`` tokens a sequence (and never more than
+    ``S``; 1 at decode); a choice past its expert's capacity is dropped.
+
+    With ``ax`` (a ``ModelAxis``) ``x`` is the block's norm output and the
+    experts' (and the shared expert's) leaves this rank's blocks of their
+    hidden dim: the replicated router routes every token alike on every
+    rank (its gradient is then partial), each rank runs its part of
+    every expert, and the output is summed over the model axis once,
+    after the combine.  A part whose hidden dim does not split runs whole
+    on every rank."""
+    kw = dict(top_k=top_k, capacity_factor=capacity_factor,
+              activation=activation)
+    if ax is None:
+        y = _routed(p, x, p["router"], **kw)
+        if "shared" in p:
+            y = y + mlp(p["shared"], x, activation)
+        return y
+    hp, hr = ax.enter(x, sp)
+    split = ax.dim(places["w_gate"]) is not None
+    parts, whole = [], []
+    (parts if split else whole).append(
+        _routed(p, hp if split else hr, p["router"], **kw))
     if "shared" in p:
-        y = y + mlp(p["shared"], x, activation)
-    return y
+        if ax.dim(places["shared"]["w_gate"]) is not None:
+            parts.append(mlp(p["shared"], hp, activation))
+        else:
+            whole.append(mlp(p["shared"], hr, activation))
+    out = [ax.leave(_add(parts), sp)] if parts else []
+    if whole:
+        out.append(ax.leave_whole(_add(whole), sp))
+    return _add(out)
+
+
+def partial_leaves(ax, places) -> frozenset:
+    """The replicated leaves whose gradient is partial on this rank: the
+    router, where it feeds experts split on their hidden dim."""
+    return frozenset({"router"} if ax.dim(places["w_gate"]) is not None
+                     else ())
+
+
+def _add(ts):
+    return ts[0] if len(ts) == 1 else ts[0] + ts[1]
 
 
 def expert_gate_load(p, x, *, top_k: int, device=None) -> np.ndarray:

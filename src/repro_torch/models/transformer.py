@@ -20,6 +20,17 @@ Decode caches are written in place: the KV ring buffers by
 ``attention_decode``, the recurrent states by copying each block's new
 state into its period's slot.  ``init_cache``'s ``kv_dtype`` must match
 the compute dtype (see its docstring).
+
+On a mesh (``ModelOpts(mesh=, places=)``) the parameters are this rank's
+blocks and each block computes its share of every product the rules
+place over ``model`` (tensor parallelism with explicit collectives on
+local tensors, ``core.placement.ModelAxis``): a block's norm output
+enters the model axis once, the column-parallel products (q/k/v heads,
+gate/up, the experts' hidden dim, Mamba2's ``d_inner``, the xLSTM
+columns) run on this rank's block, and the row-parallel output is summed
+once.  No parameter block crosses the mesh; only activations do.  The
+embedding and the logits are vocab-parallel where the table splits on
+its vocab.
 """
 
 from __future__ import annotations
@@ -31,7 +42,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..core.placement import Places, gather_leaf, local_slice, zip_map
+from ..core.placement import Places, model_axis, zip_map
 from ..core.problem import resolve_device
 from . import attention as attn_mod
 from . import moe as moe_mod
@@ -73,19 +84,31 @@ class ModelOpts:
     ``mesh`` with ``places`` (and ``cache_places`` for decode) is the
     port's sharded step: parameters (and cache leaves) come in as this
     rank's blocks, ``places`` holds each leaf's DTensor placements, and
-    the model gathers a period's parameter blocks whole where it uses
-    them (``gathered``; inside the period's ``checkpoint``, so remat
-    gathers them again in the backward).  Attention reads its KV cache
-    block where it lies (``attention.attention_decode(shard=)``).
+    each block computes its share over the mesh's ``model`` axis
+    (``axis``, a ``core.placement.ModelAxis``; None where the axis has
+    one rank, and then every op is the unsharded path's).  Attention
+    reads its KV cache block where it lies
+    (``attention.attention_decode(shard=)``).
 
-    ``sp_residual``, ``gather_once`` and ``bf16_barrier`` are kept so the
-    reference's configurations construct, and do nothing: the port's
-    sharded steps run every op on local tensors (this rank's rows, the
-    parameters gathered whole), where the reference's
-    ``with_sharding_constraint`` has nothing to act on, and eager ops are
-    never re-ordered.  ``launch.perf`` refuses them.
-    ``cache_seq_on_model`` acts where the cache is placed
-    (``kv_cache_specs(seq_on_model=)`` in ``serve.engine.jit_serve_step``).
+    * ``sp_residual``: the residual stream between blocks is this rank's
+      slice of the sequence (where the sequence splits over ``model``; a
+      decode step's one position never does).  The row-parallel outputs
+      are reduce-scattered, the norms run on the slice, and a norm's
+      output is all-gathered before the column-parallel products; the
+      slice is gathered back before ``final_norm``.
+    * ``gather_once``: that all-gather runs once a norm output, for q/k/v
+      or gate/up together.  The port's blocks always gather so (an eager
+      op runs where it is written), so the flag selects what runs anyway.
+    * ``bf16_barrier``: the collectives move the compute dtype.  A norm
+      output is cast to the compute dtype before it enters the model
+      axis, so the flag, too, selects what runs anyway.  The collectives
+      that move f32 are those the math asks for in f32: partial attention
+      scores, the Mamba2 gate norm's sum of squares and the vocab-parallel
+      cross-entropy's statistics.
+    * ``cache_seq_on_model`` acts where the cache is placed
+      (``kv_cache_specs(seq_on_model=)`` in
+      ``serve.engine.jit_serve_step``).
+
     With ``mesh=None`` every knob is a no-op, as in the reference."""
     sp_residual: bool = False
     bf16_barrier: bool = False
@@ -94,14 +117,33 @@ class ModelOpts:
     mesh: object = None
     places: object = None
     cache_places: object = None
+    axis: object = dataclasses.field(default=None, compare=False)
 
-    def gathered(self, tree, places):
-        """``tree``'s blocks gathered whole under ``places`` (a no-op
-        without a mesh or placements)."""
-        if self.mesh is None or places is None:
-            return tree
-        return zip_map(lambda t, pl: gather_leaf(t, pl, self.mesh), tree,
-                       places)
+    def __post_init__(self):
+        if self.axis is None and self.places is not None:
+            object.__setattr__(self, "axis",
+                               model_axis(self.mesh, self.sp_residual))
+
+    def vocab_block(self, cfg) -> Optional[tuple]:
+        """``(start, length)`` of this rank's vocab block of the logits,
+        or None where every rank has them whole."""
+        ax = self.axis
+        if ax is None:
+            return None
+        if cfg.tied_embeddings:
+            split = ax.dim(self.places["embed"]["table"]) == 0
+        else:
+            split = ax.dim(self.places["unembed"]["w"]) == 1
+        return ax.block(cfg.vocab) if split else None
+
+
+def _sub(places, *keys):
+    """``places[k0][k1]...``, None along a missing path."""
+    for k in keys:
+        if places is None:
+            return None
+        places = places.get(k) if isinstance(places, dict) else places[k]
+    return places
 
 
 def _unstacked(places, rows_local: bool = False):
@@ -264,71 +306,94 @@ def _mixer_cache_init(cfg: ArchCfg, bcfg: BlockCfg, batch: int, seq: int,
     return {k: v.expand(periods, *v.shape).clone() for k, v in state.items()}
 
 
-def _mixer_train(p, cfg, bcfg, h, shared_attn_params, window, causal):
+def _mixer_train(p, cfg, bcfg, h, shared_attn_params, window, causal,
+                 ax=None, places=None, shared_places=None, sp=False):
+    kw = dict(ax=ax, places=_sub(places, "mixer"), sp=sp)
     if bcfg.mixer in ("attn", "shared_attn"):
         mp = p["mixer"] if bcfg.mixer == "attn" else shared_attn_params
+        if bcfg.mixer == "shared_attn":
+            kw["places"] = shared_places
         return attn_mod.attention_train(
             mp, h, window=window, softcap=cfg.softcap,
-            rope_theta=cfg.rope_theta, causal=causal)
+            rope_theta=cfg.rope_theta, causal=causal, **kw)
     if bcfg.mixer == "mamba2":
-        return ssm_mod.mamba2_train(p["mixer"], h)
+        return ssm_mod.mamba2_train(p["mixer"], h, **kw)
     if bcfg.mixer == "mlstm":
-        return xlstm_mod.mlstm_train(p["mixer"], h)
-    return xlstm_mod.slstm_train(p["mixer"], h)
+        return xlstm_mod.mlstm_train(p["mixer"], h, **kw)
+    return xlstm_mod.slstm_train(p["mixer"], h, **kw)
 
 
-def _ffn(p, cfg: ArchCfg, bcfg: BlockCfg, x):
+def _ffn(p, cfg: ArchCfg, bcfg: BlockCfg, x, ax=None, places=None,
+         sp=False):
+    if bcfg.ffn == "none":
+        return x
+    h = rmsnorm(p["norm2"], x)
     if bcfg.ffn == "dense":
-        return x + mlp(p["ffn"], rmsnorm(p["norm2"], x), cfg.act)
-    if bcfg.ffn == "moe":
-        return x + moe_mod.moe(p["ffn"], rmsnorm(p["norm2"], x),
-                               top_k=cfg.moe.top_k,
-                               capacity_factor=cfg.moe.capacity_factor,
-                               activation=cfg.act)
-    return x
+        if ax is None:
+            return x + mlp(p["ffn"], h, cfg.act)
+        hp, hr = ax.enter(h, sp)
+        if ax.dim(places["ffn"]["w_gate"]) is None:
+            return x + ax.leave_whole(mlp(p["ffn"], hr, cfg.act), sp)
+        return x + ax.leave(mlp(p["ffn"], hp, cfg.act), sp)
+    return x + moe_mod.moe(p["ffn"], h, top_k=cfg.moe.top_k,
+                           capacity_factor=cfg.moe.capacity_factor,
+                           activation=cfg.act, ax=ax,
+                           places=_sub(places, "ffn"), sp=sp)
 
 
 def _apply_block_train(p, cfg: ArchCfg, bcfg: BlockCfg, x,
-                       shared_attn_params, memory=None, causal=True):
-    window = float(bcfg.window) if bcfg.window else float(x.shape[1] + 1)
+                       shared_attn_params, memory=None, causal=True,
+                       ax=None, places=None, shared_places=None, sp=False):
+    S = x.shape[1] * (ax.size if sp else 1)
+    window = float(bcfg.window) if bcfg.window else float(S + 1)
     h = rmsnorm(p["norm1"], x)
-    x = x + _mixer_train(p, cfg, bcfg, h, shared_attn_params, window, causal)
+    x = x + _mixer_train(p, cfg, bcfg, h, shared_attn_params, window,
+                         causal, ax, places, shared_places, sp)
     if bcfg.cross_attn:
         h = rmsnorm(p["norm_cross"], x)
         x = x + attn_mod.attention_train(
             p["cross"], h, window=float(memory.shape[1] + 1),
             softcap=cfg.softcap, rope_theta=cfg.rope_theta,
-            causal=False, memory=memory)
-    return _ffn(p, cfg, bcfg, x)
+            causal=False, memory=memory, ax=ax,
+            places=_sub(places, "cross"), sp=sp)
+    return _ffn(p, cfg, bcfg, x, ax, places, sp)
 
 
 def _apply_block_decode(p, cfg: ArchCfg, bcfg: BlockCfg, x, cache, pos,
-                        shared_attn_params, memory=None, shard=None):
+                        shared_attn_params, memory=None, shard=None,
+                        ax=None, places=None, shared_places=None,
+                        state_places=None):
     """One block at one position.  A KV cache is written in place (on a
     mesh ``shard`` says where its block lies); a recurrent state comes
-    back new.  Returns ``(x, cache)``."""
+    back new (on a mesh, this rank's block of it).  Returns ``(x,
+    cache)``."""
     window = float(bcfg.window) if bcfg.window else 2.0 ** 31
     h = rmsnorm(p["norm1"], x)
     if bcfg.mixer in ("attn", "shared_attn"):
-        mp = p["mixer"] if bcfg.mixer == "attn" else shared_attn_params
+        if bcfg.mixer == "attn":
+            mp, mpl = p["mixer"], _sub(places, "mixer")
+        else:
+            mp, mpl = shared_attn_params, shared_places
         h, cache = attn_mod.attention_decode(
             mp, h, cache, pos, window=window, softcap=cfg.softcap,
-            rope_theta=cfg.rope_theta, shard=shard)
-    elif bcfg.mixer == "mamba2":
-        h, cache = ssm_mod.mamba2_decode(p["mixer"], h, cache)
-    elif bcfg.mixer == "mlstm":
-        h, cache = xlstm_mod.mlstm_decode(p["mixer"], h, cache)
-    elif bcfg.mixer == "slstm":
-        h, cache = xlstm_mod.slstm_decode(p["mixer"], h, cache)
+            rope_theta=cfg.rope_theta, shard=shard, ax=ax, places=mpl)
+    else:
+        fn = {"mamba2": ssm_mod.mamba2_decode,
+              "mlstm": xlstm_mod.mlstm_decode,
+              "slstm": xlstm_mod.slstm_decode}[bcfg.mixer]
+        h, cache = fn(p["mixer"], h, cache, ax=ax,
+                      places=_sub(places, "mixer"),
+                      state_places=state_places)
     x = x + h
 
     if bcfg.cross_attn:
         h = rmsnorm(p["norm_cross"], x)
         h, _ = attn_mod.attention_decode(
             p["cross"], h, cache=None, pos=pos, window=2.0 ** 31,
-            softcap=cfg.softcap, rope_theta=cfg.rope_theta, memory=memory)
+            softcap=cfg.softcap, rope_theta=cfg.rope_theta, memory=memory,
+            ax=ax, places=_sub(places, "cross"))
         x = x + h
-    return _ffn(p, cfg, bcfg, x), cache
+    return _ffn(p, cfg, bcfg, x, ax, places), cache
 
 
 # ---------------------------------------------------------------------------
@@ -391,20 +456,23 @@ def _periods(tree, n: int) -> list:
 
 def _segment_train(seg_params, cfg: ArchCfg, seg: Segment, x,
                    shared_attn_params, memory=None, causal=True,
-                   remat: bool = True, opts=DEFAULT_OPTS, places=None):
+                   remat: bool = True, ax=None, places=None,
+                   shared_places=None, sp=False):
     """The segment's periods in turn.  With ``remat`` and autograd on, each
     period's blocks run under ``checkpoint``: the backward keeps only the
     period's input and recomputes the rest (no random numbers are drawn,
-    so no generator state is kept).  On a mesh (``places`` the stacked
-    leaves' placements) a period's blocks are gathered inside its
-    checkpoint, so the backward gathers them again."""
+    so no generator state is kept; the recomputation runs the period's
+    collectives again, in the same order on every rank).  On a mesh
+    (``ax``; ``places`` the stacked leaves' placements) each block runs
+    its share on this rank's blocks."""
     period_places = _unstacked(places)
 
     def body(h, pp):
-        pp = opts.gathered(pp, period_places)
         for i, b in enumerate(seg.period):
             h = _apply_block_train(pp[f"b{i}"], cfg, b, h,
-                                   shared_attn_params, memory, causal)
+                                   shared_attn_params, memory, causal, ax,
+                                   _sub(period_places, f"b{i}"),
+                                   shared_places, sp)
         return h
 
     recompute = remat and torch.is_grad_enabled()
@@ -417,32 +485,34 @@ def _segment_train(seg_params, cfg: ArchCfg, seg: Segment, x,
 
 def _segment_decode(seg_params, cfg: ArchCfg, seg: Segment, x, seg_cache,
                     pos, shared_attn_params, memory=None, opts=DEFAULT_OPTS,
-                    places=None, cache_places=None):
+                    places=None, cache_places=None, shared_places=None):
     """The segment's periods in turn, each cache slot written in place.  On
-    a mesh a period's parameter blocks are gathered whole; attention reads
-    and writes its KV cache block where it lies, and a recurrent state's
-    block is gathered whole and this rank's block of the new state copied
-    back."""
+    a mesh each block runs its share on this rank's parameter blocks;
+    attention reads and writes its KV cache block where it lies, and a
+    recurrent state's new block is copied back into its slot."""
+    ax = opts.axis
     period_places = _unstacked(places)
     cache_period = _unstacked(cache_places, rows_local=True)
     for n in range(seg.n_periods):
-        pp = opts.gathered(_period(seg_params, n), period_places)
+        pp = _period(seg_params, n)
         for i, b in enumerate(seg.period):
             stacked = seg_cache[f"b{i}"]
-            c_places = None if cache_period is None else cache_period[f"b{i}"]
+            c_places = _sub(cache_period, f"b{i}")
+            kw = dict(ax=ax, places=_sub(period_places, f"b{i}"),
+                      shared_places=shared_places)
             if isinstance(stacked, KVCache):
                 shard = (None if c_places is None else
                          attn_mod.CacheShard(opts.mesh, c_places.k))
                 x, _ = _apply_block_decode(
                     pp[f"b{i}"], cfg, b, x, _period(stacked, n), pos,
-                    shared_attn_params, memory, shard)
+                    shared_attn_params, memory, shard, **kw)
                 continue
-            state = opts.gathered(_period(stacked, n), c_places)
-            x, c = _apply_block_decode(pp[f"b{i}"], cfg, b, x, state, pos,
-                                       shared_attn_params, memory)
+            x, c = _apply_block_decode(pp[f"b{i}"], cfg, b, x,
+                                       _period(stacked, n), pos,
+                                       shared_attn_params, memory,
+                                       state_places=c_places, **kw)
             for key, v in c.items():
-                stacked[key][n].copy_(v if c_places is None else local_slice(
-                    v, c_places[key], opts.mesh))
+                stacked[key][n].copy_(v)
     return x
 
 
@@ -495,29 +565,32 @@ def init_params(gen: Optional[torch.Generator], cfg: ArchCfg, keep=_whole):
 
 
 def _encode(params, cfg: ArchCfg, enc_embeddings, remat: bool = True,
-            opts=DEFAULT_OPTS, places=None):
-    x = (dense(params["frontend"], enc_embeddings) if cfg.frontend
-         else enc_embeddings)
-    seg_places = (places or {}).get("enc_segments") or [None] * len(
+            opts=DEFAULT_OPTS):
+    ax, places = opts.axis, opts.places
+    x = enc_embeddings
+    if cfg.frontend:
+        x = _dense_whole(params["frontend"], x, ax,
+                         _sub(places, "frontend"))
+    sp = ax is not None and ax.sp_on(x)
+    if sp:
+        x = ax.scatter(x, 1)
+    seg_places = _sub(places, "enc_segments") or [None] * len(
         cfg.enc_segments)
-    for seg_p, seg, sp in zip(params["enc_segments"], cfg.enc_segments,
-                              seg_places):
+    for seg_p, seg, spl in zip(params["enc_segments"], cfg.enc_segments,
+                               seg_places):
         x = _segment_train(seg_p, cfg, seg, x, None, causal=False,
-                           remat=remat, opts=opts, places=sp)
+                           remat=remat, ax=ax, places=spl, sp=sp)
+    if sp:
+        x = ax.gather(x, 1)
     return rmsnorm(params["enc_norm"], x)
 
 
-_STACKED = ("segments", "enc_segments")
-
-
-def _gather_unstacked(params, opts):
-    """``params`` with every leaf outside the stacked segments gathered
-    whole (the embedding, norms, shared attention, frontend); the segments
-    are gathered a period at a time where they are used."""
-    if opts.mesh is None or opts.places is None:
-        return params
-    return {k: v if k in _STACKED else opts.gathered(v, opts.places[k])
-            for k, v in params.items()}
+def _dense_whole(p, x, ax, places):
+    """``dense`` whose output every rank needs whole: a ``w`` split on its
+    columns multiplies by this rank's columns and gathers them."""
+    if ax is None or ax.dim(places["w"]) is None:
+        return dense(p, x)
+    return ax.gather(dense(p, ax.copy(x)), -1)
 
 
 def _seg_places(opts, key: str, n: int):
@@ -526,16 +599,39 @@ def _seg_places(opts, key: str, n: int):
     return opts.places[key]
 
 
-def _embed_scaled(params, cfg: ArchCfg, tokens, compute_dtype):
-    x = embed(params["embed"], tokens, compute_dtype)
+def _embed_scaled(params, cfg: ArchCfg, tokens, compute_dtype, ax=None,
+                  places=None, sp=False):
+    x = embed(params["embed"], tokens, compute_dtype, ax=ax,
+              places=_sub(places, "embed"), sp=sp)
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype)
 
 
-def _logits(params, cfg: ArchCfg, x):
-    x = rmsnorm(params["final_norm"], x)
+def _logits(params, cfg: ArchCfg, x, ax=None, places=None, sp=False):
+    """The final norm and the logits: whole, or this rank's vocab block
+    where the table (or ``unembed``) splits on its vocab."""
+    if ax is None:
+        x = rmsnorm(params["final_norm"], x)
+        if cfg.tied_embeddings:
+            return unembed(params["embed"], x)
+        return dense(params["unembed"], x)
     if cfg.tied_embeddings:
-        return unembed(params["embed"], x)
-    return dense(params["unembed"], x)
+        w, d = params["embed"]["table"], ax.dim(places["embed"]["table"])
+        vocab_split, w = d == 0, w.t()
+    else:
+        w, d = params["unembed"]["w"], ax.dim(places["unembed"]["w"])
+        vocab_split = d == 1
+    if vocab_split:
+        if sp:
+            h = rmsnorm(params["final_norm"],
+                        ax.gather(x, 1, partial=True))
+        else:
+            h = ax.copy(rmsnorm(params["final_norm"], x))
+        return torch.matmul(h, w.to(h.dtype))
+    h = rmsnorm(params["final_norm"], ax.gather(x, 1) if sp else x)
+    if d is None:
+        return torch.matmul(h, w.to(h.dtype))
+    # a tied table split on d_model: partial logits summed
+    return ax.reduce(torch.matmul(ax.scatter(h, -1), w.to(h.dtype)))
 
 
 def forward_train(params, cfg: ArchCfg, tokens, enc_embeddings=None,
@@ -548,21 +644,26 @@ def forward_train(params, cfg: ArchCfg, tokens, enc_embeddings=None,
     changes nothing.  ``unroll`` is accepted and changes nothing: the
     reference unrolls its ``lax.scan`` for the dry run's cost probe, and
     the port's period loop is already unrolled Python.  On a mesh
-    (``opts.mesh``/``opts.places``) ``params`` are this rank's blocks."""
+    (``opts.mesh``/``opts.places``) ``params`` are this rank's blocks and
+    the logits this rank's vocab block where the vocab splits
+    (``opts.vocab_block``)."""
     del unroll
-    params = _gather_unstacked(params, opts)
+    ax, places = opts.axis, opts.places
+    sp = ax is not None and ax.sp_on(tokens)
     memory = None
     if cfg.enc_segments:
         memory = _encode(params, cfg, enc_embeddings.to(compute_dtype),
-                         remat=remat, opts=opts, places=opts.places)
-    x = _embed_scaled(params, cfg, tokens, compute_dtype)
+                         remat=remat, opts=opts)
+    x = _embed_scaled(params, cfg, tokens, compute_dtype, ax, places, sp)
     shared = params.get("shared_attn")
-    for seg_p, seg, sp in zip(params["segments"], cfg.segments,
-                              _seg_places(opts, "segments",
-                                          len(cfg.segments))):
+    for seg_p, seg, spl in zip(params["segments"], cfg.segments,
+                               _seg_places(opts, "segments",
+                                           len(cfg.segments))):
         x = _segment_train(seg_p, cfg, seg, x, shared, memory=memory,
-                           remat=remat, opts=opts, places=sp)
-    return _logits(params, cfg, x)
+                           remat=remat, ax=ax, places=spl,
+                           shared_places=_sub(places, "shared_attn"),
+                           sp=sp)
+    return _logits(params, cfg, x, ax, places, sp)
 
 
 def init_cache(cfg: ArchCfg, batch: int, seq: int, kv_dtype=torch.bfloat16,
@@ -592,23 +693,84 @@ def forward_decode(params, cfg: ArchCfg, token, cache, enc_memory=None,
     cache)``; the cache is updated in place and returned with ``pos``
     advanced.  On a mesh (``opts.mesh`` with ``opts.places`` and
     ``opts.cache_places``) ``params`` and the cache are this rank's
-    blocks.  ``unroll`` changes nothing (see ``forward_train``)."""
+    blocks, and the logits this rank's vocab block where the vocab splits
+    (``opts.vocab_block``).  ``unroll`` changes nothing (see
+    ``forward_train``)."""
     del unroll
-    params = _gather_unstacked(params, opts)
-    x = _embed_scaled(params, cfg, token, compute_dtype)
+    ax, places = opts.axis, opts.places
+    x = _embed_scaled(params, cfg, token, compute_dtype, ax, places)
     pos = cache["pos"]
     shared = params.get("shared_attn")
     n = len(cfg.segments)
     cache_places = ([None] * n if opts.cache_places is None
                     else opts.cache_places["seg_caches"])
-    for seg_p, seg, seg_c, sp, cp in zip(
+    for seg_p, seg, seg_c, spl, cp in zip(
             params["segments"], cfg.segments, cache["seg_caches"],
             _seg_places(opts, "segments", n), cache_places):
         x = _segment_decode(seg_p, cfg, seg, x, seg_c, pos, shared,
-                            memory=enc_memory, opts=opts, places=sp,
-                            cache_places=cp)
+                            memory=enc_memory, opts=opts, places=spl,
+                            cache_places=cp,
+                            shared_places=_sub(places, "shared_attn"))
     cache["pos"] = pos + 1
-    return _logits(params, cfg, x), cache
+    return _logits(params, cfg, x, ax, places), cache
+
+
+def partial_leaves(params, cfg: ArchCfg, opts, tokens,
+                   enc_embeddings=None) -> list:
+    """The paths (tuples of keys and list indices) of the replicated
+    leaves whose gradient on this rank is a part of the whole's, in
+    ``forward_train`` on a mesh with these inputs (``params`` this rank's
+    blocks): ``wk``/``wv`` read on the KV heads of this rank's query
+    heads, a router feeding split experts, Mamba2's replicated
+    projections and per-head leaves, mLSTM's ``w_if``, and under
+    ``sp_residual`` the norm scales run on a sequence slice.  Decided by
+    the placements and the layouts each module checks, never by what a
+    forward pass recorded; a train step sums these gradients over
+    ``model`` before AdamW.  Empty without a model axis."""
+    ax, places = opts.axis, opts.places
+    if ax is None:
+        return []
+    out = []
+
+    def add(path, names):
+        out.extend(path + (n,) for n in sorted(names))
+
+    def segments(key, sp):
+        for s, (seg_p, seg) in enumerate(zip(params[key],
+                                             getattr(cfg, key))):
+            pp = _period(seg_p, 0)
+            period_places = _unstacked(places[key][s])
+            for i, b in enumerate(seg.period):
+                path, p = (key, s, f"b{i}"), pp[f"b{i}"]
+                pl = _sub(period_places, f"b{i}")
+                if sp:      # the norms run on this rank's sequence slice
+                    norms = ["norm1"] + ["norm_cross"] * b.cross_attn + \
+                        ["norm2"] * (b.ffn != "none")
+                    out.extend(path + (n, "scale") for n in norms)
+                rule = {"attn": attn_mod.partial_leaves,
+                        "mamba2": ssm_mod.partial_leaves,
+                        "mlstm": xlstm_mod.mlstm_partial_leaves}.get(
+                            b.mixer)
+                if rule is not None:
+                    add(path + ("mixer",),
+                        rule(p["mixer"], ax, _sub(pl, "mixer")))
+                if b.cross_attn:
+                    add(path + ("cross",), attn_mod.partial_leaves(
+                        p["cross"], ax, _sub(pl, "cross")))
+                if b.ffn == "moe":
+                    add(path + ("ffn",),
+                        moe_mod.partial_leaves(ax, _sub(pl, "ffn")))
+
+    if "shared_attn" in params:
+        add(("shared_attn",), attn_mod.partial_leaves(
+            params["shared_attn"], ax, places["shared_attn"]))
+    if cfg.enc_segments:
+        segments("enc_segments", ax.sp_on(enc_embeddings))
+    sp = ax.sp_on(tokens)
+    segments("segments", sp)
+    if sp and opts.vocab_block(cfg) is not None:
+        out.append(("final_norm", "scale"))
+    return out
 
 
 def encode(params, cfg: ArchCfg, enc_embeddings,

@@ -9,11 +9,13 @@ load-balancing MILP is solved through POP (a deprecated door onto a
 :class:`~repro_torch.service.PopService` session).  ``jit_serve_step``
 runs the step on a device mesh: parameters placed by ``param_shardings``,
 the cache by ``kv_cache_specs``, the tokens on the data axes when the
-batch divides them.  Each rank gathers a period's parameter blocks whole
-where it uses them and decodes its own rows; attention reads and writes
-its KV cache block where it lies and gathers only its output
-(``models.attention.attention_decode(shard=)``).  The module docstring
-of ``train/train_step.py`` has the design and its cost.
+batch divides them.  Each rank decodes its own rows and, over the
+``model`` axis, its share of every product (no parameter block crosses
+the mesh); attention reads and writes its KV cache block where it lies
+(``models.attention.attention_decode(shard=)``).  The logits stay split
+on the vocab where the table is, and the greedy token is the best of the
+ranks' local maxima.  The module docstring of ``train/train_step.py`` has
+the design.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ def make_serve_step(cfg: tf.ArchCfg, scfg: ServeConfig, mesh=None,
     (see :func:`jit_serve_step`)."""
     dtype = scfg.dtype
     opts = tf.ModelOpts(mesh=mesh, places=places, cache_places=cache_places)
+    vocab = opts.vocab_block(cfg)
 
     def serve_step(params, cache, token, enc_memory=None):
         logits, cache = tf.forward_decode(params, cfg, token, cache,
@@ -66,10 +69,28 @@ def make_serve_step(cfg: tf.ArchCfg, scfg: ServeConfig, mesh=None,
                                           unroll=scfg.unroll_segments,
                                           opts=opts)
         # greedy next token (sampling plugs in here)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+        if vocab is None:
+            nxt = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+        else:
+            nxt = greedy_over_vocab_blocks(logits[:, -1, :], vocab[0],
+                                           opts.axis)
         return (nxt, cache, logits) if with_logits else (nxt, cache)
 
+    serve_step.opts = opts
     return serve_step
+
+
+def greedy_over_vocab_blocks(logits, v0: int, ax):
+    """``argmax`` over logits split on the vocab: each rank's local maximum
+    and its global index, all-gathered; the best value wins and ties go
+    to the lowest global index, as ``torch.argmax`` breaks them (the
+    ranks hold the vocab in rank order).  logits: ``[B, V_local]`` ->
+    ``[B, 1]``."""
+    idx = torch.argmax(logits, dim=-1)
+    val = torch.gather(logits, -1, idx[:, None])[:, 0]
+    vals, idxs = ax.stack(val), ax.stack(idx + v0)               # [m, B]
+    best = torch.argmax(vals, dim=0)
+    return torch.gather(idxs, 0, best[None])[0][:, None]
 
 
 def _row_places(mesh, scfg: ServeConfig, ndim: int):
@@ -103,7 +124,8 @@ def jit_serve_step(cfg: tf.ArchCfg, scfg: ServeConfig, mesh,
     (global tensors, equal on every rank) are placed on the way in; the
     step returns the next tokens as a DTensor and the same cache
     DTensors, written in place (the reference's donation), and with
-    ``with_logits`` the step's logits as a DTensor too.  The mesh must
+    ``with_logits`` the step's logits as a DTensor too, ``Shard`` on the
+    vocab over ``model`` where the vocab splits.  The mesh must
     lie on the card unless ``device`` names its device type."""
     del params_shape, cache_shape, has_memory
     from torch.distributed.tensor import DTensor
@@ -139,9 +161,14 @@ def jit_serve_step(cfg: tf.ArchCfg, scfg: ServeConfig, mesh,
         nxt = pl.from_local(nxt, t_places, mesh, token.shape)
         if not with_logits:
             return nxt, cache
+        l_places = _row_places(mesh, scfg, 3)
+        if state["fn"].opts.vocab_block(cfg) is not None:
+            from torch.distributed.tensor import Shard
+            l_places = pl.Places(
+                Shard(2) if name == "model" else p
+                for name, p in zip(pl.axis_names(mesh), l_places))
         return nxt, cache, pl.from_local(
-            logits, _row_places(mesh, scfg, 3), mesh,
-            (token.shape[0],) + tuple(logits.shape[1:]))
+            logits, l_places, mesh, (token.shape[0], 1, cfg.vocab))
 
     return step
 

@@ -11,17 +11,18 @@ AdamW then updates the parameters and moments in place.
 On a device mesh (``make_train_step(mesh=)``, ``jit_train_step``) the
 parameters and AdamW's m and v are DTensors placed by the reference's
 ``param_specs`` and the batch by its ``batch_spec`` (rows over the data
-axes).  The step is FSDP-like: each rank keeps its blocks, gathers a
-period's parameters whole where the forward uses them (inside the period's
-``checkpoint``, so remat gathers again in the backward), and runs the
-whole model on its own rows; the gradient of a gathered block is its own
-block (every rank of a ``model`` group runs the same rows), the data axes
-are summed once a step, and AdamW updates each rank's blocks in place.
-The ``model`` axis therefore shards memory, not work: each rank of a
-``model`` group computes the same thing.  The reference shards the work
-too (GSPMD's tensor parallelism); here that waits for DTensor sharding
-rules of every op the models use (``topk`` and the one-hot dispatch of
-``models/moe.py``, ``F.embedding``, the sLSTM loop).
+axes).  Each rank runs its own rows and, over the ``model`` axis, its
+share of every product the rules split (tensor parallelism with explicit
+collectives on local tensors, ``models.transformer``): no parameter block
+crosses the mesh, only activations.  The logits stay split on the vocab
+where the table is, and :func:`cross_entropy` sums their statistics over
+``model`` in f32.  The gradient of a block is its own block; the
+gradient of a replicated leaf that a rank used for its part of a
+product (a replicated ``wk`` read on a rank's KV heads, a router, a norm
+scale on a sequence slice) is partial and is summed over ``model``
+(which leaves these are follows from the placements and the layouts
+alone, ``models.transformer.partial_leaves``); the data axes are summed
+once a step, and AdamW updates each rank's blocks in place.
 """
 
 from __future__ import annotations
@@ -43,30 +44,47 @@ class TrainConfig:
     compute_dtype: str = "bfloat16"
     remat: bool = True
     unroll_segments: bool = False    # the dry run's cost probe (a no-op)
-    # the reference's mesh knobs, which do nothing in the port (see
-    # models.transformer.ModelOpts)
+    # the reference's mesh knobs (models.transformer.ModelOpts); no-ops
+    # without a mesh
     sp_residual: bool = False
     bf16_barrier: bool = False
     gather_once: bool = False
     adamw: opt_mod.AdamWConfig = opt_mod.AdamWConfig()
 
 
-def cross_entropy(logits, labels):
-    """Mean cross-entropy over all positions, in f32."""
+def cross_entropy(logits, labels, ax=None, vocab_block=None):
+    """Mean cross-entropy over all positions, in f32.  With ``vocab_block``
+    (``(start, length)``) ``logits`` are this rank's vocab block: the
+    maximum, the sum of exponentials and the gold logit are summed over
+    the model axis ``ax`` in f32."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(lse - gold)
+    if vocab_block is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return torch.mean(lse - gold)
+    v0, n = vocab_block
+    m = ax.amax(logits.detach().amax(-1))
+    sumexp = ax.reduce(torch.exp(logits - m[..., None]).sum(-1))
+    ids = labels.long() - v0
+    gold = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    gold = ax.reduce(torch.where((ids >= 0) & (ids < n), gold,
+                                 gold.new_zeros(())))
+    return torch.mean(torch.log(sumexp) + m - gold)
 
 
 def make_loss_fn(cfg: tf.ArchCfg, tcfg: TrainConfig, mesh=None,
                  places=None):
     """``loss_fn(params, batch)``: the mean cross-entropy of the batch.
     On a mesh, ``places`` are the parameters' placements and ``params``
-    this rank's blocks (see the module docstring)."""
+    this rank's blocks (see the module docstring); ``loss_fn.opts`` holds
+    the model options."""
     dtype = (torch.bfloat16 if tcfg.compute_dtype == "bfloat16"
              else torch.float32)
-    opts = tf.ModelOpts(mesh=mesh, places=places)
+    opts = tf.ModelOpts(mesh=mesh, places=places,
+                        sp_residual=tcfg.sp_residual,
+                        gather_once=tcfg.gather_once,
+                        bf16_barrier=tcfg.bf16_barrier)
+    vocab = opts.vocab_block(cfg)
 
     def loss_fn(params, batch):
         logits = tf.forward_train(
@@ -74,8 +92,9 @@ def make_loss_fn(cfg: tf.ArchCfg, tcfg: TrainConfig, mesh=None,
             enc_embeddings=batch.get("enc_embeddings"),
             remat=tcfg.remat, compute_dtype=dtype,
             unroll=tcfg.unroll_segments, opts=opts)
-        return cross_entropy(logits, batch["labels"])
+        return cross_entropy(logits, batch["labels"], opts.axis, vocab)
 
+    loss_fn.opts = opts
     return loss_fn
 
 
@@ -197,10 +216,17 @@ def _local(t):
     return t._local_tensor if isinstance(t, DTensor) else t
 
 
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def _sharded_step(cfg: tf.ArchCfg, tcfg: TrainConfig, mesh):
     """The step on DTensor inputs: ``params``, ``opt_state.m``/``.v``
     placed by ``param_specs``, ``opt_state.step`` replicated, the batch
     by ``batch_spec``.  See the module docstring."""
+    import torch.distributed as dist
     from torch.distributed.tensor import DTensor, Replicate
     n_micro = tcfg.n_microbatches
     n_dp = pl.dp_size(mesh)
@@ -213,13 +239,20 @@ def _sharded_step(cfg: tf.ArchCfg, tcfg: TrainConfig, mesh):
                                             state["places"])
         places = state["places"]
         local = pl.local_tree(params)
-        grads, loss = _accumulate(state["loss_fn"], local,
-                                  pl.local_tree(batch), n_micro)
+        local_batch = pl.local_tree(batch)
+        opts = state["loss_fn"].opts
+        partial = tf.partial_leaves(local, cfg, opts, local_batch["tokens"],
+                                    local_batch.get("enc_embeddings"))
+        grads, loss = _accumulate(state["loss_fn"], local, local_batch,
+                                  n_micro)
         _dp_all_reduce(loss, mesh)
         loss /= n_dp
         for g in tf.leaves(grads):
             _dp_all_reduce(g, mesh)
-            if n_micro * n_dp > 1:
+        for path in partial:
+            dist.all_reduce(_at(grads, path), group=opts.axis.group)
+        if n_micro * n_dp > 1:
+            for g in tf.leaves(grads):
                 g.div_(n_micro * n_dp)
         gnorm = sharded_global_norm(grads, places, mesh)
         step = _local(opt_state.step)

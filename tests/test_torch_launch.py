@@ -352,3 +352,19 @@ def test_make_host_mesh_refuses_without_a_card(monkeypatch):
     for entry in (make_host_mesh, make_production_mesh):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry()
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_perf_policy_matches_reference(arch):
+    """``launch.train.perf_policy`` is the reference's rule on the
+    production 16 x 16 mesh: the sequence-parallel residual exactly where
+    an arch has fewer heads than model ranks (gemma3-4b and xlstm-350m
+    here), and no flags without a mesh."""
+    from repro.launch.train import perf_policy as ref_policy
+    from repro_torch.launch.train import perf_policy
+    mesh = MESHES["16x16"]
+    want = ref_policy(rget_config(arch), mesh)
+    got = perf_policy(get_config(arch), mesh)
+    assert got == want
+    assert got["sp_residual"] == (arch in ("gemma3_4b", "xlstm_350m"))
+    assert perf_policy(get_config(arch), None) == {}

@@ -25,6 +25,7 @@ import os
 import pickle
 import subprocess
 import sys
+import time
 import traceback
 
 import numpy as np
@@ -40,7 +41,28 @@ STEP_TOL = 1e-6
 REF_TOL = 1e-4
 PSUM_TOL = 1e-6
 TRAIN_ARCHS = ("llama3_8b", "qwen2_moe_a2_7b")
-SERVE_ARCHS = ("llama3_8b", "zamba2_2_7b", "xlstm_350m")
+# seamless-m4t-medium decodes against its encoder memory (cross-attention
+# on the model axis)
+SERVE_ARCHS = ("llama3_8b", "zamba2_2_7b", "xlstm_350m",
+               "seamless_m4t_medium")
+# tensor parallelism: each arch's train step on both meshes, sp_residual
+# off, and again with it on for three of them (seamless-m4t-medium's
+# encoder stack and cross-attention on sequence slices); held to TP_TOL
+# against the unsharded step (row-parallel sums add in another order) and
+# REF_TOL against the reference's step on its 2 x 2 mesh with the same
+# flags
+TP_ARCHS = ("llama3_8b", "qwen2_moe_a2_7b", "gemma3_4b", "zamba2_2_7b",
+            "xlstm_350m", "seamless_m4t_medium")
+TP_RUNS = tuple((a, False) for a in TP_ARCHS) + (
+    ("gemma3_4b", True), ("llama3_8b", True), ("seamless_m4t_medium", True))
+TP_MESHES = {"2x2": 2, "1x4": 4}
+TP_TOL = 1e-5
+# zamba2's second grad_norm moves by about 1e-5 whenever its sums run in
+# another order: the unsharded step by up to 8.8e-6 between two and four
+# microbatches, and the data-axis split alone (no tensor parallelism) by
+# 1.17e-5 (seed-1 draws of the port); Adam's first update carries the
+# rounding of the smallest gradients into every parameter
+TP_GRAD_NORM_TOL = {"zamba2_2_7b": 2e-5}
 B, S = 4, 8
 SERVE_TOKENS = 6
 SERVE_TOL = 1e-5
@@ -58,6 +80,7 @@ SERVE_LAYOUTS = {
 INIT_PERIODS = 16
 PSUM_SEED = 5
 RUN_TIMEOUT_S = 600
+REF_PARTS = 2
 
 
 def _env(**extra) -> dict:
@@ -77,58 +100,71 @@ import pickle, sys
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 assert len(jax.devices()) == 4, jax.devices()
-B, S, FIXED_KW, PSUM_SEED, ARCHS = pickle.loads(bytes.fromhex(sys.argv[2]))
+B, S, FIXED_KW, PSUM_SEED, ARCHS, RUNS, PART, PARTS = pickle.loads(
+    bytes.fromhex(sys.argv[2]))
 out = {}
 
 from repro.core import backends as rback, pop as rpop
 from repro.problems.cluster_scheduling import GavelProblem, make_cluster_workload
-wl = make_cluster_workload(48, num_workers=(6, 6, 6), seed=3)
-prob = GavelProblem(wl, space_sharing=False)
-ops = rpop.build(prob, rpop.plan(prob, 6, strategy="stratified"))
-fields = {f: np.asarray(getattr(ops, f)) for f in ("c", "q", "l", "u",
-                                                   "ineq_mask")}
-fields["data"] = tuple(np.asarray(a) for a in ops.data)
-fields["structured"] = {f: None if v is None else np.asarray(v)
-                        for f, v in ops.structured._asdict().items()}
-res = rback.solve_map(ops, prob.K_mv, prob.KT_mv, FIXED_KW,
-                      backend="shard_map", engine="fused_structured")
-out["pop"] = dict(fields=fields, x=np.asarray(res.x), y=np.asarray(res.y),
-                  iterations=np.asarray(res.iterations))
-
-from repro.core import compat
-from repro.train import compression as comp
-mesh = Mesh(np.array(jax.devices()), ("dp",))
-G = np.random.default_rng(PSUM_SEED).normal(size=(4, 300)).astype(np.float32)
-
-def f(g, r):
-    m, r2 = comp.compressed_psum({"w": g[0]}, {"w": r[0]}, "dp")
-    return m["w"][None], r2["w"][None]
-
-fn = jax.jit(compat.shard_map(f, mesh=mesh, in_specs=(P("dp"), P("dp")),
-                              out_specs=(P("dp"), P("dp")), check=False))
-r = jnp.zeros_like(G)
-rounds = []
-for i in range(2):
-    m, r = fn(jnp.asarray(G * (i + 1)), r)
-    rounds.append((np.asarray(m), np.asarray(r)))
-out["psum"] = rounds
-
 from repro import configs as rconfigs, models as rmodels
+inits = {arch: jax.tree.map(np.asarray, rmodels.init_params(
+    jax.random.PRNGKey(1), rconfigs.get_reduced(arch)))
+    for arch in sorted(set(ARCHS) | {a for a, _ in RUNS})}
+if PART == 0:
+    wl = make_cluster_workload(48, num_workers=(6, 6, 6), seed=3)
+    prob = GavelProblem(wl, space_sharing=False)
+    ops = rpop.build(prob, rpop.plan(prob, 6, strategy="stratified"))
+    fields = {f: np.asarray(getattr(ops, f)) for f in ("c", "q", "l", "u",
+                                                       "ineq_mask")}
+    fields["data"] = tuple(np.asarray(a) for a in ops.data)
+    fields["structured"] = {f: None if v is None else np.asarray(v)
+                            for f, v in ops.structured._asdict().items()}
+    # what the port's ranks need, written before the steps run: they
+    # start then
+    with open(sys.argv[1] + ".early", "wb") as fh:
+        pickle.dump({"pop": {"fields": fields}, "inits": inits}, fh)
+    res = rback.solve_map(ops, prob.K_mv, prob.KT_mv, FIXED_KW,
+                          backend="shard_map", engine="fused_structured")
+    out["pop"] = dict(fields=fields, x=np.asarray(res.x),
+                      y=np.asarray(res.y),
+                      iterations=np.asarray(res.iterations))
+
+    from repro.core import compat
+    from repro.train import compression as comp
+    mesh = Mesh(np.array(jax.devices()), ("dp",))
+    G = np.random.default_rng(PSUM_SEED).normal(size=(4, 300)).astype(
+        np.float32)
+
+    def f(g, r):
+        m, r2 = comp.compressed_psum({"w": g[0]}, {"w": r[0]}, "dp")
+        return m["w"][None], r2["w"][None]
+
+    fn = jax.jit(compat.shard_map(f, mesh=mesh, in_specs=(P("dp"), P("dp")),
+                                  out_specs=(P("dp"), P("dp")), check=False))
+    r = jnp.zeros_like(G)
+    rounds = []
+    for i in range(2):
+        m, r = fn(jnp.asarray(G * (i + 1)), r)
+        rounds.append((np.asarray(m), np.asarray(r)))
+    out["psum"] = rounds
+
 from repro.train import optimizer as ropt
 from repro.train.train_step import TrainConfig, jit_train_step
 from repro_torch import configs as tconfigs, testing
 # Mesh() keeps the axes "Auto" (jax.make_mesh makes them Explicit, which
 # the reference's with_sharding_constraint refuses)
 mesh = Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
-for arch in ARCHS:
+runs = [(arch, False) for arch in ARCHS] + [
+    r for r in RUNS if r not in [(arch, False) for arch in ARCHS]]
+# the part with the Gavel lanes and the psum takes fewer steps
+for arch, sp in [r for i, r in enumerate(runs) if (i + 1) % PARTS == PART]:
     rcfg, tcfg = rconfigs.get_reduced(arch), tconfigs.get_reduced(arch)
-    rp = rmodels.init_params(jax.random.PRNGKey(1), rcfg)
-    init = jax.tree.map(np.asarray, rp)
+    rp = jax.tree.map(jnp.asarray, inits[arch])   # the step donates it
     batches = [{k: jnp.asarray(v.numpy()) for k, v in
                 testing.train_batch(tcfg, B, S, seed=s).items()}
                for s in (0, 1)]
     step = jit_train_step(rcfg, TrainConfig(
-        n_microbatches=2, compute_dtype="float32",
+        n_microbatches=2, compute_dtype="float32", sp_residual=sp,
         adamw=ropt.AdamWConfig(**testing.PARITY_ADAMW)), mesh,
         jax.eval_shape(lambda: rp), jax.eval_shape(lambda: batches[0]))
     ro = ropt.init_state(rp)
@@ -136,9 +172,11 @@ for arch in ARCHS:
     for b in batches:
         rp, ro, m = step(rp, ro, b)
         metrics.append({k: float(v) for k, v in m.items()})
-    out[arch] = dict(init=init, final=jax.tree.map(np.asarray, rp),
-                     metrics=metrics)
-with open(sys.argv[1], "wb") as fh:
+    out[(arch, sp)] = dict(final=jax.tree.map(np.asarray, rp),
+                           metrics=metrics)
+    if not sp and arch in ARCHS:
+        out[arch] = out[(arch, sp)]
+with open(sys.argv[1] + f".part{PART}", "wb") as fh:
     pickle.dump(out, fh)
 """
 
@@ -238,7 +276,7 @@ def case_train(rank, ref):
         out["cpu_refused"] = True
     for arch in TRAIN_ARCHS:
         cfg = tconfigs.get_reduced(arch)
-        init = ref[arch]["init"]
+        init = ref["inits"][arch]
         batches = [testing.train_batch(cfg, B, S, seed=s) for s in (0, 1)]
         runs = {}
         for name in ("plain", "mesh"):
@@ -275,18 +313,30 @@ def _leaves(tree):
     return list(leaves(tree))
 
 
+def _enc_memory(cfg):
+    """Six frames of seeded encoder memory for an encoder-decoder config,
+    else None."""
+    if not cfg.enc_segments:
+        return None
+    return torch.as_tensor(np.random.default_rng(4).normal(
+        0, 1, (B, 6, cfg.d_model)).astype(np.float32))
+
+
 def _serve_pair(cfg, scfg, mesh, first):
     """SERVE_TOKENS greedy tokens (f32) unsharded and through
     ``jit_serve_step`` on ``mesh`` from the same parameters and first
     token: the tokens and the last step's logits of each, the mesh
-    cache's placements, and what the mesh's last step sent over the mesh
-    beside its parameter gathers."""
+    cache's placements, and what the mesh's last step sent over the
+    mesh."""
     from repro_torch import models
-    from repro_torch.launch.hlo_stats import CollectiveLog, collective_bytes
+    from repro_torch.launch.hlo_stats import (CollectiveLog,
+                                              collective_bytes,
+                                              collective_kind)
     from repro_torch.serve.engine import (jit_serve_step, make_serve_step,
                                           place_cache)
     from repro_torch.train.train_step import place_params
     out = {}
+    memory = _enc_memory(cfg)
     for name in ("plain", "mesh"):
         params = models.init_params(torch.Generator().manual_seed(0), cfg)
         cache = models.init_cache(cfg, B, scfg.max_seq,
@@ -302,7 +352,7 @@ def _serve_pair(cfg, scfg, mesh, first):
         for i in range(SERVE_TOKENS):
             log = CollectiveLog()
             with log:
-                tok, cache, logits = step(params, cache, tok)
+                tok, cache, logits = step(params, cache, tok, memory)
             if name == "mesh":
                 tok, logits = tok.full_tensor(), logits.full_tensor()
             got.append(tok)
@@ -315,36 +365,163 @@ def _serve_pair(cfg, scfg, mesh, first):
                 tuple(repr(x) for x in leaf.placements)
                 for leaf in _leaves(cache["seg_caches"])})
             out["kv_bytes"] = sum(t.numel() * t.element_size() for t in kv)
-            # each parameter block is gathered whole once a step
-            gathered = sum(t.numel() * t.element_size()
-                           for t in _leaves(params)
-                           if any(p.is_shard() for p in t.placements))
-            out["other_collective_bytes"] = \
-                collective_bytes(log)["total"] - gathered
+            # no parameter block crosses the mesh; beside the sums of the
+            # blocks' row-parallel outputs and the embedding ([rows, 1,
+            # D]) and the greedy token's (value, index) pairs, what a step
+            # sends is attention's
+            d = cfg.d_model
+            kept = [(op, res) for op, res in log.pairs
+                    if not (collective_kind(op) == "all-reduce" and
+                            tuple(res[0].shape[1:]) == (1, d))
+                    and not (collective_kind(op) == "all-gather" and
+                             res[0].ndim == 2)]
+            out["other_collective_bytes"] = collective_bytes(kept)["total"]
     return out
 
 
 def case_serve(rank, ref):
     """Greedy decode on the 2 x 2 mesh against the unsharded step: each
     of SERVE_ARCHS, then llama3-8b with its cache split each way the
-    rules split one (SERVE_LAYOUTS)."""
+    rules split one (SERVE_LAYOUTS); then the same runs on the 1 x 4 mesh
+    (under ``"1x4"``), where llama3-8b's two KV heads do not fill the
+    model axis."""
     import dataclasses
 
     from repro_torch import configs as tconfigs
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.serve.engine import ServeConfig
-    mesh = make_host_mesh(model_parallel=2, device="cpu")
     runs = [(arch, arch, {}, {}) for arch in SERVE_ARCHS] + [
         (name, "llama3_8b", change, opts)
         for name, (change, opts, _) in SERVE_LAYOUTS.items()]
+    out = {"1x4": {}}
+    for model, where in ((2, out), (4, out["1x4"])):
+        mesh = make_host_mesh(model_parallel=model, device="cpu")
+        for name, arch, change, opts in runs:
+            cfg = dataclasses.replace(tconfigs.get_reduced(arch), **change)
+            scfg = ServeConfig(batch=B, max_seq=16, compute_dtype="float32",
+                               **opts)
+            first = torch.as_tensor(np.random.default_rng(3).integers(
+                0, cfg.vocab, (B, 1)))
+            where[name] = _serve_pair(cfg, scfg, mesh, first)
+    return out
+
+
+def case_tp(rank, ref):
+    """Tensor parallelism: each of TP_RUNS (arch, sp_residual) through
+    ``jit_train_step`` on each of TP_MESHES, from the reference's
+    parameters, against the unsharded step (two f32 steps of two
+    microbatches under PARITY_ADAMW): the metrics of both, the largest
+    parameter difference, and on rank 0 the final parameters."""
+    from repro_torch import configs as tconfigs, testing
+    from repro_torch.core import placement as pl
+    from repro_torch.interop import _paths, params_from_numpy
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.train_step import (TrainConfig, jit_train_step,
+                                              make_train_step)
+
+    def run(cfg, tcfg, step):
+        p = params_from_numpy(ref["inits"][arch], cfg, "cpu")
+        o = topt.init_state(p)
+        metrics = []
+        with testing.router_tie_guard():
+            for b in [testing.train_batch(cfg, B, S, seed=s) for s in (0, 1)]:
+                p, o, m = step(p, o, b)
+                metrics.append({k: float(v) for k, v in m.items()})
+        return p, metrics
+
+    out, plain = {}, {}
+    for name, model in TP_MESHES.items():
+        mesh = make_host_mesh(model_parallel=model, device="cpu")
+        for arch, sp in TP_RUNS:
+            cfg = tconfigs.get_reduced(arch)
+            tcfg = TrainConfig(n_microbatches=2, compute_dtype="float32",
+                               sp_residual=sp,
+                               adamw=topt.AdamWConfig(**testing.PARITY_ADAMW))
+            if arch not in plain:
+                plain[arch] = run(cfg, tcfg, make_train_step(cfg, tcfg))
+            p, metrics = run(cfg, tcfg, jit_train_step(cfg, tcfg, mesh,
+                                                       device="cpu"))
+            p = pl.full_tree(p)
+            out[(name, arch, sp)] = dict(
+                metrics=metrics, plain=plain[arch][1],
+                diff=_tree_max_diff(p, plain[arch][0]),
+                final=({k: v.numpy() for k, v in _paths(p).items()}
+                       if rank == 0 else None))
+    return out
+
+
+def case_weights(rank, ref):
+    """What crosses the 1 x 4 mesh: the ``(kind, shape)`` of every
+    collective of each TP_ARCHS train step's forward and backward
+    (``_accumulate``) and of the whole step, and of a serve step of each
+    SERVE_ARCHS; beside them the shapes of every parameter leaf, of one
+    period of a stacked leaf, and of this rank's blocks."""
+    from repro_torch import configs as tconfigs, models, testing
+    from repro_torch.core import placement as pl
+    from repro_torch.launch.hlo_stats import CollectiveLog, collective_kind
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.engine import jit_serve_step, ServeConfig
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.train_step import (TrainConfig, _accumulate,
+                                              jit_train_step, make_loss_fn,
+                                              place_batch, place_params)
+    mesh = make_host_mesh(model_parallel=WORLD, device="cpu")
+
+    def logged(log):
+        return [(collective_kind(op), tuple(t.shape))
+                for op, res in log.pairs for t in res]
+
+    def shapes(cfg, placed):
+        out = set()
+        for t in _leaves(placed):
+            out |= {tuple(t.shape), tuple(t.shape[1:]),
+                    tuple(t._local_tensor.shape),
+                    tuple(t._local_tensor.shape[1:])}
+        return out
+
     out = {}
-    for name, arch, change, opts in runs:
-        cfg = dataclasses.replace(tconfigs.get_reduced(arch), **change)
-        scfg = ServeConfig(batch=B, max_seq=16, compute_dtype="float32",
-                           **opts)
-        first = torch.as_tensor(np.random.default_rng(3).integers(
-            0, cfg.vocab, (B, 1)))
-        out[name] = _serve_pair(cfg, scfg, mesh, first)
+    for arch in TP_ARCHS:
+        cfg = tconfigs.get_reduced(arch)
+        tcfg = TrainConfig(compute_dtype="float32")
+        params = place_params(
+            models.init_params(torch.Generator().manual_seed(1), cfg), mesh)
+        batch = place_batch(testing.train_batch(cfg, B, S), mesh)
+        fn = make_loss_fn(cfg, tcfg, mesh, pl.places_of(params))
+        with testing.router_tie_guard(), CollectiveLog() as grads_log:
+            _accumulate(fn, pl.local_tree(params), pl.local_tree(batch), 1)
+        opt = topt.init_state(
+            models.init_params(torch.Generator().manual_seed(1), cfg))
+        with testing.router_tie_guard(), CollectiveLog() as step_log:
+            jit_train_step(cfg, tcfg, mesh, device="cpu")(params, opt, batch)
+        out[("train", arch)] = dict(
+            grads=logged(grads_log), step=logged(step_log),
+            params=shapes(cfg, params), n_leaves=len(_leaves(params)))
+    for arch in SERVE_ARCHS:
+        cfg = tconfigs.get_reduced(arch)
+        params = place_params(
+            models.init_params(torch.Generator().manual_seed(0), cfg), mesh)
+        cache = models.init_cache(cfg, B, 16, kv_dtype=torch.float32,
+                                  device="cpu")
+        step = jit_serve_step(cfg, ServeConfig(batch=B, max_seq=16,
+                                               compute_dtype="float32"),
+                              mesh, device="cpu")
+        token = torch.zeros((B, 1), dtype=torch.int64)
+        with CollectiveLog() as log:
+            step(params, cache, token, _enc_memory(cfg))
+        out[("serve", arch)] = dict(step=logged(log),
+                                    params=shapes(cfg, params))
+    # the greedy token over vocab blocks, with ties inside a block and
+    # across blocks, against argmax over the whole logits
+    from repro_torch.core.placement import model_axis
+    from repro_torch.serve.engine import greedy_over_vocab_blocks
+    whole = torch.as_tensor(np.random.default_rng(7).integers(
+        0, 3, (6, 4 * WORLD)), dtype=torch.float32)
+    whole[0] = 2.0
+    block = whole[:, rank * 4:(rank + 1) * 4]
+    out["ties"] = (greedy_over_vocab_blocks(block, rank * 4,
+                                            model_axis(mesh))[:, 0],
+                   torch.argmax(whole, dim=-1))
     return out
 
 
@@ -466,16 +643,24 @@ def case_checkpoint(rank, ref):
 
 def case_driver(rank, ref):
     """``launch.train`` for two steps of reduced llama3-8b, unsharded and
-    with ``--mesh 1x4`` (state built on the mesh, batches staged on it):
-    the losses of each run and the local shapes of the mesh run's
-    parameters."""
+    with ``--mesh 1x4`` (state built on the mesh, batches staged on it,
+    each rank computing its share of the split products): the losses of
+    each run in the driver's bf16 and, with its ``TrainConfig`` built in
+    f32, in f32; and the local shapes of the mesh run's parameters."""
+    import functools
+    from unittest import mock
+
     from repro_torch.launch import train
+    from repro_torch.train.train_step import TrainConfig
     argv = ["--arch", "llama3_8b", "--reduced", "--steps", "2", "--batch",
             "4", "--seq", "8", "--microbatches", "2", "--device", "cpu"]
+    f32 = functools.partial(TrainConfig, compute_dtype="float32")
     out = {}
     for name, extra in (("plain", []), ("mesh", ["--mesh", "1x4"])):
         params, _, m = train.main(argv + extra)
         out[name] = float(m["loss"])
+        with mock.patch.object(train, "TrainConfig", f32):
+            out[name + "_f32"] = float(train.main(argv + extra)[2]["loss"])
     out["local_shapes"] = sorted({tuple(t._local_tensor.shape)
                                   for t in _leaves(params)})
     return out
@@ -483,7 +668,8 @@ def case_driver(rank, ref):
 
 CASES = {"pop": case_pop, "psum": case_psum, "train": case_train,
          "serve": case_serve, "checkpoint": case_checkpoint,
-         "init": case_init, "driver": case_driver}
+         "init": case_init, "driver": case_driver, "tp": case_tp,
+         "weights": case_weights}
 
 
 def _rank_main(rank: int, store: str, ref_path: str, out_path: str):
@@ -494,7 +680,7 @@ def _rank_main(rank: int, store: str, ref_path: str, out_path: str):
     dist.init_process_group("gloo", store=dist.FileStore(store, WORLD),
                             rank=rank, world_size=WORLD,
                             timeout=timedelta(seconds=120))
-    with open(ref_path, "rb") as fh:
+    with open(ref_path + ".early", "rb") as fh:
         ref = pickle.load(fh)
     results = {}
     for name, fn in CASES.items():
@@ -516,22 +702,34 @@ def runs(tmp_path_factory):
     """``(reference results, [each rank's results])``."""
     d = tmp_path_factory.mktemp("mesh")
     ref_path = str(d / "ref.pkl")
-    args = pickle.dumps((B, S, FIXED_KW, PSUM_SEED, TRAIN_ARCHS)).hex()
-    ref = subprocess.run(
-        [sys.executable, "-c", REFERENCE, ref_path, args],
+    # the reference's train steps split over REF_PARTS processes
+    refs = [subprocess.Popen(
+        [sys.executable, "-c", REFERENCE, ref_path, pickle.dumps(
+            (B, S, FIXED_KW, PSUM_SEED, TRAIN_ARCHS, TP_RUNS, part,
+             REF_PARTS)).hex()],
         env=_env(XLA_FLAGS="--xla_force_host_platform_device_count=4"),
-        capture_output=True, text=True, timeout=RUN_TIMEOUT_S)
-    assert ref.returncode == 0, ref.stderr[-4000:]
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for part in range(REF_PARTS)]
+    # the ranks start once the reference has written what they read (its
+    # Gavel lanes and parameters); its steps run beside them
+    deadline = time.monotonic() + RUN_TIMEOUT_S
+    while not os.path.exists(ref_path + ".early") and \
+            refs[0].poll() is None and time.monotonic() < deadline:
+        time.sleep(0.2)
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), str(r), str(d / "store"),
          ref_path, str(d / f"rank{r}.pkl")], env=_env(),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(WORLD)]
     logs = [p.communicate(timeout=RUN_TIMEOUT_S)[0] for p in procs]
+    want = {}
+    for part, ref in enumerate(refs):
+        ref_log = ref.communicate(timeout=RUN_TIMEOUT_S)[0]
+        assert ref.returncode == 0, ref_log[-4000:]
+        with open(f"{ref_path}.part{part}", "rb") as fh:
+            want.update(pickle.load(fh))
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-4000:]
-    with open(ref_path, "rb") as fh:
-        want = pickle.load(fh)
     got = []
     for r in range(WORLD):
         with open(d / f"rank{r}.pkl", "rb") as fh:
@@ -686,9 +884,11 @@ def test_jit_serve_step_attends_on_cache_blocks(runs, layout):
     """Attention reads each rank's KV cache block where it lies: equal
     greedy tokens, the last logits within SERVE_TOL (f32; a split head_dim
     or sequence adds partial sums in another order), the cache split as
-    the rules say, and a step sends at most a quarter of the KV cache's
-    bytes over the mesh beside its parameter gathers (gathering the
-    cache's blocks would send at least half)."""
+    the rules say, and beside the row-parallel sums of tensor parallelism
+    a step sends at most a quarter of the KV cache's bytes over the mesh
+    (gathering the cache's blocks would send at least half; no parameter
+    block is sent at all), nothing where the cache splits over KV heads
+    as the query heads do."""
     want_places = SERVE_LAYOUTS[layout][2]
     for r in _case(runs, "serve"):
         got = r[layout]
@@ -696,7 +896,101 @@ def test_jit_serve_step_attends_on_cache_blocks(runs, layout):
         np.testing.assert_allclose(got["mesh_logits"], got["plain_logits"],
                                    rtol=0, atol=SERVE_TOL)
         assert want_places in got["cache_placements"]
-        assert 0 < got["other_collective_bytes"] <= got["kv_bytes"] / 4
+        assert got["other_collective_bytes"] <= got["kv_bytes"] / 4
+        # split over its KV heads, a rank's heads attend on its block alone
+        assert (got["other_collective_bytes"] > 0) == (layout != "kv_heads")
+
+
+@pytest.mark.parametrize("name", list(SERVE_ARCHS) + list(SERVE_LAYOUTS))
+def test_jit_serve_step_on_1x4(runs, name):
+    """Each serve run of the 2 x 2 mesh again on 1 x 4: equal greedy
+    tokens and the last logits within SERVE_TOL (f32)."""
+    for r in _case(runs, "serve"):
+        got = r["1x4"][name]
+        np.testing.assert_array_equal(got["mesh"], got["plain"])
+        np.testing.assert_allclose(got["mesh_logits"], got["plain_logits"],
+                                   rtol=0, atol=SERVE_TOL)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+TP_CASES = [(m, a, sp) for m in TP_MESHES for a, sp in TP_RUNS]
+
+
+def _tp_id(case) -> str:
+    return f"{case[0]}-{case[1]}" + ("-sp" if case[2] else "")
+
+
+@pytest.mark.parametrize("case", TP_CASES, ids=_tp_id)
+def test_tp_train_step_matches_unsharded(runs, case):
+    """Each rank computes its share of every split product: loss and
+    grad_norm within TP_TOL (relative) of the unsharded step, and every
+    parameter within TP_TOL after two steps; zamba2's grad_norm within
+    TP_GRAD_NORM_TOL (see there)."""
+    tol = TP_GRAD_NORM_TOL.get(case[1], TP_TOL)
+    for r in _case(runs, "tp"):
+        got = r[case]
+        for a, b in zip(got["metrics"], got["plain"]):
+            assert a["lr"] == b["lr"]
+            assert abs(a["loss"] - b["loss"]) <= TP_TOL * abs(b["loss"])
+            assert abs(a["grad_norm"] - b["grad_norm"]) <= \
+                tol * b["grad_norm"]
+        assert got["diff"] <= TP_TOL
+
+
+@pytest.mark.parametrize("case", TP_CASES, ids=_tp_id)
+def test_tp_train_step_matches_reference(runs, case):
+    """Against the reference's ``jit_train_step`` on its forced 2 x 2
+    ``Mesh`` with the same ``sp_residual``: within REF_TOL."""
+    from repro_torch.interop import _paths
+    _, arch, sp = case
+    want = runs[0][(arch, sp)]
+    got = _case(runs, "tp")[0][case]
+    for a, b in zip(got["metrics"], want["metrics"]):
+        assert abs(a["loss"] - b["loss"]) <= REF_TOL
+        assert abs(a["grad_norm"] - b["grad_norm"]) <= \
+            REF_TOL * b["grad_norm"]
+        assert a["lr"] == b["lr"]
+    ref = {k: np.asarray(v) for k, v in _paths(want["final"]).items()}
+    assert set(ref) == set(got["final"])
+    for k, v in ref.items():
+        assert float(np.abs(got["final"][k] - v).max()) <= REF_TOL, k
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_no_parameter_crosses_the_mesh_in_a_train_step(runs, arch):
+    """On 1 x 4 no collective of the forward and backward returns the
+    shape of a parameter leaf, of a period of one, or of a rank's block
+    (only activations cross the mesh); in the whole step such shapes
+    appear only as all-reduces, the gradient sums over the data axes and
+    over ``model`` for partial leaves, never as a gather."""
+    for r in _case(runs, "weights"):
+        got = r[("train", arch)]
+        assert got["grads"]
+        assert not [c for c in got["grads"] if c[1] in got["params"]]
+        moved = [k for k, shape in got["step"] if shape in got["params"]]
+        assert set(moved) == {"all-reduce"}
+        assert len(moved) >= got["n_leaves"]
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_no_parameter_crosses_the_mesh_in_a_serve_step(runs, arch):
+    """A decode step on 1 x 4 sends activations only."""
+    for r in _case(runs, "weights"):
+        got = r[("serve", arch)]
+        assert got["step"]
+        assert not [c for c in got["step"] if c[1] in got["params"]]
+
+
+def test_greedy_over_vocab_blocks_breaks_ties_as_argmax(runs):
+    """The greedy token over logits split on the vocab (1 x 4) equals
+    ``torch.argmax`` over the whole logits, ties included: the lowest
+    global index wins."""
+    for r in _case(runs, "weights"):
+        got, want = r["ties"]
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_sharded_init_keeps_blocks_as_it_draws(runs):
@@ -715,8 +1009,15 @@ def test_sharded_init_keeps_blocks_as_it_draws(runs):
 
 
 def test_train_driver_on_a_mesh(runs):
+    """The driver's mesh run against its unsharded run: in f32 within
+    STEP_TOL; in its bf16, where the split products' sums round at other
+    points, within ``testing.bf16_logit_tol`` of the unsharded run's own
+    bf16 and f32 losses (two bf16 evaluations of one model)."""
+    from repro_torch import testing
     for r in _case(runs, "driver"):
-        assert abs(r["mesh"] - r["plain"]) <= STEP_TOL
+        assert abs(r["mesh_f32"] - r["plain_f32"]) <= STEP_TOL
+        assert abs(r["mesh"] - r["plain"]) <= testing.bf16_logit_tol(
+            r["plain_f32"], r["plain"])
         assert len(r["local_shapes"]) > 1
 
 

@@ -603,23 +603,26 @@ def test_encoder_decoder_cross_attention(ref_models):
 
 
 def test_mesh_refused():
-    """The reference's sharding knobs construct and change nothing, with
-    or without a mesh: the port's steps have no tensor parallelism for
-    them to act on.  A mesh is taken (ROADMAP item 14.5; the sharded
-    paths: tests/test_torch_mesh.py)."""
+    """The reference's sharding knobs construct and, without a mesh or on
+    a mesh whose ``model`` axis has one rank (a world of one), leave
+    ``forward_train`` bit-equal: there is no model axis for tensor
+    parallelism to split over (ROADMAP item 14.5; the split paths and
+    what each knob does there: tests/test_torch_mesh.py,
+    tests/test_torch_dryrun.py)."""
+    from repro_torch.launch.shardings import param_shardings
     cfg = tconfigs.get_reduced("llama3_8b")
     params = tmodels.init_params(torch.Generator().manual_seed(0), cfg)
     tokens = torch.as_tensor(
         np.random.default_rng(0).integers(0, cfg.vocab, (2, 8)))
     want = ttf.forward_train(params, cfg, tokens,
                              compute_dtype=torch.float32)
-    x = torch.ones(2, 4, 8)
     with testing.gloo_world() as mesh:
         for m in (None, mesh):
+            places = None if m is None else param_shardings(params, m)
             opts = ttf.ModelOpts(sp_residual=True, gather_once=True,
                                  bf16_barrier=True, cache_seq_on_model=True,
-                                 mesh=m)
-            assert opts.gathered({"w": x}, None)["w"] is x
+                                 mesh=m, places=places)
+            assert opts.axis is None and opts.vocab_block(cfg) is None
             got = ttf.forward_train(params, cfg, tokens,
                                     compute_dtype=torch.float32, opts=opts)
             assert torch.equal(got, want)
