@@ -269,8 +269,9 @@ mesh-tp      tensor parallelism across two processes on the one card, a
              ``testing.PARITY_ADAMW`` within 1e-5 of the unsharded step
              (loss, grad_norm, every parameter block);
 mesh-pop     the main path's three steps through ``PopService`` with
-             ``backend="shard_map"`` (the mesh's "data" axis) and
-             ``backend="pmap"`` over ``[cuda:0]``: allocations and
+             ``backend="shard_map"`` (the mesh's "data" axis), again at
+             ``chunk=1``, and ``backend="pmap"`` over its default devices
+             (``[cuda:0]`` on one card): allocations and
              per-lane iterations bit-equal to main's ``vmap`` session,
              build_s / solve_s beside vmap's, the lane kernels' launches
              over each session (zeroed just before), and the lane kernels
@@ -1821,8 +1822,10 @@ def _backend_session(device, insts, backend, opts):
 
 def phase_mesh_pop(device, insts, main_allocs):
     """The main path's session through ``backend="shard_map"`` on
-    ``make_host_mesh()`` (axis "data") and ``backend="pmap"`` over
-    ``[cuda:0]``: each step's allocation and per-lane iterations bit-equal
+    ``make_host_mesh()`` (axis "data"), again with ``chunk=1`` (the rank
+    walks its lanes one at a time), and ``backend="pmap"`` over its
+    default devices (every visible card: ``[cuda:0]`` here): each step's
+    allocation and per-lane iterations bit-equal
     to the ``vmap`` session's of the main phase; the lane kernels' launch
     counts over each session, and the kernels held against their plain
     versions at a lane slice the backend launched."""
@@ -1836,22 +1839,27 @@ def phase_mesh_pop(device, insts, main_allocs):
         launched.append(batch[0])
         return inner(batch, *a, **kw)
 
-    runs = {}
+    runs, first = {}, {}
     backends._solve_batch = recording
     try:
-        for backend, opts in (("shard_map", {"mesh": mesh, "axis": "data"}),
-                              ("pmap", {"devices": (device,)})):
+        for name, backend, opts in (
+                ("shard_map", "shard_map", {"mesh": mesh, "axis": "data"}),
+                ("shard_map chunk=1", "shard_map",
+                 {"mesh": mesh, "axis": "data", "chunk": 1}),
+                ("pmap", "pmap", {})):
             zero_launches(kernel_mod)
+            launched.clear()
             allocs = _backend_session(device, insts, backend, opts)
-            runs[backend] = (allocs, dict(kernel_mod.LAUNCHES),
-                             per_half_step(kernel_mod))
+            first[name] = launched[0]
+            runs[name] = (backend, allocs, dict(kernel_mod.LAUNCHES),
+                          per_half_step(kernel_mod))
     finally:
         backends._solve_batch = inner
-    for backend, (allocs, launches, per_call) in runs.items():
+    for name, (backend, allocs, launches, per_call) in runs.items():
         for a, want in zip(allocs, main_allocs):
             its, want_its = (np.asarray(a.raw.iterations),
                              np.asarray(want.raw.iterations))
-            log(f"[mesh-pop] {backend} {a.plan_cache}: backend {a.backend}, "
+            log(f"[mesh-pop] {name} {a.plan_cache}: backend {a.backend}, "
                 f"engine {a.engine}, build_s {a.build_time_s:.4f} / "
                 f"solve_s {a.solve_time_s:.4f} (vmap {want.build_time_s:.4f}"
                 f" / {want.solve_time_s:.4f}), iterations "
@@ -1859,25 +1867,26 @@ def phase_mesh_pop(device, insts, main_allocs):
             check(a.backend == backend and a.engine == "fused_structured",
                   f"{backend}: ran {a.backend} / {a.engine}")
             check(a.plan_cache == want.plan_cache,
-                  f"{backend}: verdict {a.plan_cache} against "
+                  f"{name}: verdict {a.plan_cache} against "
                   f"{want.plan_cache}")
             check(np.array_equal(a.alloc, want.alloc),
-                  f"{backend} {a.plan_cache}: allocation differs from "
+                  f"{name} {a.plan_cache}: allocation differs from "
                   "vmap's")
             check(np.array_equal(its, want_its),
-                  f"{backend} {a.plan_cache}: per-lane iterations differ "
+                  f"{name} {a.plan_cache}: per-lane iterations differ "
                   "from vmap's")
-        log(f"[mesh-pop] {backend}: allocations and per-lane iterations of "
+        log(f"[mesh-pop] {name}: allocations and per-lane iterations of "
             f"all three steps bit-equal to vmap's; launches {launches}, "
             f"CUDA launches per call {per_call}")
-        for name, n in launches.items():
-            check(n > 0, f"{name} was not launched through {backend}")
-        for name, per in per_call.items():
-            check(per == 1, f"{name}: {per} CUDA launches per call")
-    hold_at_shape("the shard_map session's lane slice", launched[0],
-                  pdhg.fused_structured_engine(),
-                  pdhg.fused_structured_engine("ref"), lane_calls, device,
-                  prefix="mesh-pop")
+        for kernel, n in launches.items():
+            check(n > 0, f"{kernel} was not launched through {name}")
+        for kernel, per in per_call.items():
+            check(per == 1, f"{kernel}: {per} CUDA launches per call")
+    for name in ("shard_map", "shard_map chunk=1"):
+        hold_at_shape(f"the {name} session's lane slice", first[name],
+                      pdhg.fused_structured_engine(),
+                      pdhg.fused_structured_engine("ref"), lane_calls,
+                      device, prefix="mesh-pop")
 
 
 MESH_TRAIN_STEPS = 2
@@ -2095,15 +2104,16 @@ def _tp_greedy(step, params, cache, prompt, n_tokens: int, forced=None):
         return t.to_local() if hasattr(t, "to_local") else t
 
     def whole(logits, local_logits):
-        host = local_logits.cpu()
         if not hasattr(logits, "to_local") or not dist.is_initialized() \
                 or dist.get_world_size() == 1 or not any(
                     p.is_shard() for p in logits.placements):
-            return host
-        parts = [torch.empty_like(host)
+            return local_logits.cpu()
+        # gathered where they lie: NCCL takes no host tensor
+        block = local_logits.contiguous()
+        parts = [torch.empty_like(block)
                  for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, host)
-        return torch.cat(parts, dim=-1)
+        dist.all_gather(parts, block)
+        return torch.cat(parts, dim=-1).cpu()
 
     for t in range(prompt.shape[1] - 1):
         _, cache, _ = step(params, cache, prompt[:, t:t + 1])
@@ -2305,8 +2315,36 @@ def phase_mesh_tp(device):
 
 def _mesh_tp_verdict(rep: dict, wall: float) -> None:
     """Log and check rank 0's mesh-tp report."""
+    log(f"[mesh-tp] {MESH_TP_RANKS} processes on card 0 over gloo, a (1, "
+        f"{MESH_TP_RANKS}) mesh; llama3-8b full width bf16, batch "
+        f"{SERVE_BATCH}, a {SERVE_MAX_SEQ}-slot cache, "
+        f"{MESH_SERVE_PROMPT}-token prompt, {MESH_TP_TOKENS} steps "
+        "teacher-forced with the world of one's greedy tokens")
+    tp_serve_verdict("mesh-tp", rep["one"], rep["tp"], rep["peaks"],
+                     MESH_TP_PEAK_SHARE, "each rank's collectives over gloo "
+                     "through the host")
+    for r, (got, plain, pdiff) in enumerate(rep["trains"]):
+        log(f"[mesh-tp] train rank {r}: loss {got['loss']:.7f} (unsharded "
+            f"{plain['loss']:.7f}), grad_norm {got['grad_norm']:.7f} "
+            f"({plain['grad_norm']:.7f}), largest parameter difference "
+            f"{pdiff:.3g}")
+        for k in ("loss", "grad_norm"):
+            check(abs(got[k] - plain[k]) <= MESH_TP_TRAIN_TOL * abs(plain[k]),
+                  f"mesh-tp train rank {r}: {k} {got[k]} against "
+                  f"{plain[k]}")
+        check(pdiff <= MESH_TP_TRAIN_TOL,
+              f"mesh-tp train rank {r}: parameters off by {pdiff}")
+    log(f"[mesh-tp] wall {wall:.1f} s (two processes, world of one and "
+        f"split runs); card {card_line()}")
+
+
+def tp_serve_verdict(tag: str, one: dict, tp, peaks, peak_share: float,
+                     how: str) -> None:
+    """Log and check a split serving run against the world of one's:
+    ``one`` is :func:`_tp_serve_one`'s report, ``tp`` the split run's
+    :func:`_tp_greedy` teacher-forced with the world of one's tokens,
+    ``peaks`` each rank's ``(max_memory_allocated, weight bytes)``."""
     from repro_torch import testing
-    one, tp = rep["one"], rep["tp"]
     f32, bf16 = one["float32"][0], one["bfloat16"][0]
     # every step of the split run, teacher-forced with the world of one's
     # tokens, against the world of one's bf16 logits at that step, within
@@ -2323,45 +2361,26 @@ def _mesh_tp_verdict(rep: dict, wall: float) -> None:
     wide = [(b, i) for b, i in at if float(gaps[b, i]) > tols[i]]
     gap = max((round(float(gaps[b, i]), 4) for b, i in at), default=None)
     one_peak = one["bfloat16_peak"]
-    log(f"[mesh-tp] {MESH_TP_RANKS} processes on card 0 over gloo, a (1, "
-        f"{MESH_TP_RANKS}) mesh; llama3-8b full width bf16, batch "
-        f"{SERVE_BATCH}, a {SERVE_MAX_SEQ}-slot cache, "
-        f"{MESH_SERVE_PROMPT}-token prompt, {MESH_TP_TOKENS} steps "
-        "teacher-forced with the world of one's greedy tokens")
-    log(f"[mesh-tp] each step's logits against the world of one's: "
+    log(f"[{tag}] each step's logits against the world of one's: "
         f"largest difference {[round(d, 4) for d in diffs]}; "
         f"testing.bf16_logit_tol {[round(t, 4) for t in tols]}")
-    log(f"[mesh-tp] the split run's own greedy tokens: {int(differ.sum())} "
+    log(f"[{tag}] the split run's own greedy tokens: {int(differ.sum())} "
         f"of {differ.numel()} differ from the world of one's, the largest "
         f"top-two gap there {gap}")
-    log(f"[mesh-tp] ms a decode step: split {tp[3]:.3f} (each rank's "
-        f"collectives over gloo through the host), world of one "
+    log(f"[{tag}] ms a decode step: split {tp[3]:.3f} ({how}), world of one "
         f"{one['bfloat16'][3]:.3f}; max_memory_allocated a rank "
-        f"{[round(p / 1e9, 3) for p, _ in rep['peaks']]} GB (weights "
-        f"{[round(b / 1e9, 3) for _, b in rep['peaks']]} GB) against the "
+        f"{[round(p / 1e9, 3) for p, _ in peaks]} GB (weights "
+        f"{[round(b / 1e9, 3) for _, b in peaks]} GB) against the "
         f"world of one's {one_peak / 1e9:.3f} GB")
     for i, (d, t) in enumerate(zip(diffs, tols)):
-        check(d <= t, f"mesh-tp step {i}: logits off the world of one's "
+        check(d <= t, f"{tag} step {i}: logits off the world of one's "
               f"by {d} (tolerance {t})")
-    check(not wide, f"mesh-tp: greedy tokens differ at (row, step) {wide}, "
+    check(not wide, f"{tag}: greedy tokens differ at (row, step) {wide}, "
           "where the top two logits are further apart than the tolerance")
-    for r, (peak, _) in enumerate(rep["peaks"]):
-        check(peak <= MESH_TP_PEAK_SHARE * one_peak,
-              f"mesh-tp rank {r}: peak {peak} above "
-              f"{MESH_TP_PEAK_SHARE} of {one_peak}")
-    for r, (got, plain, pdiff) in enumerate(rep["trains"]):
-        log(f"[mesh-tp] train rank {r}: loss {got['loss']:.7f} (unsharded "
-            f"{plain['loss']:.7f}), grad_norm {got['grad_norm']:.7f} "
-            f"({plain['grad_norm']:.7f}), largest parameter difference "
-            f"{pdiff:.3g}")
-        for k in ("loss", "grad_norm"):
-            check(abs(got[k] - plain[k]) <= MESH_TP_TRAIN_TOL * abs(plain[k]),
-                  f"mesh-tp train rank {r}: {k} {got[k]} against "
-                  f"{plain[k]}")
-        check(pdiff <= MESH_TP_TRAIN_TOL,
-              f"mesh-tp train rank {r}: parameters off by {pdiff}")
-    log(f"[mesh-tp] wall {wall:.1f} s (two processes, world of one and "
-        f"split runs); card {card_line()}")
+    for r, (peak, _) in enumerate(peaks):
+        check(peak <= peak_share * one_peak,
+              f"{tag} rank {r}: peak {peak} above {peak_share} of "
+              f"{one_peak}")
 
 
 def phase_mesh_collectives(device, ckpt):

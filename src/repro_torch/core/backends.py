@@ -23,18 +23,21 @@ Registered backends:
 ``shard_map``
     SPMD over one axis of a ``torch.distributed`` device mesh: every rank
     of the process group calls it with the same batch, k is padded up to
-    a multiple of the axis size (never a smaller mesh), each rank solves
-    its contiguous block of lanes with the local engine, and the
+    a multiple of the axis size (times ``chunk`` when the ranks walk their
+    lanes in chunks; never a smaller mesh), each rank solves its
+    contiguous block of lanes with the local engine, and the
     :class:`SolveResult` fields are gathered with
     ``all_gather_into_tensor`` and the padding sliced off.
 ``pmap``
-    One process over an explicit ``devices=`` list: the lanes are split
-    per device (k padded to a multiple of their count), each slice is
-    solved on its device in turn, and the results come back in device
-    order.
+    One process over a list of devices (default: every visible device of
+    the batch's type): the lanes are split per device (k padded to a
+    multiple of their count), each slice is solved on its device in turn,
+    and the results come back in device order.
 
-Both give each lane the bits ``vmap`` gives it, because no lane's sums
-depend on the stack's lane count (``kernels/ref.py:row_reduce``).
+Every backend gives each lane the bits ``vmap`` gives it: no lane's sums
+depend on the stack's lane count (``kernels/ref.py:row_reduce``), and a
+slice of the stack keeps each lane at its place modulo
+:data:`LANE_PHASE` (:func:`_slice_lanes`).
 
 ``backend="auto"`` picks by k, per-sub-problem size and the ranks of the
 mesh the caller passes in its backend opts (one device without: only the
@@ -51,6 +54,7 @@ undo) and :func:`pad_lanes_pow2`.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -65,6 +69,13 @@ MapBackend = Callable[..., SolveResult]
 MAP_BACKENDS: Dict[str, MapBackend] = {}
 
 DEFAULT_CHUNK = 16
+# on the card a plain reduction along a row (``kernels/ref.py:
+# row_reduce``) sums the row's entries before its first 16-byte boundary
+# apart from the rest, so a lane whose rows have an odd length (6,145
+# Gavel columns) keeps the bits of its sums only at the same place in its
+# stack modulo this many lanes (lane 5 of 8 against the same lane alone:
+# a power iteration off by 3.81e-6, on the H100)
+LANE_PHASE = 4
 AUTO_VMAP_MAX_K = 64
 AUTO_VMAP_MAX_ELEMS = 64_000_000
 
@@ -141,6 +152,32 @@ def pad_to_multiple(tree, m: int):
 
 def _concat_results(outs) -> SolveResult:
     return zip_arrays(lambda *xs: np.concatenate(xs), *outs)
+
+
+def _slice_lanes(batch, lo: int, n: int):
+    """Lanes ``lo`` to ``lo + n`` of a stacked tree, preceded by ``lo %
+    LANE_PHASE`` copies of lane ``lo``, so that each lane keeps its place
+    in the whole stack modulo :data:`LANE_PHASE` and with it the bits of
+    its sums: ``(lanes, lead)``; the first ``lead`` lanes of their result
+    are the copies'."""
+    lead = lo % LANE_PHASE
+    part = map_arrays(lambda a: a[lo:lo + n], batch)
+    if lead:
+        part = map_arrays(lambda a: torch.cat(
+            [a[:1].expand((lead,) + a.shape[1:]), a]), part)
+    return part, lead
+
+
+def _solve_lanes(batch, lo: int, hi: int, step: int, K_mv, KT_mv,
+                 solver_kw, engine) -> SolveResult:
+    """Lanes ``lo`` to ``hi`` of ``batch`` solved ``step`` lanes at a time,
+    each slice through :func:`_slice_lanes`."""
+    outs = []
+    for start in range(lo, hi, step):
+        part, lead = _slice_lanes(batch, start, min(step, hi - start))
+        res = _solve_batch(part, K_mv, KT_mv, solver_kw, engine)
+        outs.append(map_arrays(lambda a, lead=lead: a[lead:], res))
+    return _concat_results(outs)
 
 
 # --------------------------------------------------------------------------
@@ -237,10 +274,9 @@ def solve_chunked_vmap(batch, K_mv, KT_mv, solver_kw,
     k = batch_size(batch)
     chunk = max(1, min(chunk, k))
     padded, _ = pad_to_multiple(batch, chunk)
-    outs = [_solve_batch(map_arrays(lambda a, i=i: a[i:i + chunk], padded),
-                         K_mv, KT_mv, solver_kw, engine)
-            for i in range(0, batch_size(padded), chunk)]
-    return map_arrays(lambda a: a[:k], _concat_results(outs))
+    res = _solve_lanes(padded, 0, batch_size(padded), chunk, K_mv, KT_mv,
+                       solver_kw, engine)
+    return map_arrays(lambda a: a[:k], res)
 
 
 def _default_mesh(device: torch.device, axis: str):
@@ -271,17 +307,36 @@ def _gather_lanes(res: SolveResult, n: int, group, device) -> SolveResult:
     return map_arrays(one, res)
 
 
+def _rank_chunk(batch, n: int, device_type: str) -> int:
+    """The chunk ``shard_map`` walks a rank's lanes in when the caller
+    gives none: ``DEFAULT_CHUNK`` when a rank's share of the ``batch``'s
+    lanes over ``n`` ranks exceeds the one-device ``vmap`` ceiling for
+    ``device_type`` (lanes or stacked elements), else 0 (no chunking)."""
+    per_rank = -(-batch_size(batch) // n)
+    max_k, max_elems = _auto_thresholds(device_type)
+    heavy = (per_rank > max_k
+             or per_rank * max(_n_elems_per_sub(batch[0]), 1) > max_elems)
+    return DEFAULT_CHUNK if heavy else 0
+
+
 # popcheck: hot
 @register_backend("shard_map")
 def solve_shard_map(batch, K_mv, KT_mv, solver_kw,
                     engine: EngineSpec = "matvec", mesh=None,
-                    axis: str = "pop") -> SolveResult:
+                    axis: str = "pop",
+                    chunk: Optional[int] = None) -> SolveResult:
     """Shard the k sub-problems over ``axis`` of ``mesh`` (default: a
     one-axis mesh named ``axis`` over the whole process group); each rank
     solves its lanes with the local engine.  No collective runs inside a
     solve: POP sub-problems are independent by construction; the results
     are gathered once at the end.  Every rank must call it with the same
-    batch, as every device runs the reference's ``shard_map`` body."""
+    batch, as every device runs the reference's ``shard_map`` body.
+
+    ``chunk`` bounds a rank's memory as ``chunked_vmap`` does on one
+    device: each rank walks its lanes in batched chunks of that size
+    (``None``: decide from the per-rank share, chunking only when it
+    exceeds the one-device ``vmap`` ceiling for the batch's device type;
+    ``0``: never chunk).  No lane's result depends on it."""
     device = batch[0].c.device
     if mesh is None:
         mesh = _default_mesh(device, axis)
@@ -290,11 +345,13 @@ def solve_shard_map(batch, K_mv, KT_mv, solver_kw,
         raise ValueError(f"mesh axes {names} have no {axis!r}")
     dim = names.index(axis)
     n = mesh.size(dim)
-    padded, k = pad_to_multiple(batch, n)
+    if chunk is None:
+        chunk = _rank_chunk(batch, n, device.type)
+    padded, k = pad_to_multiple(batch, n * chunk if chunk else n)
     per = batch_size(padded) // n
     lo = mesh.get_local_rank(dim) * per
-    local = _solve_batch(map_arrays(lambda a: a[lo:lo + per], padded),
-                         K_mv, KT_mv, solver_kw, engine)
+    local = _solve_lanes(padded, lo, lo + per, chunk or per, K_mv, KT_mv,
+                         solver_kw, engine)
     res = (local if n == 1 else
            _gather_lanes(local, n, mesh.get_group(dim), device))
     return map_arrays(lambda a: a[:k], res)
@@ -308,27 +365,42 @@ def _engine_on(engine: EngineSpec, ops: OperatorLP, K_mv, KT_mv):
     return pdhg.resolve_engine(pdhg.engine_name(engine), ops, K_mv, KT_mv)
 
 
+def _visible(device: torch.device) -> list:
+    """Every device of ``device``'s type this process sees."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
 # popcheck: hot
 @register_backend("pmap")
 def solve_pmap(batch, K_mv, KT_mv, solver_kw,
                engine: EngineSpec = "matvec",
                devices=None) -> SolveResult:
-    """Split the lanes over ``devices`` (default: the batch's device) and
+    """Split the lanes over ``devices`` (default: every visible device of
+    the batch's type, as the reference's ``jax.devices()``: ``cuda:0`` to
+    ``cuda:n-1`` for a batch on the card, the CPU for one on the CPU) and
     solve each slice on its device, in turn, in this process; the results
-    are joined in device order and the padding sliced off."""
+    are joined in device order and the padding sliced off.  A card's slice
+    is solved with that card current: the hand-written kernels launch on
+    the current device, and a launch into another card's stream fails."""
     here = batch[0].c.device
-    devices = [torch.device(d) for d in (devices or [here])]
+    devices = [torch.device(d) for d in (devices or _visible(here))]
     n = len(devices)
     padded, k = pad_to_multiple(batch, n)
     per = batch_size(padded) // n
     outs = []
     for i, dev in enumerate(devices):
-        part = map_arrays(lambda a, i=i: a[i * per:(i + 1) * per], padded)
+        part, lead = _slice_lanes(padded, i * per, per)
         eng = engine
         if dev != here:
             part = map_arrays(lambda a: a.to(dev), part)
             eng = _engine_on(engine, part[0], K_mv, KT_mv)
-        outs.append(_solve_batch(part, K_mv, KT_mv, solver_kw, eng))
+        with (torch.cuda.device(part[0].c.device) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            res = _solve_batch(part, K_mv, KT_mv, solver_kw, eng)
+        outs.append(map_arrays(lambda a, lead=lead: a[lead:], res))
     return map_arrays(lambda a: a[:k], _concat_results(outs))
 
 

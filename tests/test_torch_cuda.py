@@ -1263,6 +1263,27 @@ def test_cuda_row_reduce_independent_of_row_count(cuda_device, n, fn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [6_145, 4_099])
+@pytest.mark.parametrize("fn", ["sum", "norm"])
+def test_cuda_row_reduce_keeps_bits_in_phase_slices(cuda_device, n, fn):
+    """A lane of an 8-lane stack keeps its sum's (2-norm's) bits in the
+    slices the map backends solve (``core/backends.py:_slice_lanes``: 1
+    or 2 lanes, led by copies up to the lane's place modulo
+    ``LANE_PHASE``), at the main path's row lengths."""
+    from repro_torch.core import backends
+    from repro_torch.kernels import ref
+    red = {"sum": ref.sum_last, "norm": ref.norm_last}[fn]
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    a = torch.randn(8, n, generator=gen, device=cuda_device)
+    whole = ref.row_reduce(red, a)
+    for size in (1, 2):
+        for lo in range(0, 8, size):
+            part, lead = backends._slice_lanes(a, lo, size)
+            assert torch.equal(ref.row_reduce(red, part)[lead:],
+                               whole[lo:lo + size]), (size, lo)
+
+
+@pytest.mark.cuda
 def test_cuda_build_profile_seals(cuda_device, tmp_path):
     """A tiny profile measured on the card (gavel, fast probes, the launch
     line): it names the card's device type, its thresholds apply there

@@ -44,7 +44,8 @@ TRAIN_ARCHS = ("llama3_8b", "qwen2_moe_a2_7b")
 # seamless-m4t-medium decodes against its encoder memory (cross-attention
 # on the model axis)
 SERVE_ARCHS = ("llama3_8b", "zamba2_2_7b", "xlstm_350m",
-               "seamless_m4t_medium")
+               "seamless_m4t_medium", "gemma2_27b", "mixtral_8x22b",
+               "chameleon_34b", "h2o_danube3_4b")
 # tensor parallelism: each arch's train step on both meshes, sp_residual
 # off, and again with it on for three of them (seamless-m4t-medium's
 # encoder stack and cross-attention on sequence slices); held to TP_TOL
@@ -53,9 +54,17 @@ SERVE_ARCHS = ("llama3_8b", "zamba2_2_7b", "xlstm_350m",
 # flags
 TP_ARCHS = ("llama3_8b", "qwen2_moe_a2_7b", "gemma3_4b", "zamba2_2_7b",
             "xlstm_350m", "seamless_m4t_medium")
+# gemma2-27b (softcaps, alternating local and global windows),
+# mixtral-8x22b (8 experts top-2, a sliding window), chameleon-34b and
+# h2o-danube3-4b: on 1 x 4 only, sp_residual off
+TP_1X4_ARCHS = ("gemma2_27b", "mixtral_8x22b", "chameleon_34b",
+                "h2o_danube3_4b")
 TP_RUNS = tuple((a, False) for a in TP_ARCHS) + (
-    ("gemma3_4b", True), ("llama3_8b", True), ("seamless_m4t_medium", True))
+    ("gemma3_4b", True), ("llama3_8b", True),
+    ("seamless_m4t_medium", True)) + tuple((a, False) for a in TP_1X4_ARCHS)
 TP_MESHES = {"2x2": 2, "1x4": 4}
+TP_CASES = [(m, a, sp) for m in TP_MESHES for a, sp in TP_RUNS
+            if m == "1x4" or a not in TP_1X4_ARCHS]
 TP_TOL = 1e-5
 # zamba2's second grad_norm moves by about 1e-5 whenever its sums run in
 # another order: the unsharded step by up to 8.8e-6 between two and four
@@ -204,9 +213,10 @@ def case_pop(rank, ref):
     ops = interop.operator_from_numpy(ref["pop"]["fields"], device="cpu")
     runs = {}
     for name, opts in (("vmap", {}), ("shard_map", {}),
+                       ("shard_map_chunk1", {"chunk": 1}),
                        ("pmap", {"devices": ("cpu",) * WORLD})):
         res = backends.solve_map(ops, GavelProblem.K_mv, GavelProblem.KT_mv,
-                                 FIXED_KW, backend=name,
+                                 FIXED_KW, backend=name.split("_chunk")[0],
                                  engine="fused_structured", **opts)
         runs[name] = {f: getattr(res, f) for f in
                       ("x", "y", "iterations", "converged", "n_restarts")}
@@ -407,8 +417,8 @@ def case_serve(rank, ref):
 
 
 def case_tp(rank, ref):
-    """Tensor parallelism: each of TP_RUNS (arch, sp_residual) through
-    ``jit_train_step`` on each of TP_MESHES, from the reference's
+    """Tensor parallelism: each of TP_CASES (mesh, arch, sp_residual)
+    through ``jit_train_step``, from the reference's
     parameters, against the unsharded step (two f32 steps of two
     microbatches under PARITY_ADAMW): the metrics of both, the largest
     parameter difference, and on rank 0 the final parameters."""
@@ -433,7 +443,7 @@ def case_tp(rank, ref):
     out, plain = {}, {}
     for name, model in TP_MESHES.items():
         mesh = make_host_mesh(model_parallel=model, device="cpu")
-        for arch, sp in TP_RUNS:
+        for arch, sp in [(a, sp) for m, a, sp in TP_CASES if m == name]:
             cfg = tconfigs.get_reduced(arch)
             tcfg = TrainConfig(n_microbatches=2, compute_dtype="float32",
                                sp_residual=sp,
@@ -748,10 +758,12 @@ def _case(runs, name):
 # POP's map backends
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("backend", ["shard_map", "pmap"])
+@pytest.mark.parametrize("backend", ["shard_map", "shard_map_chunk1",
+                                     "pmap"])
 def test_map_backend_bit_equal_to_vmap(runs, backend):
-    """k=6 lanes over 4 ranks (padded to 8): every field bit-equal to
-    vmap's on every rank."""
+    """k=6 lanes over 4 ranks (padded to 8; each rank walks its two in
+    chunks of one at ``chunk=1``): every field bit-equal to vmap's on
+    every rank."""
     for r in _case(runs, "pop"):
         want, got = r["solves"]["vmap"], r["solves"][backend]
         for f, v in want.items():
@@ -915,9 +927,6 @@ def test_jit_serve_step_on_1x4(runs, name):
 # ---------------------------------------------------------------------------
 # tensor parallelism
 # ---------------------------------------------------------------------------
-
-TP_CASES = [(m, a, sp) for m in TP_MESHES for a, sp in TP_RUNS]
-
 
 def _tp_id(case) -> str:
     return f"{case[0]}-{case[1]}" + ("-sp" if case[2] else "")

@@ -1,7 +1,7 @@
 """Does a lane's arithmetic depend on how many lanes share its stack?
 
     python tools/lane_reductions.py [--device cuda] [--domain gavel]
-        [--n-jobs 16384] [--lanes 16 24 32 64]
+        [--n-jobs 16384] [--lanes 16 24 32 64] [--slices 1 2]
 
 Builds tenants' stacks (``--domain gavel``: k=8 Gavel stacks at the main
 path's fleet, seeds 0, 1, ..., ``testing.session_instances``; ``balance``:
@@ -15,7 +15,10 @@ against tenant 0's stack alone: the row and column products
 (``smatvec``/``smatvec_t``, summed over the padded ELL width), the
 per-lane 2-norm (``_vnorm``), the KKT scores, the power iteration and the
 equilibration.  Prints one line per quantity and stack size: equal, or
-the largest difference.  On the CPU it runs at a small fleet
+the largest difference.  ``--slices`` compares tenant 0's lanes cut
+into stacks of that many lanes as the map backends cut them (a
+``shard_map`` rank's share or a chunk of it, led by copies of its first
+lane up to its place modulo ``backends.LANE_PHASE``) the same way.  On the CPU it runs at a small fleet
 (``--n-jobs 512``, or ``--n-jobs 1024`` shards for ``balance``) in a few
 seconds.
 """
@@ -31,7 +34,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch import testing  # noqa: E402
-from repro_torch.core import pdhg, pop  # noqa: E402
+from repro_torch.core import backends, pdhg, pop  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.problems import load_balancing as lb  # noqa: E402
 from repro_torch.problems.cluster_scheduling import GavelProblem  # noqa: E402
@@ -95,6 +98,10 @@ def main() -> int:
                     help="jobs (gavel, default 16,384) or shards (balance, "
                          "default 8,192; servers are shards / 32)")
     ap.add_argument("--lanes", type=int, nargs="+", default=[16, 24, 32, 64])
+    ap.add_argument("--slices", type=int, nargs="*", default=[],
+                    help="also tenant 0's lanes in slices of this many "
+                         "lanes, as the map backends cut them, each "
+                         "against the whole stack")
     args = ap.parse_args()
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -120,6 +127,21 @@ def main() -> int:
             diff = float((v - want).abs().max())
             rel = diff / max(float(want.abs().max()), 1e-30)
             print(f"{name:16s} tenant 0's lanes in a {lanes}-lane stack: "
+                  + ("bit-identical" if same else
+                     f"differ, max |d| {diff:.3g} (relative {rel:.3g})"))
+    for size in args.slices:
+        if k % size:
+            ap.error(f"--slices must divide {k} for {args.domain}")
+        parts = [backends._slice_lanes(ops[0], i, size)
+                 for i in range(0, k, size)]
+        got = [(quantities(p), lead) for p, lead in parts]
+        for name, want in base.items():
+            v = torch.cat([q[name][lead:lead + size].cpu()
+                           for q, lead in got])
+            same = torch.equal(v, want)
+            diff = float((v - want).abs().max())
+            rel = diff / max(float(want.abs().max()), 1e-30)
+            print(f"{name:16s} tenant 0's lanes in {size}-lane slices: "
                   + ("bit-identical" if same else
                      f"differ, max |d| {diff:.3g} (relative {rel:.3g})"))
     return 0
