@@ -60,6 +60,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import tracing
 from . import pdhg
 from .pdhg import OperatorLP, SolveResult, StepEngine, map_arrays, zip_arrays
 from .problem import resolve_device  # noqa: F401  (re-exported)
@@ -509,12 +510,13 @@ def solve_map(ops: OperatorLP, K_mv, KT_mv, solver_kw: Optional[dict] = None,
               warm=None, **opts: Any) -> SolveResult:
     """Run the POP map step on stacked ``ops`` with the named backend and
     step engine (both resolved through :func:`resolve_exec`)."""
-    solver_kw = dict(solver_kw or {})
-    backend, engine, opts = resolve_exec(ops, K_mv, KT_mv, backend, engine,
-                                         opts)
-    batch = make_batch(ops, warm)
-    return get_backend(backend)(batch, K_mv, KT_mv, solver_kw,
-                                engine=engine, **opts)
+    with tracing.span("pop.solve_map", lanes=int(ops.c.shape[0])):
+        solver_kw = dict(solver_kw or {})
+        backend, engine, opts = resolve_exec(ops, K_mv, KT_mv, backend,
+                                             engine, opts)
+        batch = make_batch(ops, warm)
+        return get_backend(backend)(batch, K_mv, KT_mv, solver_kw,
+                                    engine=engine, **opts)
 
 
 def solve_one_ex(op: OperatorLP, K_mv, KT_mv,

@@ -50,6 +50,7 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels.ref import norm_last, row_reduce, sum_last
 from .problem import BIG, LinearProgram
 
@@ -952,63 +953,71 @@ def solve_stacked(
     if kkt not in ("inloop", "standalone"):
         raise ValueError(f"unknown kkt mode {kkt!r}; "
                          "expected 'inloop' or 'standalone'")
-    eng = resolve_engine(engine, op, K_mv, KT_mv)
-    if eng.prep is not None:
-        op = eng.prep(op)
-    k = op.c.shape[0]
-    n_var = op.c.shape[-1]
-    dev = op.c.device
+    with tracing.span("pdhg.setup"):
+        eng = resolve_engine(engine, op, K_mv, KT_mv)
+        if eng.prep is not None:
+            op = eng.prep(op)
+        k = op.c.shape[0]
+        n_var = op.c.shape[-1]
+        dev = op.c.device
 
-    op_run, eng_run = op, eng
-    if equilibrate:
-        d_r, d_c = _equilibrate(eng, op)
-        if eng.scale_data is not None:
-            op_run = scale_operator(op, d_r, d_c,
-                                    data=eng.scale_data(op.data, d_r, d_c))
-        else:
-            op_run = scale_operator(op, d_r, d_c)
-            eng_run = _engine_from_matvecs(
-                eng.name + "_scaled",
-                lambda data, x: d_r * eng.K(data, d_c * x),
-                lambda data, y: d_c * eng.KT(data, d_r * y))
-        # warm iterates arrive in ORIGINAL space — map into scaled space
-        if warm_x is not None:
-            warm_x = _as_f32(warm_x, dev) / d_c
-        if warm_y is not None:
-            warm_y = _as_f32(warm_y, dev) / d_r
+        op_run, eng_run = op, eng
+        if equilibrate:
+            d_r, d_c = _equilibrate(eng, op)
+            if eng.scale_data is not None:
+                op_run = scale_operator(
+                    op, d_r, d_c, data=eng.scale_data(op.data, d_r, d_c))
+            else:
+                op_run = scale_operator(op, d_r, d_c)
+                eng_run = _engine_from_matvecs(
+                    eng.name + "_scaled",
+                    lambda data, x: d_r * eng.K(data, d_c * x),
+                    lambda data, y: d_c * eng.KT(data, d_r * y))
+            # warm iterates arrive in ORIGINAL space — map into scaled space
+            if warm_x is not None:
+                warm_x = _as_f32(warm_x, dev) / d_c
+            if warm_y is not None:
+                warm_y = _as_f32(warm_y, dev) / d_r
 
-    knorm = _power_iteration(eng_run, op_run.data, k, n_var, dev)   # [k]
+        knorm = _power_iteration(eng_run, op_run.data, k, n_var, dev)  # [k]
 
-    cold_x = torch.minimum(torch.maximum(torch.zeros_like(op_run.c),
-                                         op_run.l), op_run.u)
-    cold_y = torch.zeros_like(op_run.q)
-    x0 = cold_x if warm_x is None else _as_f32(warm_x, dev)
-    y0 = cold_y if warm_y is None else _as_f32(warm_y, dev)
-    if warm_mask is not None and (warm_x is not None or warm_y is not None):
-        m = torch.as_tensor(warm_mask, dtype=torch.bool,
-                            device=dev)[:, None]
-        x0 = torch.where(m, x0, cold_x)
-        y0 = torch.where(m, y0, cold_y)
-    kx0 = eng_run.K(op_run.data, x0)
-    kty0 = eng_run.KT(op_run.data, y0)
+        cold_x = torch.minimum(torch.maximum(torch.zeros_like(op_run.c),
+                                             op_run.l), op_run.u)
+        cold_y = torch.zeros_like(op_run.q)
+        x0 = cold_x if warm_x is None else _as_f32(warm_x, dev)
+        y0 = cold_y if warm_y is None else _as_f32(warm_y, dev)
+        if warm_mask is not None and (warm_x is not None
+                                      or warm_y is not None):
+            m = torch.as_tensor(warm_mask, dtype=torch.bool,
+                                device=dev)[:, None]
+            x0 = torch.where(m, x0, cold_x)
+            y0 = torch.where(m, y0, cold_y)
+        kx0 = eng_run.K(op_run.data, x0)
+        kty0 = eng_run.KT(op_run.data, y0)
+        state = _start_state(x0, y0, kx0, kty0, omega0)
 
     def chunk(state: _State) -> _State:
-        tau = eta / (state.omega * knorm)          # [k]
-        sigma = eta * state.omega / knorm          # [k]
-        x, y, kx, kty = state.x, state.y, state.kx, state.kty
-        xs, ys = state.x_sum.clone(), state.y_sum.clone()
-        kxs, ktys = state.kx_sum.clone(), state.kty_sum.clone()
-        for _ in range(check_every):
-            x_new, kx_new = eng_run.forward(op_run.data, x, op_run.c,
-                                            op_run.l, op_run.u, tau, kty)
-            y_new, kty_new = eng_run.backward(op_run.data, y, op_run.q,
-                                              sigma, op_run.ineq_mask,
-                                              kx_new, kx)
-            x, y, kx, kty = x_new, y_new, kx_new, kty_new
-            xs.add_(x)
-            ys.add_(y)
-            kxs.add_(kx)
-            ktys.add_(kty)
+        with tracing.span("pdhg.iterate"):
+            tau = eta / (state.omega * knorm)          # [k]
+            sigma = eta * state.omega / knorm          # [k]
+            x, y, kx, kty = state.x, state.y, state.kx, state.kty
+            xs, ys = state.x_sum.clone(), state.y_sum.clone()
+            kxs, ktys = state.kx_sum.clone(), state.kty_sum.clone()
+            for _ in range(check_every):
+                x_new, kx_new = eng_run.forward(op_run.data, x, op_run.c,
+                                                op_run.l, op_run.u, tau, kty)
+                y_new, kty_new = eng_run.backward(op_run.data, y, op_run.q,
+                                                  sigma, op_run.ineq_mask,
+                                                  kx_new, kx)
+                x, y, kx, kty = x_new, y_new, kx_new, kty_new
+                xs.add_(x)
+                ys.add_(y)
+                kxs.add_(kx)
+                ktys.add_(kty)
+        with tracing.span("pdhg.check"):
+            return check(state, x, y, kx, kty, xs, ys, kxs, ktys)
+
+    def check(state, x, y, kx, kty, xs, ys, kxs, ktys) -> _State:
         avg_n = state.avg_n + check_every
 
         # candidate = better of {current, running average}; the average's
@@ -1097,10 +1106,36 @@ def solve_stacked(
             diverged=diverged,
         )
 
-    def full(value, dtype=torch.float32):
-        return torch.full((k,), value, dtype=dtype, device=dev)
+    # the loop's one host sync per chunk; the host's wait there is the
+    # loop span's self time
+    with tracing.span("pdhg.loop", check_every=check_every) as loop:
+        chunks = 0
+        while bool(torch.any(~state.done & ~state.diverged
+                             & (state.it < max_iters))):
+            state = chunk(state)
+            chunks += 1
+        loop.set(chunks=chunks)
 
-    state = _State(
+    with tracing.span("pdhg.readback"):
+        x_fin, y_fin = state.x, state.y
+        if equilibrate:
+            x_fin, y_fin = unscale_solution(x_fin, y_fin, d_r, d_c)
+        pr, gap, p_obj, d_obj = _kkt(op, eng, x_fin, y_fin)
+        return SolveResult(
+            x=_np(x_fin), y=_np(y_fin), primal_obj=_np(p_obj),
+            dual_obj=_np(d_obj), primal_res=_np(pr), gap=_np(gap),
+            iterations=_np(state.it), converged=_np(state.done),
+            n_restarts=_np(state.n_restarts), diverged=_np(state.diverged))
+
+
+def _start_state(x0, y0, kx0, kty0, omega0: float) -> _State:
+    """The loop's first state: the start iterates and their products, zero
+    running sums, every lane live."""
+    def full(value, dtype=torch.float32):
+        return torch.full((x0.shape[0],), value, dtype=dtype,
+                          device=x0.device)
+
+    return _State(
         x=x0, y=y0, kx=kx0, kty=kty0,
         x_sum=torch.zeros_like(x0), y_sum=torch.zeros_like(y0),
         kx_sum=torch.zeros_like(kx0), kty_sum=torch.zeros_like(kty0),
@@ -1111,21 +1146,6 @@ def solve_stacked(
         prim_res=full(float("inf")), gap=full(float("inf")),
         best_score=full(float("inf")), diverged=full(False, torch.bool),
     )
-
-    # the loop's one host sync per chunk
-    while bool(torch.any(~state.done & ~state.diverged
-                         & (state.it < max_iters))):
-        state = chunk(state)
-
-    x_fin, y_fin = state.x, state.y
-    if equilibrate:
-        x_fin, y_fin = unscale_solution(x_fin, y_fin, d_r, d_c)
-    pr, gap, p_obj, d_obj = _kkt(op, eng, x_fin, y_fin)
-    return SolveResult(
-        x=_np(x_fin), y=_np(y_fin), primal_obj=_np(p_obj),
-        dual_obj=_np(d_obj), primal_res=_np(pr), gap=_np(gap),
-        iterations=_np(state.it), converged=_np(state.done),
-        n_restarts=_np(state.n_restarts), diverged=_np(state.diverged))
 
 
 # the keyword names a solver_kw dict may carry — what ExecConfig validates

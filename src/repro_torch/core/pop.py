@@ -27,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from . import backends as backends_mod
 from . import partition as part_mod
 from . import pdhg
@@ -270,9 +271,38 @@ def _plan_fits(prev: PopPlan, problem: POPProblem, k: int,
                                prev.external_ids()))
 
 
+def _resolve_plan(problem: POPProblem, solve_cfg: SolveConfig, k: int,
+                  warm, prev_plan: Optional[PopPlan], ids_agree: bool, *,
+                  plan, replan: bool, partition_idx, entity_ids):
+    """The plan a solve runs under and where it came from: ``provided``,
+    ``reused`` verbatim, ``repaired`` under churn, or ``fresh``."""
+    if plan is not None:
+        return plan, "provided"
+    if (warm is not None and prev_plan is not None and not replan
+            and partition_idx is None
+            and solve_cfg.replicate_threshold is None and ids_agree):
+        if _plan_fits(prev_plan, problem, k, entity_ids):
+            return prev_plan, "reused"
+        if prev_plan.k == k and prev_plan.replication is None:
+            # entity churn at the same k: survivors keep their (lane, slot)
+            return (repair_plan(prev_plan, problem, entity_ids=entity_ids),
+                    "repaired")
+        return make_plan(problem, k, strategy=solve_cfg.strategy,
+                         seed=solve_cfg.seed, entity_ids=entity_ids), "fresh"
+    return make_plan(problem, k, strategy=solve_cfg.strategy,
+                     seed=solve_cfg.seed,
+                     replicate_threshold=solve_cfg.replicate_threshold,
+                     partition_idx=partition_idx,
+                     entity_ids=entity_ids), "fresh"
+
+
 @dataclasses.dataclass
 class PreparedSolve:
-    """Stages plan+build of the pipeline, stopped at the map-step launch."""
+    """Stages plan+build of the pipeline, stopped at the map-step launch.
+    ``build_time_s`` is the host's time to issue plan resolution, the
+    sub-LPs' build and stack and the finite check, read from the
+    ``pop.build`` span's two clock reads; it takes no device synchronize of
+    its own (the finite check reads each uploaded field back)."""
 
     problem: POPProblem
     plan: Optional[PopPlan]
@@ -311,106 +341,92 @@ def prepare_instance(
     if warm is not None and getattr(warm, "x", None) is None:
         raise ValueError("warm result lacks solver state (x/y)")
 
-    t0 = time.perf_counter()
-    prev_plan = getattr(warm, "plan", None) if warm is not None else None
-    # one side naming entities externally while the other matches by
-    # position would pair arbitrary entities — refuse to match, start cold
-    ids_agree = (prev_plan is None
-                 or (prev_plan.entity_ids is None) == (entity_ids is None))
-    source = "fresh"
-    if plan is not None:
-        p = plan
-        source = "provided"
-    elif (warm is not None and prev_plan is not None and not replan
-          and partition_idx is None
-          and solve_cfg.replicate_threshold is None and ids_agree):
-        if _plan_fits(prev_plan, problem, k, entity_ids):
-            p = prev_plan
-            source = "reused"
-        elif prev_plan.k == k and prev_plan.replication is None:
-            # entity churn at the same k: survivors keep their (lane, slot)
-            p = repair_plan(prev_plan, problem, entity_ids=entity_ids)
-            source = "repaired"
-        else:
-            p = make_plan(problem, k, strategy=solve_cfg.strategy,
-                          seed=solve_cfg.seed, entity_ids=entity_ids)
-    else:
-        p = make_plan(problem, k, strategy=solve_cfg.strategy,
-                      seed=solve_cfg.seed,
-                      replicate_threshold=solve_cfg.replicate_threshold,
-                      partition_idx=partition_idx, entity_ids=entity_ids)
-    ops = build(problem, p, device)
-    _require_finite_ops(ops, "solve_instance")
-    build_time = time.perf_counter() - t0
+    with tracing.span("pop.prepare"):
+        with tracing.timed("pop.build") as built:
+            prev_plan = (getattr(warm, "plan", None) if warm is not None
+                         else None)
+            # one side naming entities externally while the other matches
+            # by position would pair arbitrary entities — refuse to match,
+            # start cold
+            ids_agree = (prev_plan is None or (prev_plan.entity_ids is None)
+                         == (entity_ids is None))
+            p, source = _resolve_plan(
+                problem, solve_cfg, k, warm, prev_plan, ids_agree, plan=plan,
+                replan=replan, partition_idx=partition_idx,
+                entity_ids=entity_ids)
+            ops = build(problem, p, device)
+            _require_finite_ops(ops, "solve_instance")
 
-    warm_in = None
-    warm_stats = None
-    if warm is not None:
-        if source == "reused":
-            warm_in = (warm.x, warm.y)
-            n_live = int((p.entity_of_slot >= 0).sum())
-            warm_stats = dict(warm_fraction=1.0, matched=n_live, fresh=0,
-                              dropped=0, lanes_cold=0, identity=True)
-        elif not ids_agree:
-            warm_stats = dict(warm_fraction=0.0, matched=0, fresh=0,
-                              dropped=0, lanes_cold=k, identity=False,
-                              reason="entity id spaces differ (one side has "
-                                     "entity_ids, the other is positional)")
-        elif prev_plan is not None:
-            ws = remap_warm(prev_plan, p, warm, ops=ops)
-            warm_in = ws
-            warm_stats = ws.stats
+        warm_in = None
+        warm_stats = None
+        if warm is not None:
+            if source == "reused":
+                warm_in = (warm.x, warm.y)
+                n_live = int((p.entity_of_slot >= 0).sum())
+                warm_stats = dict(warm_fraction=1.0, matched=n_live, fresh=0,
+                                  dropped=0, lanes_cold=0, identity=True)
+            elif not ids_agree:
+                warm_stats = dict(warm_fraction=0.0, matched=0, fresh=0,
+                                  dropped=0, lanes_cold=k, identity=False,
+                                  reason="entity id spaces differ (one side "
+                                         "has entity_ids, the other is "
+                                         "positional)")
+            elif prev_plan is not None:
+                ws = remap_warm(prev_plan, p, warm, ops=ops)
+                warm_in = ws
+                warm_stats = ws.stats
 
-    if cold_lanes is not None and warm_in is not None:
-        # divergence quarantine: poisoned lanes restart cold, survivors
-        # keep their iterates (the per-lane mask the backends blend on the
-        # solve's device)
-        cl = np.asarray(cold_lanes, bool).reshape(-1)
-        if cl.shape[0] != p.k:
-            raise ValueError(f"cold_lanes has {cl.shape[0]} entries for "
-                             f"k={p.k} lanes")
-        if isinstance(warm_in, WarmStart):
-            wx, wy = warm_in.x, warm_in.y
-            mask = np.asarray(warm_in.mask, bool) & ~cl
-            stats = dict(warm_in.stats or {})
-        else:
-            wx, wy = warm_in
-            mask = ~cl
-            stats = dict(warm_stats or {})
-        stats["quarantined_lanes"] = int(cl.sum())
-        stats["lanes_cold"] = int((~mask).sum())
-        stats["warm_fraction"] = float(
-            stats.get("warm_fraction", 1.0) * mask.mean()) if p.k else 0.0
-        stats["identity"] = False
-        warm_in = WarmStart(x=wx, y=wy, mask=mask, stats=stats)
-        warm_stats = stats
+        if cold_lanes is not None and warm_in is not None:
+            # divergence quarantine: poisoned lanes restart cold, survivors
+            # keep their iterates (the per-lane mask the backends blend on the
+            # solve's device)
+            cl = np.asarray(cold_lanes, bool).reshape(-1)
+            if cl.shape[0] != p.k:
+                raise ValueError(f"cold_lanes has {cl.shape[0]} entries for "
+                                 f"k={p.k} lanes")
+            if isinstance(warm_in, WarmStart):
+                wx, wy = warm_in.x, warm_in.y
+                mask = np.asarray(warm_in.mask, bool) & ~cl
+                stats = dict(warm_in.stats or {})
+            else:
+                wx, wy = warm_in
+                mask = ~cl
+                stats = dict(warm_stats or {})
+            stats["quarantined_lanes"] = int(cl.sum())
+            stats["lanes_cold"] = int((~mask).sum())
+            stats["warm_fraction"] = float(
+                stats.get("warm_fraction", 1.0) * mask.mean()) if p.k else 0.0
+            stats["identity"] = False
+            warm_in = WarmStart(x=wx, y=wy, mask=mask, stats=stats)
+            warm_stats = stats
 
-    backend_name, engine_run, opts = backends_mod.resolve_exec(
-        ops, problem.K_mv, problem.KT_mv, exec_cfg.backend, exec_cfg.engine,
-        exec_cfg.opts_dict())
-    return PreparedSolve(
-        problem=problem, plan=p, ops=ops, warm=warm_in,
-        warm_stats=warm_stats, plan_source=source, backend=backend_name,
-        engine=engine_run, opts=opts, solver_kw=solver_kw,
-        build_time_s=build_time)
+        backend_name, engine_run, opts = backends_mod.resolve_exec(
+            ops, problem.K_mv, problem.KT_mv, exec_cfg.backend,
+            exec_cfg.engine, exec_cfg.opts_dict())
+        return PreparedSolve(
+            problem=problem, plan=p, ops=ops, warm=warm_in,
+            warm_stats=warm_stats, plan_source=source, backend=backend_name,
+            engine=engine_run, opts=opts, solver_kw=solver_kw,
+            build_time_s=built.seconds)
 
 
 def finish_prepared(prep: PreparedSolve, res: SolveResult,
                     solve_time_s: float) -> POPResult:
     """Reduce per-lane allocations and assemble the :class:`POPResult`."""
-    p = prep.plan
-    alloc = reduce(prep.problem, p, prep.ops, res)
-    return POPResult(
-        alloc=alloc, idx=p.idx,
-        solve_time_s=solve_time_s, build_time_s=prep.build_time_s,
-        iterations=res.iterations, converged=res.converged,
-        similarity=p.similarity or {},
-        sub_objectives=res.primal_obj,
-        replication=p.replication,
-        x=res.x, y=res.y,
-        plan=p, warm_stats=prep.warm_stats,
-        backend=prep.backend, engine=pdhg.engine_name(prep.engine),
-        plan_source=prep.plan_source, diverged=res.diverged)
+    with tracing.span("pop.finish"):
+        p = prep.plan
+        alloc = reduce(prep.problem, p, prep.ops, res)
+        return POPResult(
+            alloc=alloc, idx=p.idx,
+            solve_time_s=solve_time_s, build_time_s=prep.build_time_s,
+            iterations=res.iterations, converged=res.converged,
+            similarity=p.similarity or {},
+            sub_objectives=res.primal_obj,
+            replication=p.replication,
+            x=res.x, y=res.y,
+            plan=p, warm_stats=prep.warm_stats,
+            backend=prep.backend, engine=pdhg.engine_name(prep.engine),
+            plan_source=prep.plan_source, diverged=res.diverged)
 
 
 def solve_instance(

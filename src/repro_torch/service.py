@@ -72,6 +72,7 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+from . import tracing
 from .checkpoint import paged as paged_mod
 from .checkpoint import session_state as ckpt_mod
 from .core import backends as backends_mod
@@ -131,7 +132,10 @@ class Allocation:
     ``"fallback"`` (``alloc`` is the previous allocation or the domain's
     greedy); ``faults`` lists what happened on the way
     (``"divergence:2"``, ``"deadline:capped"``, ``"warm-state-mismatch"``,
-    ...), empty on clean steps."""
+    ...), empty on clean steps.  ``solve_time_s`` is the map step's wall
+    time, ended by its readback; ``build_time_s`` the host's time to issue
+    the build (``PreparedSolve.build_time_s``: no device synchronize of
+    its own)."""
 
     domain: str
     tenant: str
@@ -426,9 +430,10 @@ class MicroBatchDispatcher:
         """One map-backend call; its numpy result means the device is done
         with it."""
         prep = tk.prep
-        return backends_mod.get_backend(prep.backend)(
-            batch, tk.K_mv, tk.KT_mv, dict(prep.solver_kw),
-            engine=prep.engine, **prep.opts)
+        with tracing.span("pop.solve_map", lanes=int(batch[0].c.shape[0])):
+            return backends_mod.get_backend(prep.backend)(
+                batch, tk.K_mv, tk.KT_mv, dict(prep.solver_kw),
+                engine=prep.engine, **prep.opts)
 
     def _run_group(self, grp: list) -> None:
         if len(grp) > 1:
@@ -577,22 +582,24 @@ class PopSession:
         the same (domain, ExecConfig, shape), and the step degrades down
         the ladder when the budget is short (``Allocation.status``).
         Without a deadline the step runs the session's ExecConfig as is."""
-        with self._lock:
-            self.service._reattach(self)
-            t0 = time.perf_counter()
-            if self.spec.step_override is not None:
-                alloc = self._step_override(instance, deadline_s, t0)
-            else:
-                alloc = self._step_generic(instance, deadline_s, t0)
-            self.steps += 1
-            self._last_wall = time.perf_counter() - t0
-            if self._tuner is not None and alloc.status != "fallback":
-                self._observe_tuned(alloc)
-            _tally(self.stats, alloc)
-            with self.service._lock:
-                _tally(self.service._stats, alloc)
-            self.last = alloc
-        self.service._after_step(self)
+        with tracing.span("pop.step") as span:
+            with self._lock:
+                self.service._reattach(self)
+                t0 = time.perf_counter()
+                if self.spec.step_override is not None:
+                    alloc = self._step_override(instance, deadline_s, t0)
+                else:
+                    alloc = self._step_generic(instance, deadline_s, t0)
+                self.steps += 1
+                self._last_wall = time.perf_counter() - t0
+                if self._tuner is not None and alloc.status != "fallback":
+                    self._observe_tuned(alloc)
+                _tally(self.stats, alloc)
+                with self.service._lock:
+                    _tally(self.service._stats, alloc)
+                self.last = alloc
+            self.service._after_step(self)
+            span.set(plan_cache=alloc.plan_cache)
         return alloc
 
     def step_async(self, instance: Any, *,
