@@ -20,9 +20,11 @@ KT_mv, kw_items, engine)``).  Two hazard shapes defeat them:
 
 Builders that RETURN the compiled callable (``return torch.compile(...)``)
 are fine — caching is then the caller's contract — and compiles or
-captures inside a memoized builder are the blessed pattern.  The port has
-no compile or capture on the POP path yet: the rule guards the queued
-CUDA-graph work (ROADMAP "Queued for a perf_opt").
+captures inside a memoized builder are the blessed pattern.  The POP
+path's one capture, the solve loop's chunk (``core/pdhg.solve_stacked``),
+is made once a solve by design, through ``capture_begin``: its graph holds
+that solve's operator and state, so there is nothing to reuse across
+solves.
 """
 
 from __future__ import annotations

@@ -33,8 +33,13 @@ on the accelerator.
 
 The reference's ``lax.while_loop`` becomes a Python loop over
 ``check_every``-iteration chunks with exactly one host sync per chunk (the
-``any(~done & ~diverged & it < max_iters)`` test).  Results come back as
-numpy arrays at the reference's :class:`SolveResult` fields.
+``any(~done & ~diverged & it < max_iters)`` test).  On a CUDA device, with
+an engine whose half-steps can be captured (``StepEngine.capturable``),
+the first chunk runs eagerly and the rest replay it as one CUDA graph: the
+iterations, the check, the write-back of the state and the next loop test,
+so that a chunk costs the host one graph launch and the flag's read.
+Results come back as numpy arrays at the reference's :class:`SolveResult`
+fields, the same bits whether the chunks replay or not.
 
 Packing (``_pack_ell``/``_pack_side``) is the reference's numpy code,
 verbatim, so the ELL arrays come out bit-equal to the reference's.
@@ -418,7 +423,10 @@ class StepEngine(NamedTuple):
     """Batched inner-loop math (see the module docstring): ``K``/``KT``
     products, the two product-emitting half-steps, the optional
     equilibration payload scaler ``scale_data(data, d_r, d_c)`` and the
-    optional one-time ``prep(op)`` normaliser."""
+    optional one-time ``prep(op)`` normaliser.  ``capturable`` says that
+    the half-steps and the products launch on the current stream and never
+    wait for the device once their operator is packed, so that
+    :func:`solve_stacked` may capture a chunk of them as a CUDA graph."""
 
     name: str
     K: Callable
@@ -427,6 +435,7 @@ class StepEngine(NamedTuple):
     backward: Callable
     scale_data: Optional[Callable] = None
     prep: Optional[Callable] = None
+    capturable: bool = False
 
 
 # every builder made by _memoized, in definition order: the cache misses
@@ -493,7 +502,8 @@ def _stacked(fn: Callable) -> Callable:
 def matvec_engine(K_mv: Callable = dense_K_mv,
                   KT_mv: Callable = dense_KT_mv) -> StepEngine:
     """Generic operator engine over the problem's per-lane matvecs;
-    memoized on matvec identity (one engine object per matvec pair)."""
+    memoized on matvec identity (one engine object per matvec pair).
+    Never captured: the problem's callables may wait for the device."""
     return _engine_from_matvecs("matvec", _stacked(K_mv), _stacked(KT_mv))
 
 
@@ -527,7 +537,8 @@ def fused_dense_engine(kernel_backend: Optional[str] = None) -> StepEngine:
         (K_,) = data
         return (K_ * d_r[..., :, None] * d_c[..., None, :],)
 
-    return StepEngine("fused", K, KT, forward, backward, scale_data)
+    return StepEngine("fused", K, KT, forward, backward, scale_data,
+                      capturable=True)
 
 
 @_memoized(maxsize=4)
@@ -560,7 +571,7 @@ def fused_structured_engine(kernel_backend: Optional[str] = None
                            structured=None)
 
     return StepEngine("fused_structured", K, KT, forward, backward,
-                      scale_structured, prep)
+                      scale_structured, prep, capturable=True)
 
 
 @_memoized(maxsize=16)
@@ -604,7 +615,7 @@ def fused_structured_full_engine(kernel_backend: Optional[str] = None,
         return op._replace(data=op.structured, structured=None)
 
     return StepEngine("fused_structured_full", K, KT, forward, backward,
-                      scale_structured, prep)
+                      scale_structured, prep, capturable=True)
 
 
 # auto picks fused_structured_full only above this many stored wide-bucket
@@ -922,6 +933,121 @@ def _np(a: torch.Tensor) -> np.ndarray:
     return a.detach().cpu().numpy()
 
 
+def _capture_on(eng: StepEngine, device: torch.device) -> bool:
+    """Whether :func:`solve_stacked` replays its chunks as a CUDA graph:
+    on a CUDA device, with an engine that can be captured."""
+    return eng.capturable and device.type == "cuda"
+
+
+_capture_local = threading.local()
+
+
+def _capture_resources(device: torch.device) -> tuple:
+    """``(stream, pool)`` this thread captures with on ``device``, made at
+    its first capture there.  A thread's solves run one after another, and
+    each one's graph has run to its end before the next solve captures, so
+    they share one memory pool: its memory is used again, not cached anew
+    each solve.  A pool that no graph holds any longer cannot be captured
+    into again, so a one-node graph captured into it when it is made lives
+    as long as the pool.  Two threads never share one."""
+    per_device = getattr(_capture_local, "per_device", None)
+    if per_device is None:
+        per_device = _capture_local.per_device = {}
+    got = per_device.get(device.index)
+    if got is None:
+        with torch.cuda.device(device):
+            stream = torch.cuda.Stream()
+            pool = torch.cuda.graph_pool_handle()
+            holder = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(stream):
+                holder.capture_begin(pool=pool,
+                                     capture_error_mode="thread_local")
+                try:
+                    torch.zeros(1, device=device)
+                finally:
+                    holder.capture_end()
+        got = per_device[device.index] = (stream, pool, holder)
+    return got[:2]
+
+
+def _launch_counts() -> list:
+    """The kernel wrappers' launch counts (``LAUNCHES``, ``CUDA_LAUNCHES``):
+    dicts of wrapper name to the calls, or CUDA launches, made so far."""
+    from ..kernels import (fused_pdhg_step, pdhg_matvec,
+                           structured_full_pdhg_step, structured_pdhg_step)
+    return [counts for mod in (pdhg_matvec, fused_pdhg_step,
+                               structured_pdhg_step, structured_full_pdhg_step)
+            for counts in (mod.LAUNCHES, getattr(mod, "CUDA_LAUNCHES", None))
+            if counts is not None]
+
+
+def _counted_apart(body: Callable) -> tuple:
+    """``(body(), launched)``: ``launched`` is ``[(counts, name, n)]``, what
+    ``body`` added to the wrappers' launch counts, taken off them again.
+    A wrapper called inside a capture counts its launch on the host, where
+    the device runs nothing; :func:`_count_launched` counts it again where
+    a replay launches it.  Exact where no other thread calls a wrapper
+    while ``body`` runs."""
+    counts = _launch_counts()
+    before = [dict(c) for c in counts]
+    out = body()
+    launched = []
+    for c, b in zip(counts, before):
+        for name, n in b.items():
+            if c[name] != n:
+                launched.append((c, name, c[name] - n))
+                c[name] = n
+    return out, launched
+
+
+def _count_launched(launched: list) -> None:
+    """Add ``launched`` (:func:`_counted_apart`) to the launch counts."""
+    for counts, name, n in launched:
+        counts[name] += n
+
+
+class _ChunkGraph:
+    """``body()`` captured once as a CUDA graph on ``device``, replayed on
+    the current stream; ``outputs`` is what ``body`` returned, the tensors
+    each replay writes anew.  The capture runs on the thread's side stream
+    (:func:`_capture_resources`), after the current stream's work and
+    before its next.  ``capture_error_mode="thread_local"`` leaves other
+    threads free to allocate and wait while this one captures (the
+    serving dispatcher solves beside its tenants).  The wrappers' launch
+    counts go up at each replay, by what the captured body called, and
+    not at the capture, which launches nothing."""
+
+    def __init__(self, device: torch.device, body: Callable):
+        stream, pool = _capture_resources(device)
+        current = torch.cuda.current_stream(device)
+        stream.wait_stream(current)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            self.graph.capture_begin(pool=pool,
+                                     capture_error_mode="thread_local")
+            try:
+                self.outputs, self.launched = _counted_apart(body)
+            finally:
+                self.graph.capture_end()
+        current.wait_stream(stream)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        _count_launched(self.launched)
+
+
+def _copy_state(dst: "_State", src: "_State") -> None:
+    """``src`` written into ``dst``'s tensors: one grouped copy a dtype
+    (``torch._foreach_copy_`` copies a list of one dtype in one kernel)."""
+    groups: dict = {}
+    for d, s in zip(dst, src):
+        to, frm = groups.setdefault(d.dtype, ([], []))
+        to.append(d)
+        frm.append(s)
+    for to, frm in groups.values():
+        torch._foreach_copy_(to, frm)
+
+
 def solve_stacked(
     op: OperatorLP,
     engine: Union[None, str, StepEngine] = None,
@@ -949,7 +1075,9 @@ def solve_stacked(
     ``kkt="standalone"`` re-derives the current candidate's products with
     fresh operator passes each check (the verification mode).
 
-    One host sync per ``check_every`` chunk decides whether to go on."""
+    One host sync per ``check_every`` chunk decides whether to go on.  On
+    a CUDA device with a capturable engine every chunk after the first
+    replays one CUDA graph (the module docstring)."""
     if kkt not in ("inloop", "standalone"):
         raise ValueError(f"unknown kkt mode {kkt!r}; "
                          "expected 'inloop' or 'standalone'")
@@ -1106,15 +1234,38 @@ def solve_stacked(
             diverged=diverged,
         )
 
+    def running(s: _State) -> torch.Tensor:
+        return ~s.done & ~s.diverged & (s.it < max_iters)
+
+    def chunk_in_place(s: _State) -> torch.Tensor:
+        _copy_state(s, chunk(s))
+        return torch.any(running(s))
+
     # the loop's one host sync per chunk; the host's wait there is the
-    # loop span's self time
+    # loop span's self time.  Where the chunk can be captured, the first
+    # runs eagerly (it packs the kernels' operator, a sync of its own) and
+    # each later one replays the graph of chunk_in_place over a static
+    # copy of the state, whose flag the loop then reads
+    capture = _capture_on(eng_run, dev)
+    graph = None
     with tracing.span("pdhg.loop", check_every=check_every) as loop:
-        chunks = 0
-        while bool(torch.any(~state.done & ~state.diverged
-                             & (state.it < max_iters))):
-            state = chunk(state)
+        chunks = replays = 0
+        while bool(torch.any(running(state)) if graph is None
+                   else graph.outputs):
+            if graph is None and chunks and capture:
+                state = _State(*[t.clone() for t in state])
+                with tracing.span("pdhg.capture"):
+                    graph = _ChunkGraph(
+                        dev, functools.partial(chunk_in_place, state))
+            if graph is None:
+                state = chunk(state)
+            else:
+                with tracing.span("pdhg.replay"):
+                    graph.replay()
+                replays += 1
             chunks += 1
-        loop.set(chunks=chunks)
+        loop.set(chunks=chunks, replays=replays,
+                 captured=int(graph is not None))
 
     with tracing.span("pdhg.readback"):
         x_fin, y_fin = state.x, state.y

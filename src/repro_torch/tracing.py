@@ -41,11 +41,17 @@ The spans of a session step, and no others:
                     engine prep, equilibration, power iteration, start
                     iterates, first products
 ``pdhg.loop``       the loop of ``solve_stacked`` (``chunks``: the loop's
-                    turns, ``check_every``)
+                    turns, ``check_every``; ``captured``: 1 where its
+                    chunks replay a CUDA graph, ``replays``: how many)
 ``pdhg.iterate``    a chunk's step sizes, sum copies and ``check_every``
                     iterations
 ``pdhg.check``      the rest of the chunk: running averages, candidate
                     choice, KKT, restart and freeze, the new state
+``pdhg.capture``    inside ``pdhg.loop``: a chunk captured as a CUDA
+                    graph and instantiated (its ``pdhg.iterate`` and
+                    ``pdhg.check`` inside, issuing nothing that runs)
+``pdhg.replay``     inside ``pdhg.loop``: one launch of the captured
+                    chunk's graph
 ``pdhg.readback``   after the loop: the final KKT, unscaling and the
                     host copies of the result
 ``pop.finish``      ``core/pop.finish_prepared``: reduce and assemble
@@ -53,7 +59,8 @@ The spans of a session step, and no others:
 
 The host's wait at the loop's one flag read a chunk is the self time of
 ``pdhg.loop`` (:func:`self_ns`): its duration less what its children
-cover.  Two sessions stepped on two threads give two disjoint trees.
+cover.  Where the chunks replay a graph, the host issues a chunk in one
+launch and the wait is the device's time for it.  Two sessions stepped on two threads give two disjoint trees.
 The dispatcher's coalesced map step (``service.MicroBatchDispatcher``)
 runs on its own thread: its ``pop.solve_map`` there has no parent and no
 step id.

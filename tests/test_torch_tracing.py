@@ -300,8 +300,8 @@ def test_step_spans_split_and_averages():
     split = mod.split_step(_hand_step(0))
     assert split == pytest.approx(dict(
         prepare=1e-6, build=6e-7, setup=4e-7, iterate=6e-6, check=1.7e-6,
-        flag_wait=3e-7, reduce=4e-7, solve_map=8.5e-6, step=1e-5,
-        iterations=80))
+        capture=0.0, replay=0.0, flag_wait=3e-7, reduce=4e-7,
+        solve_map=8.5e-6, step=1e-5, iterations=80, replays=0))
     steps = [dict(wall_s=1.2e-5, map_s=9e-6, iters=80,
                   split=mod.split_step(_hand_step(100 * i)))
              for i in range(2)]
@@ -329,3 +329,100 @@ def test_step_spans_innermost():
         None, "pop.step", "pdhg.iterate", "pdhg.loop", "pdhg.check",
         "pdhg.check", "pdhg.loop", "pop.step", "pop.finish", "pop.step",
         None]
+
+
+def _hand_replayed_step():
+    """One step's records whose loop ran 4 chunks: one eager, one captured
+    (its own iterate and check inside the capture), three replays."""
+    s = 1
+    return [_rec("pop.step", 1, None, 0, 20_000, step=1),
+            _rec("pop.prepare", 2, 1, 0, 1_000, step=s),
+            _rec("pop.build", 3, 2, 0, 600, step=s),
+            _rec("pop.solve_map", 4, 1, 1_000, 19_000, step=s, lanes=2),
+            _rec("pdhg.setup", 5, 4, 1_000, 1_200, step=s),
+            _rec("pdhg.loop", 6, 4, 1_200, 18_800, step=s, check_every=40,
+                 chunks=4, replays=3, captured=1),
+            _rec("pdhg.iterate", 7, 6, 1_300, 4_300, step=s),
+            _rec("pdhg.check", 8, 6, 4_300, 5_300, step=s),
+            _rec("pdhg.capture", 9, 6, 5_400, 9_400, step=s),
+            _rec("pdhg.iterate", 10, 9, 5_500, 8_000, step=s),
+            _rec("pdhg.check", 11, 9, 8_000, 9_000, step=s),
+            _rec("pdhg.replay", 12, 6, 9_500, 9_600, step=s),
+            _rec("pdhg.replay", 13, 6, 12_500, 12_600, step=s),
+            _rec("pdhg.replay", 14, 6, 15_500, 15_600, step=s),
+            _rec("pdhg.readback", 15, 4, 18_800, 19_000, step=s),
+            _rec("pop.finish", 16, 1, 19_000, 19_500, step=s)]
+
+
+def test_step_spans_split_with_replays():
+    """The captured chunk's own iterate and check count in ``capture``, not
+    twice; the replays' launches in ``replay``; the flag wait is the loop's
+    self time, labelled the device's; the parts still sum to
+    ``ms_per_iter``."""
+    mod = _step_spans()
+    split = mod.split_step(_hand_replayed_step())
+    assert split == pytest.approx(dict(
+        prepare=1e-6, build=6e-7, setup=4e-7, iterate=3e-6, check=1e-6,
+        capture=4e-6, replay=3e-7, flag_wait=9.3e-6, reduce=5e-7,
+        solve_map=1.8e-5, step=2e-5, iterations=160, replays=3))
+    avg = mod.averages([dict(wall_s=2e-5, map_s=1.8e-5, iters=160,
+                             split=split)])
+    assert avg["capture_s"] == pytest.approx(4e-6)
+    assert avg["replay_us"] == pytest.approx(3e-7 * 1e6 / 160)
+    assert avg["iterate_us"] == pytest.approx(3e-6 * 1e6 / 160)
+    assert avg["flag_wait_us"] == pytest.approx(9.3e-6 * 1e6 / 160)
+    assert avg["parts_over_ms_per_iter"] == pytest.approx(1.0)
+    assert avg["flag_wait_is"] == mod.FLAG_WAIT[True]
+    eager = mod.averages([dict(wall_s=1.2e-5, map_s=9e-6, iters=80,
+                               split=mod.split_step(_hand_step(0)))])
+    assert eager["flag_wait_is"] == mod.FLAG_WAIT[False]
+    assert (eager["capture_s"], eager["replay_us"]) == (0.0, 0.0)
+
+
+class _ReplayedOnCpu:
+    """A CUDA graph's stand-in on the CPU: capturing runs nothing, each
+    replay runs the chunk again and writes the loop flag in place."""
+
+    def __init__(self, device, body):
+        self.body = body
+        self.outputs = torch.zeros((), dtype=torch.bool)
+
+    def replay(self):
+        self.outputs.copy_(self.body())
+
+
+def test_replayed_step_tree_and_split(monkeypatch):
+    """A session step whose chunks replay (the graph stood in for on the
+    CPU): ``pdhg.capture`` and each ``pdhg.replay`` lie in ``pdhg.loop``,
+    the loop reads ``captured`` 1 and ``replays`` ``chunks - 1``, and the
+    split covers the map step's solver spans once.  (The stand-in runs the
+    chunk, and so its iterate and check spans, at each replay; a captured
+    graph records them once, inside ``pdhg.capture``.)"""
+    from repro_torch.core import pdhg
+    monkeypatch.setattr(pdhg, "_capture_on", lambda eng, dev: eng.capturable)
+    monkeypatch.setattr(pdhg, "_ChunkGraph", _ReplayedOnCpu)
+    sess = _session()
+    sess.step(_inst(0))
+    alloc, recs = _traced_step(sess, _inst(1))
+    by_id = {r.id: r for r in recs}
+    (loop,) = [r for r in recs if r.name == "pdhg.loop"]
+    chunks = loop.attrs["chunks"]
+    assert chunks > 1 and chunks * 40 == int(
+        np.asarray(alloc.raw.iterations).max())
+    assert (loop.attrs["captured"], loop.attrs["replays"]) == (1, chunks - 1)
+    (capture,) = [r for r in recs if r.name == "pdhg.capture"]
+    replays = [r for r in recs if r.name == "pdhg.replay"]
+    assert capture.parent == loop.id and len(replays) == chunks - 1
+    assert all(r.parent == loop.id for r in replays)
+    for name in ("pdhg.iterate", "pdhg.check"):
+        parents = [by_id[r.parent].name for r in recs if r.name == name]
+        assert parents.count("pdhg.loop") == 1
+        assert parents.count("pdhg.replay") == chunks - 1
+    mod = _step_spans()
+    split = mod.split_step(recs)
+    assert split["replays"] == chunks - 1
+    solver = sum(r.ns for r in recs if r.name in (
+        "pdhg.setup", "pdhg.loop", "pdhg.readback")) * 1e-9
+    parts = (split["setup"] + split["iterate"] + split["check"]
+             + split["capture"] + split["replay"] + split["flag_wait"])
+    assert parts == pytest.approx(solver, rel=1e-9)

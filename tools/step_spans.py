@@ -15,19 +15,26 @@ step's map step is timed as the benchmark's traced window times it
 Prints, per side, ``ms_per_iter`` (time in ``solve_map`` over the slowest
 lane's iterations) and the step's wall; from the recorder's steps, each
 step's host time split into ``pop.prepare`` (``pop.build`` of it),
-``pdhg.setup`` + ``pdhg.readback``, ``pdhg.iterate``, ``pdhg.check``, the
-flag wait (the self time of ``pdhg.loop``) and ``pop.finish``, the six
-averages
-``prepare_s``, ``reduce_s``, ``solve_setup_s``, ``iterate_us``,
-``check_us``, ``flag_wait_us``, and two checks: the solver's parts per
-iteration against ``1000 * ms_per_iter``, and ``prepare_s + reduce_s``
-against ``host_prep_s``.  Then the cost of one span, opened and closed
+``pdhg.setup`` + ``pdhg.readback``, the eager chunks' ``pdhg.iterate`` and
+``pdhg.check``, ``pdhg.capture`` (the chunk captured as a CUDA graph, its
+own iterate and check inside), ``pdhg.replay`` (the graph's launches), the
+flag wait (the self time of ``pdhg.loop``) and ``pop.finish``, the
+averages ``prepare_s``, ``reduce_s``, ``solve_setup_s``, ``capture_s``,
+``iterate_us``, ``check_us``, ``replay_us``, ``flag_wait_us``, and two
+checks: the solver's parts per iteration against ``1000 * ms_per_iter``,
+and ``prepare_s + reduce_s`` against ``host_prep_s``.  Where chunks
+replay, the host launches a chunk in a few microseconds and then waits at
+the flag while the device runs it: the flag wait is then the device's
+time for the replayed chunks (``flag_wait_is``).  Then the cost of one span, opened and closed
 100,000 times with the recorder off and on.  Last (a finished profiler
 session slows later host calls), one step under ``torch.profiler`` with
 the recorder on: the device's idle seconds under each program span (the
 innermost one open at each idle gap's middle), the host's CUDA launches
 in each ``pdhg.check`` and ``pdhg.iterate`` range, and whether the
-mirrored ranges nest as the records do.
+mirrored ranges nest as the records do.  On the card, before it,
+``--steps`` steps with CUDA events around each replay of a captured chunk
+split a replayed iteration into the device's kernels, the gaps between
+them inside the graph, and the launch and flag round trip.
 
 ``--device cpu --tiny`` rehearses on the CPU with the CPU tests' small
 configuration (``popbench/tests/popbench_tiny.py``): its times are CPU
@@ -55,7 +62,9 @@ from popbench import run as run_mod  # noqa: E402
 CELL = "gavel-16k.drift"
 SPANS = ("pop.step", "pop.prepare", "pop.build", "pop.solve_map",
          "pdhg.setup", "pdhg.loop", "pdhg.iterate", "pdhg.check",
-         "pdhg.readback", "pop.finish")
+         "pdhg.capture", "pdhg.replay", "pdhg.readback", "pop.finish")
+FLAG_WAIT = {False: "the host's wait for the chunk check",
+             True: "the device's time for the replayed chunks"}
 
 
 def card_line() -> str:
@@ -69,26 +78,34 @@ def card_line() -> str:
 
 
 def split_step(recs: list) -> dict:
-    """One step's host seconds by part, from its span records."""
+    """One step's host seconds by part, from its span records: the eager
+    chunks' iterate and check (those a ``pdhg.loop`` holds directly; the
+    captured chunk's lie in ``pdhg.capture``), the capture, the replays'
+    launches and the flag wait."""
     from repro_torch import tracing
     selfs = tracing.self_ns(recs)
+    loops = [r for r in recs if r.name == "pdhg.loop"]
+    loop_ids = {r.id for r in loops}
 
-    def total(name):
-        return 1e-9 * sum(r.ns for r in recs if r.name == name)
+    def total(name, parents=None):
+        return 1e-9 * sum(r.ns for r in recs if r.name == name and (
+            parents is None or r.parent in parents))
 
     return {"prepare": total("pop.prepare"), "build": total("pop.build"),
             "setup": total("pdhg.setup") + total("pdhg.readback"),
-            "iterate": total("pdhg.iterate"), "check": total("pdhg.check"),
-            "flag_wait": 1e-9 * sum(selfs[r.id] for r in recs
-                                    if r.name == "pdhg.loop"),
+            "iterate": total("pdhg.iterate", loop_ids),
+            "check": total("pdhg.check", loop_ids),
+            "capture": total("pdhg.capture"), "replay": total("pdhg.replay"),
+            "flag_wait": 1e-9 * sum(selfs[r.id] for r in loops),
             "reduce": total("pop.finish"),
             "solve_map": total("pop.solve_map"), "step": total("pop.step"),
             "iterations": sum(r.attrs["chunks"] * r.attrs["check_every"]
-                              for r in recs if r.name == "pdhg.loop")}
+                              for r in loops),
+            "replays": sum(r.attrs.get("replays", 0) for r in loops)}
 
 
 def averages(steps: list) -> dict:
-    """The six span metrics over ``steps`` (each a dict of ``wall_s``,
+    """The span metrics over ``steps`` (each a dict of ``wall_s``,
     ``map_s``, ``iters`` and, with the recorder on, ``split``), beside
     ``ms_per_iter`` and ``host_prep_s`` as the benchmark reads them."""
     n = len(steps)
@@ -109,12 +126,17 @@ def averages(steps: list) -> dict:
 
         out.update(prepare_s=per_step("prepare"), reduce_s=per_step("reduce"),
                    solve_setup_s=per_step("setup"),
+                   capture_s=per_step("capture"),
                    iterate_us=per_iter_us("iterate"),
                    check_us=per_iter_us("check"),
+                   replay_us=per_iter_us("replay"),
                    flag_wait_us=per_iter_us("flag_wait"),
+                   flag_wait_is=FLAG_WAIT[any(p["replays"] for p in parts)],
                    span_iters_equal_lane_max=span_iters == iters)
-        inside = (1e6 * out["solve_setup_s"] / out["iters_per_step"]
-                  + out["iterate_us"] + out["check_us"] + out["flag_wait_us"])
+        inside = (1e6 * (out["solve_setup_s"] + out["capture_s"])
+                  / out["iters_per_step"]
+                  + out["iterate_us"] + out["check_us"] + out["replay_us"]
+                  + out["flag_wait_us"])
         out["parts_over_ms_per_iter"] = inside / (1e3 * out["ms_per_iter"])
         out["prepare_reduce_over_host_prep"] = (
             (out["prepare_s"] + out["reduce_s"]) / out["host_prep_s"])
@@ -160,6 +182,63 @@ def innermost(ranges: list, points: list) -> list:
             stack.pop()
         out.append(stack[-1][0] if stack else None)
     return out
+
+
+def replay_times(step, next_inst, n_steps: int) -> dict:
+    """``n_steps`` steps with the recorder on and a pair of CUDA events on
+    the current stream around each replay of a captured chunk: the
+    device's time from a graph's launch to its last kernel's end, and the
+    host's time for the replayed chunks (their launches and flag waits),
+    per replayed iteration."""
+    import torch
+
+    from repro_torch import tracing
+    from repro_torch.core import pdhg
+
+    marks = []
+    orig = pdhg._ChunkGraph.replay
+
+    def replay(self):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        orig(self)
+        b.record()
+        marks.append((a, b))
+
+    pdhg._ChunkGraph.replay = replay
+    tracing.enable()
+    try:
+        got = [step(next_inst(), record=False) for _ in range(n_steps)]
+    finally:
+        tracing.disable()
+        pdhg._ChunkGraph.replay = orig
+    recs = tracing.take()
+    torch.cuda.synchronize()
+    split = split_step(recs)
+    replayed = sum(r.attrs["replays"] * r.attrs["check_every"]
+                   for r in recs if r.name == "pdhg.loop")
+    # the loop's time less its eager chunks and the capture: the replays'
+    # launches and every flag wait (the first chunk's is a sliver of it)
+    host_s = (sum(r.ns for r in recs if r.name == "pdhg.loop") * 1e-9
+              - split["iterate"] - split["check"] - split["capture"])
+    graph_ms = sum(a.elapsed_time(b) for a, b in marks)
+    return {"steps": n_steps, "iters": sum(g["iters"] for g in got),
+            "replays": split["replays"], "replayed_iters": replayed,
+            "graph_us": 1e3 * graph_ms / replayed,
+            "cycle_us": 1e6 * host_s / replayed,
+            "capture_s": split["capture"] / n_steps}
+
+
+def iteration_split(replayed: dict, profiled: dict) -> dict:
+    """A replayed iteration's microseconds: the device's kernels (the
+    profiled step's busy time over its iterations), the gaps between them
+    inside the graph, and the rest of the host's cycle (the graph's launch
+    and the flag's round trip)."""
+    kernels = 1e6 * profiled["busy_s"] / profiled["iters"]
+    return {"cycle": replayed["cycle_us"], "kernels": kernels,
+            "in_graph_gaps": replayed["graph_us"] - kernels,
+            "launch_and_flag": replayed["cycle_us"] - replayed["graph_us"]}
 
 
 def profiled_step(step, next_inst, on_card: bool) -> dict:
@@ -307,8 +386,16 @@ def main(argv=None) -> int:
         summary["cost_ms_per_iter_on_over_off"]) + " median "
         + repr(statistics.median(summary["cost_ms_per_iter_on_over_off"]))
         + " span " + json.dumps(summary["span_cost"]), flush=True)
+    if on_card:
+        summary["replayed"] = replay_times(step, next_inst, args.steps)
+        print("[replayed] " + json.dumps(summary["replayed"]), flush=True)
     summary["profiled"] = profiled_step(step, next_inst, on_card)
     print("[profiled] " + json.dumps(summary["profiled"]), flush=True)
+    if "replayed" in summary:
+        summary["iteration_split_us"] = iteration_split(
+            summary["replayed"], summary["profiled"])
+        print("[split] " + json.dumps(summary["iteration_split_us"]),
+              flush=True)
 
     capture.close()
     service.close()
